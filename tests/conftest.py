@@ -19,3 +19,8 @@ import jax
 
 jax.config.update("jax_compilation_cache_dir", "/tmp/jax_test_cache")
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card and nvcc (skips without a card)")
