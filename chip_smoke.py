@@ -2,12 +2,14 @@
 
     python3 chip_smoke.py
 
-Drives ``controllable_agent_torch`` (and nothing of the JAX package) in five
+Drives ``controllable_agent_torch`` (and nothing of the JAX package) in six
 phases, each printed on its own line; any failure exits non-zero:
 
   1. build the CUDA kernels of ``controllable_agent_torch/csrc`` with nvcc;
-  2. hold each of the four fused-FB-loss kernels against its plain PyTorch
-     version on the card, at n=1024 (the batch) and the ragged n=300, d=50;
+  2. hold each of the three fused-FB-loss kernels (forward sums, cov sums,
+     the one backward pass) against its plain PyTorch version on the card,
+     at n=1024 (the batch) and the ragged n=300, d=50, and check that the
+     forward sums and the backward are bitwise repeatable;
   3. one full-width FBDDPG update with the fused loss against one without,
      from the same state with the same noise;
   4. the offline slice through its entry point, ``train_offline.main``:
@@ -15,9 +17,10 @@ phases, each printed on its own line; any failure exits non-zero:
      ``save_exorl_episodes``, a few hundred updates at full width in bf16
      with ``agent.use_pallas_loss=true``; every kernel's launch count must
      equal the number of updates;
-  5. each kernel's device time against its plain version at n=1024, d=50,
-     timed over replays of a CUDA graph of back-to-back calls, so that the
-     host's launch rate does not enter the time;
+  5. each kernel's device time against its plain version and its bound at
+     n=1024, d=50 (the backward also at n=2048 and 4096), timed over
+     replays of a CUDA graph of back-to-back calls, so that the host's
+     launch rate does not enter the time;
   6. a ``torch.profiler`` trace of a few slice updates: each kernel's device
      time by name, the device's busy share and the launches per update.
 
@@ -48,15 +51,19 @@ from controllable_agent_torch.utils.device import card_name_and_power_limit
 
 SEED = 0
 N, N_RAGGED, D = 1024, 300, 50
+BWD_SIZES = (1024, 2048, 4096)  # batches at which phase 5 times the backward
 OBS_DIM, ACTION_DIM, EPISODES, EPISODE_LENGTH = 24, 6, 64, 1000
 SLICE_STEPS, STEPS_PER_CALL = 300, 100
 PROFILE_STEPS = 20
 # device kernels of each wrapper, as the profiler names them
 KERNEL_NAMES = {"fwd_sums": ("fb_fwd_tile_kernel", "reduce_pairs_kernel"),
                 "cov_sums": ("fb_gram_kernel", "fb_gram_reduce_kernel"),
-                "bwd_df": ("fb_bwd_df_kernel",), "bwd_db": ("fb_bwd_db_kernel",)}
-# published H100 SXM peaks (dense): float32 on the CUDA cores, HBM3
-F32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12
+                "bwd": ("fb_bwd_tile_kernel", "fb_bwd_reduce_kernel")}
+# Published H100 SXM peaks (dense). The ops bound of every row is taken at
+# the rate of float32-accurate products on the tensor cores: 3xTF32 does
+# three TF32 products per product, so a third of the 495 TFLOP/s TF32 peak.
+F32_ACCURATE_TC_FLOP_PER_S = 495e12 / 3
+HBM_BYTES_PER_S = 3.35e12
 FWD_RTOL = 2e-4  # as tests/test_pallas_fb.py: order of f32 sums over n^2
 GRAD_RTOL = 1e-4  # of the largest entry: f32 accumulation order only
 
@@ -82,9 +89,7 @@ def check_kernels(n: int) -> tp.Dict[str, float]:
     pairs = {
         "fwd_sums": (ff.fwd_sums(*args), ff.fwd_sums_plain(*args)),
         "cov_sums": (ff.cov_sums(args[2]), ff.cov_sums_plain(args[2])),
-        "bwd_df": (torch.stack(ff.bwd_df(*args, g)),
-                   torch.stack(ff.bwd_df_plain(*args, g))),
-        "bwd_db": (ff.bwd_db(*args, g), ff.bwd_db_plain(*args, g)),
+        "bwd": (torch.stack(ff.bwd(*args, g)), torch.stack(ff.bwd_plain(*args, g))),
     }
     absargs = [x.abs() for x in args]
     scales = {"fwd_sums": ff.fwd_sums_plain(*absargs),
@@ -101,18 +106,24 @@ def check_kernels(n: int) -> tp.Dict[str, float]:
             err, tol = float((got - want).abs()[worst]), float(tols[worst])
             ok = err <= tol
             what = f"rtol {FWD_RTOL} + 1e-6 x sum of |terms|, worst of the 2 sums"
-        else:
-            tol = GRAD_RTOL * float(want.abs().max())
+        else:  # dF1, dF2 and dB, each to its own largest entry
+            tols = GRAD_RTOL * want.abs().flatten(1).max(1).values
+            worst = int(((got - want).abs().flatten(1).max(1).values / tols).argmax())
+            err = float((got[worst] - want[worst]).abs().max())
+            tol = float(tols[worst])
             ok = err <= tol
-            what = f"atol {GRAD_RTOL} x max|plain|"
+            what = (f"atol {GRAD_RTOL} x max|plain| of each of dF1, dF2, dB, "
+                    f"worst is {('dF1', 'dF2', 'dB')[worst]}")
         print(f"phase 2 n={n} d={D} {name}: max_abs_err {err:.3e} "
               f"tolerance {tol:.3e} ({what}) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"kernel {name} disagrees with its plain version at n={n}")
         errors[name] = float((got - want).abs().max())
-    again = ff.fwd_sums(*args)
-    if not torch.equal(again, pairs["fwd_sums"][0]):
+    if not torch.equal(ff.fwd_sums(*args), pairs["fwd_sums"][0]):
         raise AssertionError("fwd_sums is not bitwise repeatable")
+    if not torch.equal(torch.stack(ff.bwd(*args, g)), pairs["bwd"][0]):
+        raise AssertionError("bwd is not bitwise repeatable")
+    print(f"phase 2 n={n}: fwd_sums and bwd bitwise repeatable")
     return errors
 
 
@@ -219,48 +230,80 @@ def time_ms(fn: tp.Callable[[], tp.Any], calls: int = 50, replays: int = 20) -> 
     return start.elapsed_time(end) / (replays * calls)
 
 
+def bound(flops: float, nbytes: float) -> tp.Tuple[float, str]:
+    """The least ms the card could take, and which of the two bounds it."""
+    ops_ms = 1e3 * flops / F32_ACCURATE_TC_FLOP_PER_S
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+
+
+def time_pair(kernel: tp.Callable[[], tp.Any], plain: tp.Callable[[], tp.Any],
+              calls: int) -> tp.Tuple[float, float, str]:
+    """Kernel and plain version in turns (plain, kernel, kernel, plain);
+    returns the best of each and the four times as text."""
+    plain_a = time_ms(plain, calls)
+    ms_a = time_ms(kernel, calls)
+    ms_b = time_ms(kernel, calls)
+    plain_b = time_ms(plain, calls)
+    turns = f"kernel {ms_a:.5f}/{ms_b:.5f} ms, plain {plain_a:.5f}/{plain_b:.5f} ms"
+    return min(ms_a, ms_b), min(plain_a, plain_b), turns
+
+
 def time_kernels(errors: tp.Dict[str, float], counts: tp.Dict[str, int]
                  ) -> tp.List[tp.Dict[str, tp.Any]]:
     args = kernel_inputs(N, D, SEED)
-    g = loss_cotangent(N)
     nd, n2d = N * D, N * N * D
     in_bytes = 4 * (6 * nd + N)
-    # The least flops each function needs. Kernels 1, 3 and 4 need the n x n
+    # The least flops each function needs. The forward needs the n x n
     # TM = min(TF1 TB^T, TF2 TB^T) (4 n^2 d) and one n x n by n x d product
     # with it (2 n^2 d); every term in M1 or M2 alone factors through d x d
     # Gram matrices (O(n d^2), not counted). Kernel 2 needs the symmetric
     # Gram matrix B^T B (n d (d+1)) and the row norms (2 n d).
-    least_fb = 6 * n2d
+    source = "controllable_agent_torch/csrc/fused_fb.cu"
     table = [
         # name, kernel, plain, flops, bytes, replaced TPU kernel
         ("fwd_sums", lambda: ff.fwd_sums(*args), lambda: ff.fwd_sums_plain(*args),
-         least_fb, in_bytes + 8, "controllable_agent_tpu/ops/pallas_fb.py:61"),
+         6 * n2d, in_bytes + 8, "controllable_agent_tpu/ops/pallas_fb.py:61"),
         ("cov_sums", lambda: ff.cov_sums(args[2]), lambda: ff.cov_sums_plain(args[2]),
          nd * (D + 1) + 2 * nd, 4 * nd + 8, "controllable_agent_tpu/ops/pallas_fb.py:91"),
-        ("bwd_df", lambda: ff.bwd_df(*args, g), lambda: ff.bwd_df_plain(*args, g),
-         least_fb, in_bytes + 16 + 8 * nd, "controllable_agent_tpu/ops/pallas_fb.py:184"),
-        ("bwd_db", lambda: ff.bwd_db(*args, g), lambda: ff.bwd_db_plain(*args, g),
-         least_fb, in_bytes + 16 + 4 * nd, "controllable_agent_tpu/ops/pallas_fb.py:219"),
     ]
     rows = []
     for name, kernel, plain, flops, nbytes, replaces in table:
-        plain_a = time_ms(plain)
-        ms_a = time_ms(kernel)
-        ms_b = time_ms(kernel)
-        plain_b = time_ms(plain)
-        ops_ms, bytes_ms = 1e3 * flops / F32_FLOPS, 1e3 * nbytes / HBM_BYTES_PER_S
-        row = {"name": name, "route": "cuda",
-               "source": "controllable_agent_torch/csrc/fused_fb.cu",
-               "replaces": replaces, "launches": counts[name],
-               "max_abs_err": errors[name], "ms": min(ms_a, ms_b),
-               "plain_ms": min(plain_a, plain_b), "bound_ms": max(ops_ms, bytes_ms),
-               "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-               "library_ms": None}
-        print(f"phase 5 {name} n={N} d={D}: kernel {ms_a:.5f}/{ms_b:.5f} ms, plain "
-              f"{plain_a:.5f}/{plain_b:.5f} ms (CUDA graph), bound "
-              f"{row['bound_ms']:.5f} ms ({row['bound_by']}, {flops / 1e9:.4f} "
-              f"GFLOP f32, {nbytes / 1e6:.3f} MB)")
-        rows.append(row)
+        ms, plain_ms, turns = time_pair(kernel, plain, 50)
+        bound_ms, bound_by = bound(flops, nbytes)
+        rows.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": counts[name],
+                     "max_abs_err": errors[name], "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+        print(f"phase 5 {name} n={N} d={D}: {turns} (CUDA graph), bound "
+              f"{bound_ms:.5f} ms ({bound_by}, {flops / 1e9:.4f} GFLOP at "
+              f"{F32_ACCURATE_TC_FLOP_PER_S / 1e12:.0f} TFLOP/s, {nbytes / 1e6:.3f} MB)")
+    # The backward (dF1, dF2 and the FB part of dB together) needs TM once
+    # (4 n^2 d), (g TM off) B for dF1 and dF2 (2 n^2 d) and TM^T (g (F1 + F2))
+    # for dB (2 n^2 d): 8 n^2 d. It reads the inputs and g and writes three
+    # n x d outputs.
+    for n in BWD_SIZES:
+        xs = args if n == N else kernel_inputs(n, D, SEED)
+        g = loss_cotangent(n)
+        flops, nbytes = 8 * n * n * D, 4 * (6 * n * D + n) + 16 + 12 * n * D
+        ms, plain_ms, turns = time_pair(lambda: ff.bwd(*xs, g), lambda: ff.bwd_plain(*xs, g),
+                                        max(4, 50 * N * N // (n * n)))
+        bound_ms, bound_by = bound(flops, nbytes)
+        print(f"phase 5 bwd n={n} d={D}: {turns} (CUDA graph), bound {bound_ms:.5f} ms "
+              f"({bound_by}, {flops / 1e9:.4f} GFLOP at "
+              f"{F32_ACCURATE_TC_FLOP_PER_S / 1e12:.0f} TFLOP/s, {nbytes / 1e6:.3f} MB); "
+              f"{ms / bound_ms:.1f}x the bound, {plain_ms / ms:.2f}x faster than plain")
+        if n != N:
+            continue
+        # one launch computes both TPU kernels' outputs: each row carries the pair's numbers
+        for part, replaces in (("dF1, dF2", "controllable_agent_tpu/ops/pallas_fb.py:184"),
+                               ("dB", "controllable_agent_tpu/ops/pallas_fb.py:219")):
+            rows.append({"name": f"bwd ({part})", "route": "cuda", "source": source,
+                         "replaces": replaces, "launches": counts["bwd"],
+                         "max_abs_err": errors["bwd"], "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                         "note": "one fb_bwd launch computes both rows; the numbers are "
+                                 "the pair's"})
     return rows
 
 

@@ -6,21 +6,29 @@ orth_diag_sum) like the JAX ``fb_loss_terms_fused``; the caller applies the
 1/(n(n-1)) and 1/n factors. Its gradient flows to f1, f2 and b; the targets
 and the discount get none.
 
-Four kernels carry it, in ``csrc/fused_fb.cu`` (CUDA C++ for sm_90a, loaded
-with ctypes by ``_build.py``); the note at the top of that file says what
-bounds them on the H100 and what the design does about it:
+Three wrappers carry it, over kernels in ``csrc/fused_fb.cu`` (CUDA C++ for
+sm_90a, loaded with ctypes by ``_build.py``); each launches a tile kernel
+and a fixed-order reduction of its partials:
 
-  wrapper     kernel               replaces (controllable_agent_tpu/ops/pallas_fb.py)
-  fwd_sums    fb_fwd_tile_kernel   _fwd_kernel     :61   Σ_off resid², Σ_diag M
-  cov_sums    fb_gram_kernel       _cov_kernel     :91   Σ_off cov², Σ_diag cov
-  bwd_df      fb_bwd_df_kernel     _bwd_kernel     :184  dF1, dF2
-  bwd_db      fb_bwd_db_kernel     _bwd_db_kernel  :219  dB (FB part)
+  wrapper   kernel               replaces (controllable_agent_tpu/ops/pallas_fb.py)
+  fwd_sums  fb_fwd_tile_kernel   _fwd_kernel     :61   Σ_off resid², Σ_diag M
+  cov_sums  fb_gram_kernel       _cov_kernel     :91   Σ_off cov², Σ_diag cov
+  bwd       fb_bwd_tile_kernel   _bwd_kernel     :184  dF1, dF2
+                                 _bwd_db_kernel  :219  dB (FB part)
 
-Beside each wrapper sits its plain PyTorch version (``*_plain``). A wrapper
-takes the plain version only for tensors on the CPU (the tests); for CUDA
-tensors it checks device, dtype, shape and contiguity, launches the kernel,
-and raises if the launch fails. ``launches[name]`` counts kernel launches,
-so a run can show that its main path went through the kernels.
+The backward is one pass: each block forms its 64×64 tile of the weights
+W = 2·g_off·(M − γ·TM)⊙off + g_diag·I once, on the tensor cores in 3xTF32
+(f32-level accuracy; single-pass TF32 is too coarse for residuals that
+cancel), and feeds both W·B (dF) and Wᵀ·F (dB) from it. It is bound by
+arithmetic: the least work is 8·n²·d flops (TM once, one n×n by n×d product
+for dF and one for dB). The note at the top of the .cu file says more.
+
+Beside each wrapper sits its plain PyTorch version (``*_plain``); the
+backward's, ``bwd_plain``, composes ``bwd_df_plain`` and ``bwd_db_plain``. A
+wrapper takes the plain version only for tensors on the CPU (the tests); for
+CUDA tensors it checks device, dtype, shape and contiguity, launches the
+kernel, and raises if the launch fails. ``launches[name]`` counts kernel
+launches, so a run can show that its main path went through the kernels.
 
 The orthonormality gradient 4·g_covoff·(cov⊙off)·B + 2·g_covdiag·B is
 computed outside the kernels with ``torch.matmul``. The JAX package forms
@@ -41,8 +49,7 @@ from .. import _build
 
 Tensor = torch.Tensor
 
-launches: tp.Dict[str, int] = {"fwd_sums": 0, "cov_sums": 0, "bwd_df": 0,
-                               "bwd_db": 0}
+launches: tp.Dict[str, int] = {"fwd_sums": 0, "cov_sums": 0, "bwd": 0}
 
 
 def reset_launches() -> None:
@@ -95,6 +102,13 @@ def bwd_db_plain(f1: Tensor, f2: Tensor, b: Tensor, tf1: Tensor, tf2: Tensor,
     return w1.T @ f1 + w2.T @ f2
 
 
+def bwd_plain(f1: Tensor, f2: Tensor, b: Tensor, tf1: Tensor, tf2: Tensor,
+              tb: Tensor, disc: Tensor, g: Tensor) -> tp.Tuple[Tensor, Tensor, Tensor]:
+    """dF1, dF2 and the FB part of dB."""
+    args = (f1, f2, b, tf1, tf2, tb, disc, g)
+    return (*bwd_df_plain(*args), bwd_db_plain(*args))
+
+
 # -- kernel wrappers ----------------------------------------------------------
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -104,8 +118,8 @@ _SIGNATURES = {
     "fb_cov_partials": [_I, _I],
     "fb_fwd_sums": [_P] * 9 + [_I, _I, _P],
     "fb_cov_sums": [_P] * 3 + [_I, _I, _P],
-    "fb_bwd_df": [_P] * 10 + [_I, _I, _P],
-    "fb_bwd_db": [_P] * 9 + [_I, _I, _P],
+    "fb_bwd_partials": [_I, _I],
+    "fb_bwd": [_P] * 12 + [_I, _I, _P],
 }
 
 
@@ -126,9 +140,12 @@ def _max_d() -> int:
 
 @functools.cache
 def _scratch_floats(kernel: str, n: int, d: int) -> int:
-    """Floats of scratch that ``fb_fwd_sums`` or ``fb_cov_sums`` needs."""
+    """Floats of scratch that ``fb_fwd_sums``, ``fb_cov_sums`` or ``fb_bwd``
+    needs."""
     lib = _lib()
-    return lib.fb_fwd_partials(n) if kernel == "fwd" else lib.fb_cov_partials(n, d)
+    if kernel == "fwd":
+        return lib.fb_fwd_partials(n)
+    return (lib.fb_cov_partials if kernel == "cov" else lib.fb_bwd_partials)(n, d)
 
 
 def _on_cpu(*xs: Tensor) -> bool:
@@ -202,37 +219,26 @@ def cov_sums(b: Tensor) -> Tensor:
     return out
 
 
-def bwd_df(f1: Tensor, f2: Tensor, b: Tensor, tf1: Tensor, tf2: Tensor,
-           tb: Tensor, disc: Tensor, g: Tensor) -> tp.Tuple[Tensor, Tensor]:
-    """Kernel 3 (replaces ``_bwd_kernel``): dF1, dF2 of the FB sums."""
+def bwd(f1: Tensor, f2: Tensor, b: Tensor, tf1: Tensor, tf2: Tensor, tb: Tensor,
+        disc: Tensor, g: Tensor) -> tp.Tuple[Tensor, Tensor, Tensor]:
+    """The backward kernel (replaces ``_bwd_kernel`` and ``_bwd_db_kernel``):
+    dF1, dF2 and the FB part of dB for the cotangent g[4]."""
     if _on_cpu(f1, f2, b, tf1, tf2, tb, disc, g):
-        return bwd_df_plain(f1, f2, b, tf1, tf2, tb, disc, g)
+        return bwd_plain(f1, f2, b, tf1, tf2, tb, disc, g)
     n, d = _check((f1, f2, b, tf1, tf2, tb), disc, g)
-    df1, df2 = torch.empty_like(f1), torch.empty_like(f2)
+    partials = torch.empty(_scratch_floats("bwd", n, d), device=f1.device)
+    df1, df2, db = torch.empty_like(f1), torch.empty_like(f2), torch.empty_like(b)
     stream = torch.cuda.current_stream(f1.device).cuda_stream
-    rc = _lib().fb_bwd_df(*_ptrs(f1, f2, b, tf1, tf2, tb, disc, g, df1, df2),
-                       n, d, stream)
-    _launched("bwd_df", rc)
-    return df1, df2
-
-
-def bwd_db(f1: Tensor, f2: Tensor, b: Tensor, tf1: Tensor, tf2: Tensor,
-           tb: Tensor, disc: Tensor, g: Tensor) -> Tensor:
-    """Kernel 4 (replaces ``_bwd_db_kernel``): dB of the FB sums."""
-    if _on_cpu(f1, f2, b, tf1, tf2, tb, disc, g):
-        return bwd_db_plain(f1, f2, b, tf1, tf2, tb, disc, g)
-    n, d = _check((f1, f2, b, tf1, tf2, tb), disc, g)
-    db = torch.empty_like(b)
-    stream = torch.cuda.current_stream(b.device).cuda_stream
-    rc = _lib().fb_bwd_db(*_ptrs(f1, f2, b, tf1, tf2, tb, disc, g, db), n, d, stream)
-    _launched("bwd_db", rc)
-    return db
+    rc = _lib().fb_bwd(*_ptrs(f1, f2, b, tf1, tf2, tb, disc, g, partials, df1, df2,
+                              db), n, d, stream)
+    _launched("bwd", rc)
+    return df1, df2, db
 
 
 # -- the autograd function ----------------------------------------------------
 class FBLossTermsFused(torch.autograd.Function):
-    """The four sums as one float32 [4] tensor; backward through kernels 3
-    and 4 plus the orthonormality term."""
+    """The four sums as one float32 [4] tensor; backward through the
+    backward kernel plus the orthonormality term."""
 
     @staticmethod
     def forward(ctx: tp.Any, f1: Tensor, f2: Tensor, b: Tensor, tf1: Tensor,
@@ -244,8 +250,7 @@ class FBLossTermsFused(torch.autograd.Function):
     def backward(ctx: tp.Any, grad: Tensor) -> tp.Tuple[tp.Optional[Tensor], ...]:
         f1, f2, b, tf1, tf2, tb, discount = ctx.saved_tensors
         g = grad.float().contiguous()
-        df1, df2 = bwd_df(f1, f2, b, tf1, tf2, tb, discount, g)
-        db = bwd_db(f1, f2, b, tf1, tf2, tb, discount, g)
+        df1, df2, db = bwd(f1, f2, b, tf1, tf2, tb, discount, g)
         # orthonormality: d/dB [g_covoff Σ_off cov² + g_covdiag Σ_diag cov],
         # with (cov⊙off)·B = B·(BᵀB) − diag(|b_i|²)·B
         cov_off_b = b @ (b.T @ b) - (b * b).sum(1, keepdim=True) * b

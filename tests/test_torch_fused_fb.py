@@ -77,10 +77,11 @@ def _jax_pieces(xs, g):
 @pytest.mark.parametrize("name", ["fwd_sums", "cov_sums", "bwd_df", "bwd_db"])
 def test_each_kernel_plain_version(name) -> None:
     """Each wrapper's CPU path (its kernel's plain version) at the slice's
-    z_dim d=50 against the piece of the JAX custom VJP it replaces. The
+    z_dim d=50 against the piece of the JAX custom VJP it replaces; bwd_df
+    and bwd_db read the two parts of the one backward wrapper's output. The
     backward cotangent has zero orthonormality parts, so the JAX VJP's dB
-    is the FB part that kernel 4 computes (rtol 1e-4, atol 1e-6: f32
-    products of O(1) entries summed over n=64)."""
+    is the FB part that the backward kernel computes (rtol 1e-4, atol 1e-6:
+    f32 products of O(1) entries summed over n=64)."""
     n = 64
     xs = _inputs(n, 50, 3)
     g = np.array([0.5 / (n * (n - 1)), -1.0 / n, 0.0, 0.0], np.float32)
@@ -89,12 +90,32 @@ def test_each_kernel_plain_version(name) -> None:
     got, want = {
         "fwd_sums": (lambda: ff.fwd_sums(*args), sums[:2]),
         "cov_sums": (lambda: ff.cov_sums(args[2]), sums[2:]),
-        "bwd_df": (lambda: torch.stack(ff.bwd_df(*args, gt)), np.stack([df1, df2])),
-        "bwd_db": (lambda: ff.bwd_db(*args, gt), db),
+        "bwd_df": (lambda: torch.stack(ff.bwd(*args, gt)[:2]), np.stack([df1, df2])),
+        "bwd_db": (lambda: ff.bwd(*args, gt)[2], db),
     }[name]
     before = dict(ff.launches)
     np.testing.assert_allclose(got().numpy(), want, rtol=1e-4, atol=1e-6)
     assert ff.launches == before  # the CPU path launches no kernel
+
+
+def test_whole_backward_ragged() -> None:
+    """The whole backward (the backward wrapper's plain version plus the
+    orthonormality gradient, through autograd) against ``jax.vjp`` of the
+    Pallas function in interpret mode, at the ragged n=300 (not a multiple
+    of the JAX tile 256 or of the port's 64) and d=50, with the agent's
+    cotangent, orthonormality parts included (rtol 1e-4, atol 1e-6: f32
+    sums over n=300 in another order)."""
+    n = 300
+    xs = _inputs(n, 50, 6)
+    denom = n * (n - 1)
+    g = np.array([0.5 / denom, -1.0 / n, 1.0 / denom, -2.0 / n], np.float32)
+    _, want = _jax_pieces(xs, g)
+    args = _port(xs)
+    for a in args[:3]:
+        a.requires_grad_(True)
+    torch.autograd.backward(ff.FBLossTermsFused.apply(*args), torch.from_numpy(g))
+    for a, w in zip(args[:3], want):
+        np.testing.assert_allclose(a.grad.numpy(), w, rtol=1e-4, atol=1e-6)
 
 
 def test_orthonormality_gradient() -> None:
