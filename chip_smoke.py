@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives ``controllable_agent_torch`` (and nothing of the JAX package) in six
+Drives ``controllable_agent_torch`` (and nothing of the JAX package) in nine
 phases, each printed on its own line; any failure exits non-zero:
 
   1. build the CUDA kernels of ``controllable_agent_torch/csrc`` with nvcc;
@@ -13,16 +13,34 @@ phases, each printed on its own line; any failure exits non-zero:
   3. one full-width FBDDPG update with the fused loss against one without,
      from the same state with the same noise;
   4. the offline slice through its entry point, ``train_offline.main``:
-     synthetic ExORL episodes (64 x 1000, obs 24, action 6) written with
-     ``save_exorl_episodes``, a few hundred updates at full width in bf16
-     with ``agent.use_pallas_loss=true``; every kernel's launch count must
-     equal the number of updates; the run's peak device memory;
+     synthetic walker-shaped ExORL episodes (64 x 1000, obs 24, action 6,
+     physics 18) written with ``save_exorl_episodes``, relabeled for
+     ``walker_walk``, a few hundred updates at full width in bf16 with
+     ``agent.use_pallas_loss=true``, run as replays of one captured CUDA
+     graph; every kernel's launch count must equal the number of updates
+     plus the capture's eager warm-up runs, and so must the runs that the
+     kernels count on the device themselves; the run's peak device memory;
+     then the updates/s of the eager loop at the same size beside it;
   5. each kernel's device time against its plain version and its bound at
      n=1024, 2048 and 4096, d=50, timed over replays of a CUDA graph of
      back-to-back calls, so that the host's launch rate does not enter the
      time; the SM clock while such a graph runs;
-  6. a ``torch.profiler`` trace of a few slice updates: each kernel's device
-     time by name, the device's busy share and the launches per update.
+  6. a ``torch.profiler`` trace of a few slice updates inside graph replays:
+     each kernel's device time by name, the device's busy share, the kernel
+     launches per update and the graph launches per call;
+  7. captured against eager: a few full-width bf16 updates with the fused
+     loss from one state, batch and noise through a captured program and
+     through the eager ``_update`` on a copy (parameters, targets and Adam
+     moments must agree); two replays must sample different batches and
+     draw different noise;
+  8. relabeling on the card at a real size: a walker-shaped buffer of 1,000
+     episodes x 1,000 steps with 18 physics columns, relabeled for
+     ``walker_walk``; its time and peak memory; a sample of rows against
+     the same reward function on the CPU;
+  9. z for a named task (``walker_run`` rewards from the stored physics, 8
+     draws): finite and of norm sqrt(z_dim); then the checkpoint phase 4
+     left, loaded by a fresh workspace on the same folder: identical state
+     and an identical next update.
 
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -44,17 +62,26 @@ import torch
 from controllable_agent_torch import _build, train_offline
 from controllable_agent_torch.agents import FBDDPGAgent, FBDDPGConfig, UpdateNoise
 from controllable_agent_torch.data import ReplayBuffer
+from controllable_agent_torch.data import replay as replay_lib
 from controllable_agent_torch.data.exorl import save_exorl_episodes, synthetic_episodes
+from controllable_agent_torch.envs import locomotion
+from controllable_agent_torch.goals import get_reward_function
 from controllable_agent_torch.ops import fused_fb as ff
-from controllable_agent_torch.train.loops import make_offline_trainer
+from controllable_agent_torch.pretrain import build_workspace
+from controllable_agent_torch.train.loops import (WARMUP_RUNS, CapturedProgram,
+                                                  make_offline_trainer)
 from controllable_agent_torch.utils.device import card_name_and_power_limit, query_card
 
 SEED = 0
 N, N_RAGGED, D = 1024, 300, 50
 SIZES = (1024, 2048, 4096)  # batches at which phase 5 times the kernels
-OBS_DIM, ACTION_DIM, EPISODES, EPISODE_LENGTH = 24, 6, 64, 1000
-SLICE_STEPS, STEPS_PER_CALL = 300, 100
+OBS_DIM, ACTION_DIM, PHYSICS_DIM, EPISODES, EPISODE_LENGTH = 24, 6, 18, 64, 1000
+SLICE_STEPS, STEPS_PER_CALL = 600, 100
+EAGER_STEPS = 100  # the eager loop timed beside the captured trainer
 PROFILE_STEPS = 20
+CAPTURED_UPDATES = 3  # phase 7: updates through the captured program and eagerly
+RELABEL_EPISODES, RELABEL_ROWS_CHECKED = 1000, 4096
+Z_DRAWS = 8
 # device kernels of each wrapper, as the profiler names them
 KERNEL_NAMES = {"fwd": ("fb_fwd_tile_kernel", "fb_fwd_reduce_kernel"),
                 "bwd": ("fb_bwd_tile_kernel", "fb_bwd_reduce_kernel")}
@@ -165,43 +192,83 @@ def check_update(episodes: tp.List[tp.Dict[str, np.ndarray]]) -> None:
         raise AssertionError("fused and plain updates disagree")
 
 
-def run_slice(episodes: tp.List[tp.Dict[str, np.ndarray]]
-              ) -> tp.Tuple[tp.Dict[str, int], tp.Any]:
-    with tempfile.TemporaryDirectory() as tmp:
-        store = ReplayBuffer(EPISODES, discount=0.98, future=0.99, device="cpu")
-        store.load_episodes(episodes)
-        written = save_exorl_episodes(store.state, f"{tmp}/episodes")
-        argv = [f"replay_dir={tmp}/episodes", "relabel=false", "agent=fb_ddpg",
-                "agent.use_pallas_loss=true", "agent.compute_dtype=bfloat16",
-                f"num_grad_steps={SLICE_STEPS}", f"steps_per_call={STEPS_PER_CALL}",
-                f"log_every_steps={STEPS_PER_CALL}", "eval_every_steps=0",
-                "checkpoint_every=0", "final_tests=0",
-                f"replay_buffer_episodes={EPISODES}", f"folder={tmp}/run",
-                f"seed={SEED}"]
-        torch.cuda.reset_peak_memory_stats()
-        ff.reset_launches()
-        t0 = time.perf_counter()
-        ws = train_offline.main(argv)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = dict(ff.launches)
-        peak = torch.cuda.max_memory_allocated()
+def walker_physics(shape: tp.Tuple[int, ...], generator: torch.Generator,
+                   device: str) -> torch.Tensor:
+    """Walker-shaped [q, qd] rows: the torso between lying and standing
+    height, pitch and joints within a radian, velocities of a few units."""
+    q = torch.rand(shape + (9,), generator=generator, device=device) * 2 - 1
+    q[..., 0] *= 3.0
+    q[..., 1] = 0.3 + 1.3 * (q[..., 1] + 1) / 2
+    qd = torch.randn(shape + (9,), generator=generator, device=device) * 2
+    return torch.cat([q, qd], -1)
+
+
+def slice_args(folder: str, episodes_dir: str) -> tp.List[str]:
+    return [f"replay_dir={episodes_dir}", "task=walker_walk", "relabel=true",
+            "agent=fb_ddpg", "agent.use_pallas_loss=true",
+            "agent.compute_dtype=bfloat16", f"num_grad_steps={SLICE_STEPS}",
+            f"steps_per_call={STEPS_PER_CALL}", f"log_every_steps={STEPS_PER_CALL}",
+            "eval_every_steps=0", "checkpoint_every=0", "final_tests=0",
+            f"replay_buffer_episodes={EPISODES}", f"folder={folder}", f"seed={SEED}"]
+
+
+def run_slice(tmp: str) -> tp.Tuple[tp.Dict[str, int], tp.Any]:
+    episodes = synthetic_episodes(EPISODES, EPISODE_LENGTH, OBS_DIM, ACTION_DIM, SEED)
+    gen = torch.Generator().manual_seed(SEED)
+    for episode in episodes:
+        episode["physics"] = walker_physics((EPISODE_LENGTH + 1,), gen, "cpu").numpy()
+    store = ReplayBuffer(EPISODES, discount=0.98, future=0.99, device="cpu")
+    store.load_episodes(episodes)
+    written = save_exorl_episodes(store.state, f"{tmp}/episodes")
+    torch.cuda.reset_peak_memory_stats()
+    ff.reset_launches()
+    t0 = time.perf_counter()
+    ws = train_offline.main(slice_args(f"{tmp}/run", f"{tmp}/episodes"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(ff.launches)
+    ran = ff.device_runs()
+    peak = torch.cuda.max_memory_allocated()
     row, z = ws.last_row, ws.inferred_z
-    print(f"phase 4 slice: {written} episodes, {ws.global_step} updates in "
-          f"{wall:.1f} s (load included); launches {counts}")
-    if ws.global_step != SLICE_STEPS or any(c != SLICE_STEPS for c in counts.values()):
-        raise AssertionError(f"expected {SLICE_STEPS} launches of every kernel, "
-                             f"got {counts}")
+    expected = SLICE_STEPS + WARMUP_RUNS
+    print(f"phase 4 slice: {written} episodes relabeled for walker_walk, "
+          f"{ws.global_step} updates as replays of one captured graph in {wall:.1f} s "
+          f"(load, relabel, capture and checkpoint included); launches {counts} = "
+          f"{SLICE_STEPS} replayed updates (replays x the launches the graph holds) + "
+          f"{WARMUP_RUNS} eager warm-up runs of the capture; runs counted on the device by "
+          f"the kernels themselves over the same run: {ran}")
+    if ws.global_step != SLICE_STEPS or ws.agent.step != SLICE_STEPS \
+            or any(c != expected for c in counts.values()) or ran != counts:
+        raise AssertionError(f"expected {expected} launches of every kernel, as many runs "
+                             f"on the device and {SLICE_STEPS} steps, got {counts}, {ran}, "
+                             f"step {ws.agent.step}")
+    stored = ws.buffer.state.storage
+    want = get_reward_function("walker_walk").from_physics(stored["physics"])
+    if not torch.allclose(stored["reward"][..., 0], want, atol=1e-5):
+        raise AssertionError("the buffer does not hold walker_walk's rewards")
     if not all(math.isfinite(v) for v in row.values()):
         raise AssertionError(f"non-finite train metrics: {row}")
     if z is None or z.shape != (ws.agent.cfg.z_dim,) or not bool(torch.isfinite(z).all()):
         raise AssertionError(f"bad inferred z: {z}")
-    print(f"phase 4 slice: {row['fps']:.1f} updates/s over the last "
-          f"{STEPS_PER_CALL} updates, fb_loss {row['fb_loss']:.4f}, actor_loss "
+    captured_rate = row["fps"]
+    print(f"phase 4 slice: {captured_rate:.1f} updates/s over the last "
+          f"{STEPS_PER_CALL} updates (captured), fb_loss {row['fb_loss']:.4f}, actor_loss "
           f"{row['actor_loss']:.4f}, on {card_name_and_power_limit()}")
     print("phase 4 slice: inferred z " + " ".join(f"{v:.4f}" for v in z.tolist()))
     print(f"phase 4 slice: peak device memory {peak / 2**20:.1f} MiB "
-          "(torch.cuda.max_memory_allocated over the run, replay included)")
+          "(torch.cuda.max_memory_allocated over the run, replay and the graph's "
+          "pool included)")
+
+    # the eager loop at the same size, once, beside the captured trainer
+    eager = make_offline_trainer(ws.agent, ws.buffer.cfg, ws.agent.cfg.batch_size,
+                                 EAGER_STEPS, capture=False)
+    float(eager(ws.buffer.state, ws.generator)["fb_loss"])  # warm-up
+    t0 = time.perf_counter()
+    float(eager(ws.buffer.state, ws.generator)["fb_loss"])
+    eager_rate = EAGER_STEPS / (time.perf_counter() - t0)
+    print(f"phase 4 slice: eager loop {eager_rate:.1f} updates/s over {EAGER_STEPS} updates, "
+          f"captured {captured_rate:.1f} ({captured_rate / eager_rate:.2f}x), same agent, "
+          f"same buffer, on {card_name_and_power_limit()}")
     return counts, ws
 
 
@@ -324,31 +391,184 @@ def time_kernels(errors: tp.Dict[str, float], counts: tp.Dict[str, int]
 
 def profile_slice(ws: tp.Any) -> None:
     """Device time by kernel over PROFILE_STEPS updates of the slice's agent
-    on its replay, under ``torch.profiler``."""
+    on its replay, run as graph replays under ``torch.profiler``."""
     trainer = make_offline_trainer(ws.agent, ws.buffer.cfg, ws.agent.cfg.batch_size,
                                    PROFILE_STEPS)
-    float(trainer(ws.buffer.state, ws.generator)["fb_loss"])  # warm-up
+    float(trainer(ws.buffer.state, ws.generator)["fb_loss"])  # captures, warms up
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         float(trainer(ws.buffer.state, ws.generator)["fb_loss"])
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    graph_launches = sum(e.name == "cudaGraphLaunch" for e in prof.events())
     if not kernels:
         raise AssertionError("the profiler saw no device kernels")
+    if graph_launches != PROFILE_STEPS:
+        raise AssertionError(f"expected {PROFILE_STEPS} graph launches in the call, "
+                             f"the profiler saw {graph_launches}")
     busy_us = sum(e.time_range.elapsed_us() for e in kernels)
-    print(f"phase 6 profile: {PROFILE_STEPS} updates, {len(kernels) / PROFILE_STEPS:.1f} "
-          f"kernel launches and {1e-3 * busy_us / PROFILE_STEPS:.4f} ms of device "
-          f"time per update, {1e3 * wall / PROFILE_STEPS:.3f} ms of wall time per "
-          f"update under the profiler (busy share {1e-6 * busy_us / wall:.4f})")
+    print(f"phase 6 profile: {PROFILE_STEPS} updates in {graph_launches} graph launches "
+          f"(one call), {len(kernels) / PROFILE_STEPS:.1f} kernel launches and "
+          f"{1e-3 * busy_us / PROFILE_STEPS:.4f} ms of device time per update, "
+          f"{1e3 * wall / PROFILE_STEPS:.3f} ms of wall time per update under the "
+          f"profiler (busy share {1e-6 * busy_us / wall:.4f})")
     for name, parts in KERNEL_NAMES.items():
         per = [sum(e.time_range.elapsed_us() for e in kernels if part in e.name)
                / PROFILE_STEPS for part in parts]
-        if not all(per):
-            raise AssertionError(f"the profiler saw no {parts} kernel")
+        count = [sum(part in e.name for e in kernels) for part in parts]
+        if not all(per) or any(c != PROFILE_STEPS for c in count):
+            raise AssertionError(f"expected {PROFILE_STEPS} launches of each of {parts} "
+                                 f"inside the replays, the profiler saw {count}")
         print(f"phase 6 profile {name}: {1e-3 * sum(per):.5f} ms of device time per "
-              "update (" + ", ".join(f"{p} {1e-3 * t:.5f}" for p, t in zip(parts, per))
-              + ")")
+              "update, once per update inside the replays ("
+              + ", ".join(f"{p} {1e-3 * t:.5f}" for p, t in zip(parts, per)) + ")")
+
+
+def check_capture(ws: tp.Any) -> None:
+    """Captured against eager at full width in bf16 with the fused loss, and
+    that replays draw fresh batches and noise."""
+    cfg = ws.agent.cfg
+    captured = FBDDPGAgent(cfg, OBS_DIM, ACTION_DIM, device="cuda", seed=SEED + 1)
+    eager = FBDDPGAgent(cfg, OBS_DIM, ACTION_DIM, device="cuda", seed=SEED + 1)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    batch = ws.buffer.sample(gen, N)
+    noise = UpdateNoise.draw(cfg, N, ACTION_DIM, gen, torch.device("cuda"))
+    program = CapturedProgram(lambda: captured._update(batch, noise), captured)
+    program.replay(CAPTURED_UPDATES)
+    for _ in range(CAPTURED_UPDATES):
+        eager._update(batch, noise)
+    torch.cuda.synchronize()
+    got, want = captured.train_state(), eager.train_state()
+    # the same kernels in the same order: expected equal to the bit. Allowed,
+    # should cuBLAS choose another algorithm under capture: 2*lr per update
+    # for parameters and targets (Adam moves an entry by about lr), 1e-3 of
+    # the largest entry for a moment.
+    worst = {"parameters and targets": 0.0, "Adam moments": 0.0}
+    bitwise = True
+    for name, a in got.items():
+        b = want[name]
+        bitwise = bitwise and torch.equal(a, b)
+        diff = float((a.float() - b.float()).abs().max())
+        if "_opt." in name and not name.endswith("count"):
+            worst["Adam moments"] = max(worst["Adam moments"],
+                                        diff / max(float(b.float().abs().max()), 1e-30))
+        else:
+            worst["parameters and targets"] = max(worst["parameters and targets"], diff)
+    tol = 2 * cfg.lr * CAPTURED_UPDATES
+    print(f"phase 7 captured vs eager: {CAPTURED_UPDATES} updates (n={N}, bf16, fused loss): "
+          f"max abs diff of parameters, targets and counters "
+          f"{worst['parameters and targets']:.3e} (tolerance {tol:.1e}), of Adam moments "
+          f"{worst['Adam moments']:.3e} of their largest entry (tolerance 1e-3); "
+          f"equal to the bit: {bitwise}; steps {captured.step} and {eager.step}")
+    if worst["parameters and targets"] > tol or worst["Adam moments"] > 1e-3 \
+            or captured.step != CAPTURED_UPDATES:
+        raise AssertionError("captured and eager updates disagree")
+
+    def draw() -> tp.Tuple[torch.Tensor, torch.Tensor]:
+        sampled = replay_lib.sample(ws.buffer.state, gen, N, ws.buffer.cfg)
+        return sampled.obs, UpdateNoise.draw(cfg, N, ACTION_DIM, gen,
+                                             torch.device("cuda")).z_normal
+
+    drawing = CapturedProgram(draw, captured, [gen])
+    seen = []
+    for _ in range(2):
+        drawing.replay()
+        torch.cuda.synchronize()
+        seen.append([x.clone() for x in drawing.out])
+    fresh = [not torch.equal(a, b) for a, b in zip(*seen)]
+    print(f"phase 7 two replays of sample + noise: batches differ {fresh[0]}, "
+          f"noise differs {fresh[1]} (generator registered with the graph)")
+    if not all(fresh):
+        raise AssertionError("a replay repeated its batch or its noise")
+
+
+def check_relabel() -> None:
+    """Relabel a walker-shaped buffer of RELABEL_EPISODES x EPISODE_LENGTH
+    steps for walker_walk on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    shape = (RELABEL_EPISODES, EPISODE_LENGTH + 1)
+    physics = walker_physics(shape, gen, "cuda")
+    env = locomotion.make("walker_walk")
+    buf = ReplayBuffer(RELABEL_EPISODES, discount=0.98, future=0.99, device="cuda")
+    buf.state = replay_lib.ReplayState(
+        storage={"observation": env.obs_from_physics(physics),
+                 "action": torch.rand(shape + (ACTION_DIM,), generator=gen, device="cuda") * 2 - 1,
+                 "reward": torch.zeros(shape + (1,), device="cuda"),
+                 "discount": torch.ones(shape + (1,), device="cuda"),
+                 "physics": physics},
+        ep_lengths=torch.full((RELABEL_EPISODES,), EPISODE_LENGTH, dtype=torch.int64,
+                              device="cuda"),
+        n_episodes=RELABEL_EPISODES, idx=0, max_episodes=RELABEL_EPISODES,
+        max_episode_length=EPISODE_LENGTH)
+    reward = get_reward_function("walker_walk")
+    rows = shape[0] * shape[1]
+    reward.from_physics(physics[:2])  # warm-up: loads the elementwise kernels
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    start.record()
+    buf.relabel(reward.from_physics)
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    pick = torch.randint(rows, (RELABEL_ROWS_CHECKED,), generator=gen, device="cuda")
+    got = buf.state.storage["reward"].reshape(rows)[pick].cpu()
+    want = reward.from_physics(physics.reshape(rows, -1)[pick].cpu())
+    err = float((got - want).abs().max())
+    print(f"phase 8 relabel: {rows} walker rows ({PHYSICS_DIM} physics columns, "
+          f"{physics.numel() * 4 / 1e6:.0f} MB) for walker_walk on the card in "
+          f"{1e3 * wall:.2f} ms of wall time ({start.elapsed_time(end):.2f} ms between CUDA "
+          f"events); peak device memory {peak / 2**20:.1f} MiB, {(peak - held) / 2**20:.1f} "
+          f"MiB above the buffer's {held / 2**20:.1f}; rewards in [{float(got.min()):.4f}, "
+          f"{float(got.max()):.4f}], mean {float(got.mean()):.4f}; max abs err of "
+          f"{RELABEL_ROWS_CHECKED} rows against the CPU {err:.3e} (tolerance 1e-5), on "
+          f"{card_name_and_power_limit()}")
+    if not err <= 1e-5 or not float(got.max()) > float(got.min()):
+        raise AssertionError("rewards relabeled on the card disagree with the CPU's")
+
+
+def check_task_z_and_checkpoint(ws: tp.Any, tmp: str) -> None:
+    """z for a named task from the stored physics, and the checkpoint that
+    phase 4 left, resumed by a fresh workspace on the same folder."""
+    reward = get_reward_function("walker_run", SEED)
+    z = ws._infer_meta_from_replay(reward, draws=Z_DRAWS)
+    norm, want_norm = float(z.norm()), math.sqrt(ws.agent.cfg.z_dim)
+    print(f"phase 9 z for walker_run ({Z_DRAWS} draws of "
+          f"{ws.agent.cfg.num_inference_steps} relabeled samples): norm {norm:.4f} "
+          f"(sqrt(z_dim) = {want_norm:.4f}), first entries "
+          + " ".join(f"{v:.4f}" for v in z[:6].tolist()))
+    if z.shape != (ws.agent.cfg.z_dim,) or not bool(torch.isfinite(z).all()) \
+            or abs(norm - want_norm) > 1e-3:
+        raise AssertionError(f"bad z for walker_run: {z}")
+
+    # phase 4 ended with a checkpoint; the eager loop beside it and phase 6
+    # have trained on since, so save again and resume that
+    ws.global_step = ws.agent.step
+    ws.save_checkpoint()
+    args = [a for a in slice_args(f"{tmp}/run", f"{tmp}/episodes")
+            if not a.startswith(("replay_dir=", "relabel="))]
+    fresh = build_workspace(args, ws.spec)
+    same = all(torch.equal(v, fresh.agent.train_state()[k])
+               for k, v in ws.agent.train_state().items())
+    same_gen = torch.equal(ws.generator.get_state(), fresh.generator.get_state())
+    same_replay = all(torch.equal(v, fresh.buffer.state.storage[k])
+                      for k, v in ws.buffer.state.storage.items())
+    batch = ws.buffer.sample(torch.Generator(device="cuda").manual_seed(SEED + 3), N)
+    losses = [float(w.agent.update(batch, w.generator)["fb_loss"]) for w in (ws, fresh)]
+    torch.cuda.synchronize()
+    same_after = all(torch.equal(v, fresh.agent.train_state()[k])
+                     for k, v in ws.agent.train_state().items())
+    print(f"phase 9 checkpoint: saved at step {ws.global_step}, a fresh workspace on the "
+          f"folder resumed at step {fresh.global_step}; state identical {same}, generator "
+          f"identical {same_gen}, replay identical {same_replay}; next update fb_loss "
+          f"{losses[0]:.6f} and {losses[1]:.6f}, state identical after it {same_after}")
+    if not (same and same_gen and same_replay and same_after and losses[0] == losses[1]
+            and fresh.global_step == ws.global_step == fresh.agent.step - 1):
+        raise AssertionError("the resumed workspace differs from the saved one")
 
 
 def main() -> int:
@@ -371,11 +591,14 @@ def main() -> int:
     errors = check_kernels(N)
     check_kernels(N_RAGGED)
 
-    episodes = synthetic_episodes(EPISODES, EPISODE_LENGTH, OBS_DIM, ACTION_DIM, SEED)
-    check_update(episodes)
-    counts, ws = run_slice(episodes)
-    rows = time_kernels(errors, counts)
-    profile_slice(ws)
+    check_update(synthetic_episodes(EPISODES, EPISODE_LENGTH, OBS_DIM, ACTION_DIM, SEED))
+    with tempfile.TemporaryDirectory() as tmp:
+        counts, ws = run_slice(tmp)
+        rows = time_kernels(errors, counts)
+        profile_slice(ws)
+        check_capture(ws)
+        check_relabel()
+        check_task_z_and_checkpoint(ws, tmp)
 
     print(json.dumps({"kernels": rows}))
     print(f"card: {card_name_and_power_limit()}")

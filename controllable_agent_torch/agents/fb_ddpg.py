@@ -13,6 +13,13 @@ target networks and optimizers and updates them in place. All randomness of
 an update is drawn up front into an ``UpdateNoise`` (``update`` draws it
 from a ``torch.Generator``; ``_update`` takes it as an argument), so a test
 can hand both packages identical noise.
+
+An update touches no host state: the step counter is a device tensor
+(``step_t``; ``step`` reads it), the schedules take it as it is, Adam keeps
+its counts and moments in fixed tensors, and the noise is drawn with
+operations that a CUDA graph can capture. ``train/loops.py`` captures
+sample -> update as one program; the generator it draws from has to be
+registered with that graph.
 """
 
 from __future__ import annotations
@@ -171,8 +178,44 @@ class FBDDPGAgent(ZMetaMixin, nn.Module):
         self.actor_opt = Adam(self.actor, cfg.lr, mu_dtype)
         self.fw_opt = Adam(self.forward_net, cfg.lr, mu_dtype)
         self.bw_opt = Adam(self.backward_net, cfg.lr_coef * cfg.lr, mu_dtype)
-        self.step = 0  # gradient-step counter
+        # gradient-step counter, on the device: a captured update advances it
+        self.register_buffer("step_t", torch.zeros((), dtype=torch.int64,
+                                                   device=self.device))
         self._stddev = schedule(cfg.stddev_schedule)
+
+    @property
+    def step(self) -> int:
+        """Gradient steps taken (reading it waits for the device)."""
+        return int(self.step_t)
+
+    @step.setter
+    def step(self, value: int) -> None:
+        self.step_t.fill_(value)
+
+    def train_state(self) -> tp.Dict[str, Tensor]:
+        """Every tensor an update changes, by name and not copied: the five
+        networks and the step counter (``state_dict``), and the three Adam
+        states. A checkpoint saves these; loading copies into them in place,
+        so a captured update keeps seeing them."""
+        out = dict(self.state_dict())
+        for name in ("actor_opt", "fw_opt", "bw_opt"):
+            out.update({f"{name}.{k}": v for k, v in getattr(self, name).state().items()})
+        return out
+
+    def load_train_state(self, state: tp.Mapping[str, Tensor]) -> None:
+        """Copy ``state`` (as ``train_state`` names it) into the agent."""
+        own = self.train_state()
+        if set(own) != set(state):
+            raise ValueError(
+                "agent state does not match this agent: missing "
+                f"{sorted(set(own) - set(state))}, unexpected "
+                f"{sorted(set(state) - set(own))}")
+        with torch.no_grad():
+            for name, dst in own.items():
+                if dst.shape != state[name].shape:
+                    raise ValueError(f"{name}: saved shape {tuple(state[name].shape)}, "
+                                     f"agent has {tuple(dst.shape)}")
+                dst.copy_(state[name])
 
     # -- z sampling and meta -------------------------------------------
     def sample_z(self, size: int, generator: torch.Generator) -> Tensor:
@@ -293,7 +336,7 @@ class FBDDPGAgent(ZMetaMixin, nn.Module):
             next_action = SquashedNormal(mu, std).sample(normal)
         else:
             mu = self.actor(next_obs, z)
-            dist = TruncatedNormal(mu, self._stddev(self.step))
+            dist = TruncatedNormal(mu, self._stddev(self.step_t))
             next_action = dist.sample(normal, clip=self.cfg.stddev_clip)
         tf1, tf2 = self.target_forward_net(next_obs, z, next_action)
         tb = self.target_backward_net(next_goal)
@@ -385,7 +428,7 @@ class FBDDPGAgent(ZMetaMixin, nn.Module):
             log_prob = dist.log_prob_from_pre_tanh(pre_tanh).sum(-1)
         else:
             mu = self.actor(obs, z)
-            tn = TruncatedNormal(mu, self._stddev(self.step))
+            tn = TruncatedNormal(mu, self._stddev(self.step_t))
             action = tn.sample(normal, clip=cfg.stddev_clip)
             log_prob = tn.log_prob(action).sum(-1)
         f1, f2 = self.forward_net(obs, z, action)
@@ -422,6 +465,6 @@ class FBDDPGAgent(ZMetaMixin, nn.Module):
 
         soft_update(self.forward_net, self.target_forward_net, cfg.fb_target_tau)
         soft_update(self.backward_net, self.target_backward_net, cfg.fb_target_tau)
-        self.step += 1
+        self.step_t += 1
         metrics.update(actor_metrics)
         return {k: v.detach() for k, v in metrics.items()}

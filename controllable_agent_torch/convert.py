@@ -58,9 +58,9 @@ def _load_adam(opt: Adam, opt_state: tp.Any) -> None:
     if set(mu) != set(opt.params) or set(nu) != set(opt.params):
         raise ValueError(f"Adam state names {sorted(mu)} do not match the "
                          f"parameters {sorted(opt.params)}")
-    for name, p in opt.params.items():
-        opt.mu[name] = mu[name].to(p.device, opt.mu[name].dtype)
-        opt.nu[name] = nu[name].to(p.device)
+    for name in opt.params:
+        opt.mu[name].copy_(mu[name])
+        opt.nu[name].copy_(nu[name])
     opt.count = int(np.asarray(adam.count))
 
 

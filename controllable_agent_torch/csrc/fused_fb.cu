@@ -134,6 +134,12 @@ constexpr int kRedThreads = 1024;  // the forward's second pass, one block
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
+// How often the forward's and the backward's launches have run on this
+// device: each reduction kernel, the last of its launch, adds one as it runs.
+// Replays of a CUDA graph count like any other run, which a count kept by
+// the host cannot see. Read and zeroed by fb_runs and fb_runs_reset.
+__device__ unsigned long long fb_run_counts[2];
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -510,6 +516,7 @@ fb_fwd_reduce_kernel(const float* __restrict__ partials, int tiles, int kpad,
     out[1] = v[1];
     out[2] = v[2] - v[3];
     out[3] = v[4];
+    atomicAdd(&fb_run_counts[0], 1ULL);
   }
 }
 
@@ -702,6 +709,7 @@ fb_bwd_reduce_kernel(const float* __restrict__ partials, int tiles, int n, int d
                      int kpad, float* __restrict__ df1, float* __restrict__ df2,
                      float* __restrict__ db) {
   const int nd = n * d, e = blockIdx.x * kThreads + threadIdx.x;
+  if (e == 0) atomicAdd(&fb_run_counts[1], 1ULL);
   if (e >= 3 * nd) return;
   const int which = e / nd, idx = e - which * nd, i = idx / d, c = idx - i * d;
   const size_t stride = static_cast<size_t>(n) * kpad;
@@ -777,8 +785,9 @@ int launch_bwd(const float* f1, const float* f2, const float* b, const float* tf
 }  // namespace
 
 // ---------------------------------------------------------------------------
-// C entry points. Each launches on the given stream, does not synchronise,
-// allocates nothing, and returns a CUDA error code (0 on success).
+// C entry points. Each returns a CUDA error code (0 on success); the
+// launchers launch on the given stream, do not synchronise and allocate
+// nothing.
 
 // `return launch<cdiv(d, 8)>(...)` for d <= 64.
 #define FB_DISPATCH(launch, ...)                      \
@@ -824,6 +833,22 @@ int fb_bwd(const float* f1, const float* f2, const float* b, const float* tf1,
            void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   FB_DISPATCH(launch_bwd, f1, f2, b, tf1, tf2, tb, disc, g, partials, df1, df2, db, n, d, s)
+}
+
+// counts[2] (host memory) = the runs of fb_fwd and of fb_bwd on the current
+// device since the last fb_runs_reset. Unlike the launchers these two wait
+// for the device, and must not be called while a stream is capturing.
+int fb_runs(unsigned long long* counts) {
+  cudaError_t err = cudaDeviceSynchronize();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaMemcpyFromSymbol(counts, fb_run_counts, sizeof(fb_run_counts)));
+}
+
+int fb_runs_reset() {
+  const unsigned long long zero[2] = {0ULL, 0ULL};
+  cudaError_t err = cudaDeviceSynchronize();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaMemcpyToSymbol(fb_run_counts, zero, sizeof(zero)));
 }
 
 }  // extern "C"

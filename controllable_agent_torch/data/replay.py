@@ -8,8 +8,14 @@ dummy first transition, so ``action[t]`` is the action leading into
 ``obs[t]``.
 
 Randomness comes from an explicit ``torch.Generator`` on the storage's
-device. The counters ``n_episodes`` and ``idx`` are host integers: the
-port's loops run on the host, and keeping them there costs no device sync.
+device. ``sample`` reads no value on the host, so it can be captured in a
+CUDA graph with the update that follows it. The counters ``n_episodes`` and
+``idx`` are host integers, fixed in a captured program: the trainer captures
+anew when the buffer has grown.
+
+The reward functions and goal functions that ``relabel``, ``set_goals`` and
+``sample(custom_reward=...)`` take map a tensor of physics rows on the
+storage's device to a tensor on that device; nothing is pulled to the host.
 """
 
 from __future__ import annotations
@@ -92,9 +98,12 @@ def _sample_indices(state: ReplayState, generator: torch.Generator,
     proportional to length, steps uniform in [1, len - nstep + 1], future
     step = step + Geom(1 - future), clipped to the episode end."""
     dev = state.ep_lengths.device
-    weights = state.ep_lengths[:state.n_episodes].float()
-    ep_idx = torch.multinomial(weights, batch_size, replacement=True,
-                               generator=generator)
+    # inverse CDF over the cumulative lengths: one uniform in float64 (a
+    # buffer holds millions of steps, more than float32 resolves)
+    ends = torch.cumsum(state.ep_lengths[:state.n_episodes], 0)
+    pick = torch.rand(batch_size, dtype=torch.float64, device=dev, generator=generator)
+    ep_idx = torch.searchsorted(ends, (pick * ends[-1]).long(), right=True)
+    ep_idx = ep_idx.clamp_max(state.n_episodes - 1)
     lengths = state.ep_lengths[ep_idx]
     u = torch.rand(batch_size, device=dev, generator=generator)
     n_starts = (lengths - (nstep - 1)).clamp_min(1)
@@ -152,12 +161,12 @@ def sample(state: ReplayState, generator: torch.Generator, batch_size: int,
     )
 
 
-class ReplayBuffer:
-    """Host-side wrapper: episode commits, bulk loading and sampling.
+RewardFn = tp.Callable[[Tensor], Tensor]
 
-    ``relabel`` and ``set_goals`` of the JAX buffer are not ported yet (they
-    need the reward zoo).
-    """
+
+class ReplayBuffer:
+    """Host-side wrapper: episode commits, bulk loading, sampling, and
+    relabeling rewards and goals from the stored physics."""
 
     def __init__(self, max_episodes: int, discount: float, future: float,
                  max_episode_length: tp.Optional[int] = None,
@@ -170,6 +179,12 @@ class ReplayBuffer:
 
     def __len__(self) -> int:
         return 0 if self.state is None else self.state.n_episodes
+
+    @property
+    def avg_episode_length(self) -> int:
+        if self.state is None or len(self) == 0:
+            return 0
+        return int(round(float(self.state.ep_lengths[:len(self)].float().mean())))
 
     def _ensure_state(self, episode: tp.Dict[str, np.ndarray]) -> None:
         if self.state is not None:
@@ -189,10 +204,19 @@ class ReplayBuffer:
                                  for k, v in episode.items()}, length)
 
     def sample(self, generator: torch.Generator, batch_size: int,
+               custom_reward: tp.Optional[RewardFn] = None,
                with_physics: bool = False) -> EpisodeBatch:
+        """A batch; with ``custom_reward`` its rewards are that function of
+        the sampled physics rows instead of the stored ones."""
         assert self.state is not None, "empty replay buffer"
-        return sample(self.state, generator, batch_size, self.cfg,
-                      with_physics=with_physics)
+        batch = sample(self.state, generator, batch_size, self.cfg,
+                       with_physics=with_physics or custom_reward is not None)
+        if custom_reward is not None:
+            reward = custom_reward(batch.physics).float().reshape(-1, 1)
+            batch = dataclasses.replace(batch, reward=reward)
+        if not with_physics:
+            batch = dataclasses.replace(batch, physics=None)
+        return batch
 
     def load_episodes(self, episodes: tp.Iterable[tp.Dict[str, np.ndarray]]) -> None:
         """Bulk ingest (ExORL-style episode dicts of [T+1, ...] arrays).
@@ -236,3 +260,25 @@ class ReplayBuffer:
             ep_lengths=torch.from_numpy(lengths).to(self.device),
             n_episodes=n, idx=n % self._max_episodes,
             max_episodes=self._max_episodes, max_episode_length=length)
+
+    def _physics_rows(self) -> tp.Tuple[Tensor, int, int]:
+        if self.state is None or "physics" not in self.state.storage:
+            raise ValueError("the buffer stores no physics to relabel from")
+        phys = self.state.storage["physics"]
+        e, t = phys.shape[:2]
+        return phys.reshape(e * t, -1), e, t
+
+    def relabel(self, custom_reward: RewardFn) -> None:
+        """Recompute all rewards from the stored physics, on the storage's
+        device and into the stored reward tensor (a captured trainer keeps
+        reading the same memory)."""
+        rows, e, t = self._physics_rows()
+        assert self.state is not None
+        rewards = custom_reward(rows).float().reshape(e, t, 1)
+        self.state.storage["reward"].copy_(rewards)
+
+    def set_goals(self, goal_fn: RewardFn) -> None:
+        """(Re)compute the goal column from the stored physics."""
+        rows, e, t = self._physics_rows()
+        assert self.state is not None
+        self.state.storage["goal"] = goal_fn(rows).float().reshape(e, t, -1)

@@ -36,6 +36,12 @@ wrapper takes the plain version only for tensors on the CPU (the tests); for
 CUDA tensors it checks device, dtype, shape and contiguity, launches the
 kernel, and raises if the launch fails. ``launches[name]`` counts kernel
 launches, so a run can show that its main path went through the kernels.
+Inside a CUDA graph capture a launch is recorded and not run:
+``held_by_capture`` takes those out of the counters and notes them, and
+``count_replay`` adds them back each time the graph is replayed. That part
+of a count is arithmetic; ``device_runs`` is the observation beside it: the
+kernels themselves count, in device memory, how often they have run, a
+graph's replays included.
 
 The orthonormality gradient 4·g_covoff·(cov⊙off)·B + 2·g_covdiag·B is
 computed outside the kernels with ``torch.matmul``. The JAX package forms
@@ -46,6 +52,7 @@ O(n·d²) work rather than O(n²·d).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import typing as tp
@@ -60,8 +67,49 @@ launches: tp.Dict[str, int] = {"fwd": 0, "bwd": 0}
 
 
 def reset_launches() -> None:
+    """Zero the wrappers' counts and, where there is a card, the kernels'
+    own (``device_runs``)."""
     for name in launches:
         launches[name] = 0
+    if torch.cuda.is_available():
+        rc = _lib().fb_runs_reset()
+        if rc != 0:
+            raise RuntimeError(f"fused FB loss: resetting the device's run counts "
+                               f"failed: CUDA error {rc}")
+
+
+def device_runs() -> tp.Dict[str, int]:
+    """How often each wrapper's kernels have run on the current CUDA device
+    since ``reset_launches``, as counted on the device by the last kernel of
+    each launch. Waits for the device; not to be called during a capture."""
+    counts = (ctypes.c_ulonglong * 2)()
+    rc = _lib().fb_runs(counts)
+    if rc != 0:
+        raise RuntimeError(f"fused FB loss: reading the device's run counts "
+                           f"failed: CUDA error {rc}")
+    return {"fwd": int(counts[0]), "bwd": int(counts[1])}
+
+
+@contextlib.contextmanager
+def held_by_capture() -> tp.Iterator[tp.Dict[str, int]]:
+    """Around a CUDA graph capture: the launches the wrappers count inside
+    are recorded into the graph, not run, so on exit the counters are what
+    they were on entry and the yielded dict holds, by wrapper, how many
+    launches one replay of the graph makes."""
+    before = dict(launches)
+    held: tp.Dict[str, int] = {}
+    try:
+        yield held
+    finally:
+        for name in launches:
+            held[name] = launches[name] - before[name]
+            launches[name] = before[name]
+
+
+def count_replay(held: tp.Mapping[str, int], times: int = 1) -> None:
+    """Count ``times`` replays of a graph that holds ``held`` launches."""
+    for name, count in held.items():
+        launches[name] += count * times
 
 
 # -- plain versions -----------------------------------------------------------
@@ -131,6 +179,8 @@ _SIGNATURES = {
     "fb_fwd": [_P] * 9 + [_I, _I, _P],
     "fb_bwd_partials": [_I, _I],
     "fb_bwd": [_P] * 12 + [_I, _I, _P],
+    "fb_runs": [ctypes.POINTER(ctypes.c_ulonglong)],
+    "fb_runs_reset": [],
 }
 
 

@@ -13,6 +13,11 @@ optax's arithmetic step for step:
     mu is stored in mu_dtype after the step (optax casts after using the
     float32 value for the update)
 
+The step count and both moments live in fixed device tensors that ``step``
+updates in place, and the bias corrections are computed on the device from
+the count: a step captured in a CUDA graph advances them on every replay.
+Each line above is one ``torch._foreach_*`` call over the parameter list.
+
 The moments are keyed by parameter name, so ``convert.py`` can load optax's
 ``ScaleByAdamState`` into them.
 """
@@ -33,17 +38,52 @@ class Adam:
         self.params: tp.Dict[str, nn.Parameter] = dict(module.named_parameters())
         self.mu = {k: torch.zeros_like(p, dtype=mu_dtype) for k, p in self.params.items()}
         self.nu = {k: torch.zeros_like(p) for k, p in self.params.items()}
-        self.count = 0
+        device = next(iter(self.params.values())).device
+        self.count_t = torch.zeros((), dtype=torch.int32, device=device)
+
+    @property
+    def count(self) -> int:
+        """The number of steps taken (reading it waits for the device)."""
+        return int(self.count_t)
+
+    @count.setter
+    def count(self, value: int) -> None:
+        self.count_t.fill_(value)
+
+    def state(self) -> tp.Dict[str, torch.Tensor]:
+        """The optimizer's own tensors by name (not copies): ``mu.<param>``,
+        ``nu.<param>`` and ``count``."""
+        out = {f"mu.{k}": v for k, v in self.mu.items()}
+        out.update({f"nu.{k}": v for k, v in self.nu.items()})
+        out["count"] = self.count_t
+        return out
 
     @torch.no_grad()
     def step(self, grads: tp.Sequence[torch.Tensor]) -> None:
         """Apply one update; ``grads`` are in ``self.params`` order."""
-        self.count += 1
-        bc1 = 1.0 - self.b1 ** self.count
-        bc2 = 1.0 - self.b2 ** self.count
-        for (name, p), g in zip(self.params.items(), grads):
-            mu = (1.0 - self.b1) * g + self.b1 * self.mu[name]
-            nu = (1.0 - self.b2) * (g * g) + self.b2 * self.nu[name]
-            p.add_(-self.lr * ((mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)))
-            self.mu[name] = mu.to(self.mu[name].dtype)
-            self.nu[name] = nu
+        params, grads = list(self.params.values()), list(grads)
+        mus, nus = list(self.mu.values()), list(self.nu.values())
+        self.count_t += 1
+        count = self.count_t.float()
+        bc1 = 1.0 - torch.pow(self.b1, count)
+        bc2 = 1.0 - torch.pow(self.b2, count)
+
+        decayed = torch._foreach_mul(mus, self.b1)  # rounds in mu's dtype
+        if decayed[0].dtype != torch.float32:
+            widened = [torch.empty_like(g) for g in grads]
+            torch._foreach_copy_(widened, decayed)
+            decayed = widened
+        mu = torch._foreach_mul(grads, 1.0 - self.b1)
+        torch._foreach_add_(mu, decayed)
+        squares = torch._foreach_mul(grads, grads)
+        torch._foreach_mul_(squares, 1.0 - self.b2)
+        torch._foreach_mul_(nus, self.b2)
+        torch._foreach_add_(nus, squares)
+
+        denom = torch._foreach_div(nus, bc2)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.eps)
+        update = torch._foreach_div(mu, bc1)
+        torch._foreach_div_(update, denom)
+        torch._foreach_add_(params, update, alpha=-self.lr)
+        torch._foreach_copy_(mus, mu)

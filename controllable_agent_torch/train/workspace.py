@@ -1,12 +1,16 @@
-"""Workspace — agent + replay + console rows, and the offline training loop
-(sliced mirror of ``controllable_agent_tpu/train/workspace.py``).
+"""Workspace: agent + replay + logger + checkpoints, zero-shot task
+inference, and the offline training loop (sliced mirror of
+``controllable_agent_tpu/train/workspace.py``).
 
-The port has no environments yet, so the workspace takes the observation and
-action sizes and the episode length from the data (``EnvSpec``). Parts of
-the JAX workspace that are not ported raise ``NotImplementedError`` naming
-the ROADMAP item that ports them, whenever a config would make them fire:
-evaluation rollouts, checkpoints, ``finalize``, videos, goal spaces and
-custom rewards. Logging is console rows only.
+The port has no environment dynamics yet, so the workspace takes the
+observation and action sizes and the episode length from the data
+(``EnvSpec``); for the planar locomotion domains ``make_env`` gives the
+kinematic side (goal features, observations and rewards from stored
+physics). Parts of the JAX workspace that are not ported raise
+``NotImplementedError`` naming the ROADMAP item that ports them, whenever a
+config would make them fire: evaluation rollouts and ``finalize`` (item 9),
+videos, TensorBoard/wandb and profiles (item 15), the other agents,
+pixels and d4rl.
 """
 
 from __future__ import annotations
@@ -21,8 +25,13 @@ import torch
 from ..agents import AGENTS
 from ..config import apply_overrides, to_flat_dict
 from ..data import ReplayBuffer
-from ..utils import Stopwatch, resolve_device
+from ..goals import get_goal_space_dim, get_reward_function, goal_spaces, goals
+from ..utils import Stopwatch, crossed, resolve_device
+from . import checkpoint as ckpt_lib
+from .logger import Logger
 from .loops import make_offline_trainer
+
+Tensor = torch.Tensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,24 +95,32 @@ def _not_ported(what: str, item: int) -> NotImplementedError:
         f"(ROADMAP Queue A item {item})")
 
 
+def make_env(task: str, episode_length: tp.Optional[int] = None) -> tp.Any:
+    """The kinematic side of a task's environment, by name: a
+    ``LocomotionEnv`` for walker, cheetah and hopper, None for the point
+    mass (its goal features are its physics). Other domains are not ported."""
+    if task.startswith("point_mass_maze_"):
+        return None
+    domain = task.split("_", 1)[0]
+    if domain in ("walker", "cheetah", "hopper"):
+        from ..envs import locomotion
+        return locomotion.make(task, episode_length=episode_length or 1000)
+    raise _not_ported(f"the environment of task {task!r}", 12)
+
+
 class Workspace:
     def __init__(self, cfg: WorkspaceConfig, spec: EnvSpec,
-                 agent_cfg_overrides: tp.Sequence[str] = ()) -> None:
+                 agent_cfg_overrides: tp.Sequence[str] = (),
+                 agent_cfg_base: tp.Optional[tp.Dict[str, tp.Any]] = None) -> None:
         unported = [
             (cfg.agent_name != "fb_ddpg", f"agent {cfg.agent_name!r}", 13),
             (cfg.obs_type != "states", "obs_type=pixels", 12),
-            (cfg.goal_space is not None, "goal_space", 7),
-            (cfg.custom_reward is not None, "custom_reward", 7),
             (cfg.d4rl_dataset is not None, "d4rl_dataset", 12),
-            (cfg.load_model is not None, "load_model (checkpoints)", 7),
-            (bool(cfg.snapshot_at), "snapshot_at (checkpoints)", 7),
+            (cfg.append_goal_to_observation, "append_goal_to_observation", 9),
             (cfg.use_tb or cfg.use_wandb or cfg.profile_dir is not None,
              "use_tb/use_wandb/profile_dir", 15),
-            ((Path(cfg.folder) / "models" / "latest").exists(),
-             "resuming from a checkpoint", 7),
             (cfg.eval_every_steps > 0, "evaluation (eval_every_steps; set it to 0)", 9),
-            (cfg.checkpoint_every > 0, "checkpointing (checkpoint_every; set it to 0)", 7),
-            (cfg.final_tests > 0, "finalize (final_tests; set it to 0)", 8),
+            (cfg.final_tests > 0, "finalize (final_tests; set it to 0)", 9),
         ]
         for fires, what, item in unported:
             if fires:
@@ -114,35 +131,109 @@ class Workspace:
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
         self.work_dir = Path(cfg.folder)
         self.work_dir.mkdir(parents=True, exist_ok=True)
+        self.domain = cfg.task.split("_", 1)[0]
+        if self.domain == "point":
+            self.domain = "point_mass_maze"
+
+        # goal space -> goal_fn over physics + goal dim
+        self.goal_fn: tp.Optional[tp.Callable[[Tensor], Tensor]] = None
+        goal_dim: tp.Optional[int] = None
+        if cfg.goal_space is not None:
+            space_fns = goal_spaces.funcs.get(self.domain, {})
+            if cfg.goal_space not in space_fns:
+                raise ValueError(
+                    f"Unknown goal space {cfg.goal_space} for {self.domain}")
+            space_fn = space_fns[cfg.goal_space]
+            env = make_env(cfg.task, cfg.episode_length)
+            feats_fn = getattr(env, "goal_features", lambda p: p)
+            self.goal_fn = lambda phys: space_fn(feats_fn(torch.as_tensor(phys)))
+            goal_dim = get_goal_space_dim(cfg.goal_space)
 
         agent_cfg_cls, agent_cls = AGENTS[cfg.agent_name]
-        self.agent_cfg = apply_overrides(agent_cfg_cls(goal_space=cfg.goal_space),
-                                         list(agent_cfg_overrides))
+        field_names = {f.name for f in dataclasses.fields(agent_cfg_cls)}
+        base_agent_cfg = agent_cfg_cls(goal_space=cfg.goal_space)
+        if agent_cfg_base:
+            # resumed folder: the saved run's resolved agent config is the
+            # base (a run trained with e.g. agent.z_dim=100 must rebuild the
+            # same network shapes before the checkpoint loads); agent.*
+            # overrides of the command line still win below
+            fixed = {k: tuple(v) if isinstance(v, list) else v
+                     for k, v in agent_cfg_base.items() if k in field_names}
+            base_agent_cfg = dataclasses.replace(base_agent_cfg, **fixed)
+        self.agent_cfg = apply_overrides(base_agent_cfg, list(agent_cfg_overrides))
         self.agent = agent_cls(self.agent_cfg, spec.obs_dim, spec.action_dim,
-                               device=self.device, seed=cfg.seed)
+                               goal_dim=goal_dim, device=self.device, seed=cfg.seed)
         self.buffer = ReplayBuffer(
             max_episodes=cfg.replay_buffer_episodes, discount=cfg.discount,
             future=cfg.future, max_episode_length=spec.episode_length,
             device=self.device)
+        self.logger = Logger(self.work_dir, use_console=cfg.use_console)
         self.timer = Stopwatch()
         self.global_step = 0
+        self.global_episode = 0
         self.last_row: tp.Dict[str, float] = {}
-        self.inferred_z: tp.Optional[torch.Tensor] = None
+        self.inferred_z: tp.Optional[Tensor] = None
+
+        # the RESOLVED agent config is saved beside the workspace fields
+        # (flattened agent.* keys): a folder resume must rebuild the network
+        # shapes the checkpoint was trained with, not the class defaults
         flat = to_flat_dict(cfg)
         flat.update(to_flat_dict(self.agent_cfg, "agent."))
         (self.work_dir / "config.json").write_text(json.dumps(flat, indent=2, default=str))
+        if (self.work_dir / "models" / "latest").exists():
+            self.load_checkpoint(self.work_dir / "models" / "latest")
+        elif cfg.load_model is not None:
+            self.load_checkpoint(Path(cfg.load_model), exclude=["replay"])
 
-    def _infer_meta_from_replay(self, draws: tp.Optional[int] = None) -> torch.Tensor:
-        """z = rᵀB/N over num_inference_steps samples of the stored rewards.
-        ``draws`` > 1 returns the norm-preserving spherical mean of that many
-        independent regressions (cfg.z_inference_draws by default)."""
+    # -- zero-shot task inference ---------------------------------------
+    def _init_eval_meta(self) -> tp.Dict[str, Tensor]:
+        """Eval-time meta selection: every path of the JAX
+        ``_init_eval_meta`` that needs no live environment. Returns an
+        (unbatched) meta dict {meta_key: z}."""
+        agent = self.agent
+        meta_key = agent.meta_key
+
+        def goal_meta(goal: tp.Any) -> tp.Dict[str, Tensor]:
+            g = torch.as_tensor(goal, dtype=torch.float32, device=self.device)
+            return {meta_key: agent.get_goal_meta(g)}
+
+        # custom reward with a registered goal
+        if self.cfg.custom_reward is not None:
+            reward = get_reward_function(self.cfg.custom_reward, self.cfg.seed)
+            if self.cfg.goal_space is not None:
+                try:
+                    return goal_meta(reward.get_goal(self.cfg.goal_space))
+                except (NotImplementedError, ValueError):
+                    pass
+            if len(self.buffer) > 0:
+                return {meta_key: self._infer_meta_from_replay(reward)}
+        # registered goal for (goal_space, task)
+        if self.cfg.goal_space is not None:
+            space_goals = goals.funcs.get(self.cfg.goal_space, {})
+            if self.cfg.task in space_goals:
+                return goal_meta(space_goals[self.cfg.task]())
+        # fallback: reward regression over replay samples
+        if len(self.buffer) > 0:
+            return {meta_key: self._infer_meta_from_replay(None)}
+        return dict(agent.init_meta(self.generator))
+
+    def _infer_meta_from_replay(self, custom_reward: tp.Optional[tp.Any] = None,
+                                draws: tp.Optional[int] = None) -> Tensor:
+        """z = rᵀB/N over num_inference_steps samples, with the rewards of
+        ``custom_reward`` computed from the sampled physics (the stored
+        rewards when it is None). ``draws`` > 1 returns the norm-preserving
+        spherical mean of that many independent regressions
+        (cfg.z_inference_draws by default)."""
         n = self.agent.cfg.num_inference_steps
         draws = self.cfg.z_inference_draws if draws is None else draws
 
-        def one_draw() -> torch.Tensor:
-            batch = self.buffer.sample(self.generator, n)
-            return self.agent.infer_meta_from_obs_and_rewards(batch.next_obs,
-                                                              batch.reward)
+        def one_draw() -> Tensor:
+            batch = self.buffer.sample(
+                self.generator, n,
+                custom_reward=custom_reward.from_physics if custom_reward else None)
+            obs = (batch.next_obs if (self.cfg.goal_space is None
+                                      or batch.next_goal is None) else batch.next_goal)
+            return self.agent.infer_meta_from_obs_and_rewards(obs, batch.reward)
 
         if draws <= 1:
             return one_draw()
@@ -152,25 +243,71 @@ class Workspace:
         mean = mean / torch.linalg.vector_norm(mean).clamp_min(1e-12)
         return mean * torch.linalg.vector_norm(zs[0])
 
-    def _log_row(self, steps: int, metrics: tp.Dict[str, torch.Tensor]
-                 ) -> tp.Dict[str, float]:
-        """One train row; converting the metrics waits for the device, so
-        the lap after it times the work of the window."""
-        row = {k: float(v) for k, v in metrics.items()}
-        elapsed, total = self.timer.lap()
-        row = {"step": float(self.global_step),
-               "fps": steps / max(elapsed, 1e-9), "total_time": total, **row}
-        if self.cfg.use_console:
-            print("| train          | " + " | ".join(
-                f"{k}: {v:.4f}" for k, v in row.items()), flush=True)
-        return row
+    # -- checkpointing ---------------------------------------------------
+    def _maybe_snapshot(self, prev_step: int) -> None:
+        """Save milestone snapshots for steps crossed since prev_step (the
+        loops advance in chunks)."""
+        for frame in self.cfg.snapshot_at:
+            if prev_step < frame <= self.global_step:
+                self.save_checkpoint(self.work_dir / "models" / f"snapshot_{frame}")
+
+    def save_checkpoint(self, path: tp.Optional[Path] = None,
+                        exclude: tp.Sequence[str] = ()) -> None:
+        path = path or (self.work_dir / "models" / "latest")
+        path.parent.mkdir(parents=True, exist_ok=True)
+        agent_state = dict(self.agent.train_state())
+        agent_state["generator"] = self.generator.get_state()
+        ckpt_lib.save_checkpoint(path, {
+            "agent": agent_state,
+            "replay": self.buffer.state,
+            "global_step": self.global_step,
+            "global_episode": self.global_episode,
+        }, exclude=exclude)
+
+    def load_checkpoint(self, path: Path,
+                        only: tp.Optional[tp.Sequence[str]] = None,
+                        exclude: tp.Sequence[str] = ()) -> None:
+        out = ckpt_lib.load_checkpoint(path, only=only, exclude=exclude,
+                                       device=self.device)
+        if "agent" in out:
+            agent_state = dict(out["agent"])
+            generator_state = agent_state.pop("generator")
+            self.agent.load_train_state(agent_state)
+            if generator_state.numel() != self.generator.get_state().numel():
+                # a CPU generator's state and a CUDA generator's differ in
+                # kind, so the run could not continue its random sequence
+                raise ValueError(
+                    f"checkpoint {path}: the generator's state was saved on "
+                    f"another device type than {self.device.type}; load it with "
+                    f"device= set to the type it was saved on")
+            self.generator.set_state(generator_state)
+        if "replay" in out:
+            self.buffer.state = out["replay"]
+        if only is None or "global_step" in (only or ()):
+            self.global_step = out["global_step"]
+            self.global_episode = out["global_episode"]
 
 
 class OfflineWorkspace(Workspace):
     """Pure gradient-step training over a loaded buffer."""
 
+    def _log_train(self, steps: int, metrics: tp.Dict[str, Tensor]) -> None:
+        """One train row; converting the metrics waits for the device, so
+        the lap before it is taken after them."""
+        values = {k: float(v) for k, v in metrics.items()}
+        elapsed, total = self.timer.lap()
+        with self.logger.log_and_dump_ctx(self.global_step, "train") as log:
+            log("fps", steps / max(elapsed, 1e-9))
+            log("total_time", total)
+            log("step", self.global_step)
+            for k, v in values.items():
+                log(k, v)
+        self.last_row = log.row
+
     def train(self) -> tp.Dict[str, float]:
-        """Runs ``num_grad_steps`` updates; returns the last train row."""
+        """Runs updates up to ``num_grad_steps``, with train rows, snapshots
+        and periodic checkpoints, and saves a final checkpoint; returns the
+        last train row."""
         cfg = self.cfg
         assert len(self.buffer) > 0, "offline training requires a loaded buffer"
         trainer = make_offline_trainer(self.agent, self.buffer.cfg,
@@ -178,15 +315,22 @@ class OfflineWorkspace(Workspace):
                                        steps_per_call=cfg.steps_per_call)
         log_every = max(cfg.log_every_steps, cfg.steps_per_call)
         steps_since_log = 0
-        row: tp.Dict[str, float] = {}
+        metrics: tp.Dict[str, Tensor] = {}
         self.timer.lap()
         while self.global_step < cfg.num_grad_steps:
+            prev_step = self.global_step
             metrics = trainer(self.buffer.state, self.generator)
             self.global_step += cfg.steps_per_call
             steps_since_log += cfg.steps_per_call
+            self._maybe_snapshot(prev_step)
             if steps_since_log >= log_every:
-                row = self._log_row(steps_since_log, metrics)
+                # metrics stay on the device between logs so that launches
+                # queue up; this is the only host sync
+                self._log_train(steps_since_log, metrics)
                 steps_since_log = 0
+            if crossed(self.global_step, cfg.checkpoint_every, cfg.steps_per_call):
+                self.save_checkpoint()
         if steps_since_log:
-            row = self._log_row(steps_since_log, metrics)
-        return row
+            self._log_train(steps_since_log, metrics)
+        self.save_checkpoint()
+        return self.last_row

@@ -1,19 +1,32 @@
-"""CLI: offline training from a directory of ExORL-format episodes (mirror of
+"""CLI: offline training from a stored replay buffer (mirror of
 ``controllable_agent_tpu/train_offline.py``).
 
+Load episodes, either ``replay_dir=`` (a directory of ExORL-format .npz
+episodes) or ``load_replay=`` (the replay of a checkpoint), by default
+relabel their rewards for ``task`` from the stored physics
+(``relabel=false`` keeps the stored rewards), then run gradient steps:
+
     python -m controllable_agent_torch.train_offline agent=fb_ddpg \\
-        replay_dir=/path/to/episodes relabel=false \\
+        task=walker_walk replay_dir=/path/to/episodes \\
         agent.use_pallas_loss=true agent.compute_dtype=bfloat16 \\
-        num_grad_steps=100000 eval_every_steps=0 checkpoint_every=0 final_tests=0
+        num_grad_steps=100000 eval_every_steps=0 final_tests=0
 
-Trains on the rewards stored in the episodes and, when training ends, prints
-the task z inferred from them (z = rᵀB/N, spherical mean of
-``z_inference_draws`` draws). ``device=cpu`` runs on the CPU; the default is
-the card.
+    python -m controllable_agent_torch.train_offline agent=fb_ddpg \\
+        task=walker_walk goal_space=walker_pos_speed_z \\
+        load_replay=exp_rnd/models/latest relabel=true \\
+        eval_every_steps=0 final_tests=0
 
-Not ported yet: ``load_replay=`` and ``relabel=true`` (checkpoints and the
-reward zoo, ROADMAP Queue A item 7), and physics formats other than
-``native``.
+``physics_format=mujoco_walker`` (``_cheetah``, ``_hopper``) converts
+dm_control physics to the native layout and recomputes the observations
+from it. The run writes ``train.csv``, ``hip.log`` and
+``models/latest`` into ``folder``; running the same command again resumes
+from that checkpoint. When training ends it prints the task z chosen as
+evaluation would choose it (a registered goal, else z = rᵀB/N over the
+replay, spherical mean of ``z_inference_draws`` draws). ``device=cpu`` runs
+on the CPU; the default is the card.
+
+Not ported yet: evaluation rollouts and the final test battery
+(``eval_every_steps`` and ``final_tests`` must be 0; ROADMAP Queue A item 9).
 """
 
 from __future__ import annotations
@@ -23,9 +36,22 @@ import sys
 import typing as tp
 from pathlib import Path
 
+import numpy as np
+
 from .data.exorl import load_exorl_episodes
-from .pretrain import build_workspace
-from .train.workspace import EnvSpec, OfflineWorkspace
+from .goals import get_reward_function
+from .pretrain import build_config
+from .train import checkpoint as ckpt_lib
+from .train.workspace import EnvSpec, OfflineWorkspace, make_env
+from .utils import resolve_device
+
+Episode = tp.Dict[str, np.ndarray]
+
+
+def _spec_of(storage: tp.Mapping[str, tp.Any], time_axis: int) -> EnvSpec:
+    return EnvSpec(obs_dim=storage["observation"].shape[-1],
+                   action_dim=storage["action"].shape[-1],
+                   episode_length=storage["observation"].shape[time_axis] - 1)
 
 
 def main(argv: tp.Optional[tp.Sequence[str]] = None) -> OfflineWorkspace:
@@ -33,6 +59,7 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> OfflineWorkspace:
     ``inferred_z`` set) for callers that drive it from Python."""
     argv = list(argv if argv is not None else sys.argv[1:])
     replay_dir: tp.Optional[str] = None
+    load_replay: tp.Optional[str] = None
     relabel = True
     physics_format = "native"
     rest: tp.List[str] = []
@@ -40,35 +67,71 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> OfflineWorkspace:
         if arg.startswith("replay_dir="):
             replay_dir = arg.split("=", 1)[1]
         elif arg.startswith("load_replay="):
-            raise NotImplementedError(
-                "load_replay= needs checkpoints, not ported to "
-                "controllable_agent_torch yet (ROADMAP Queue A item 7)")
+            load_replay = arg.split("=", 1)[1]
         elif arg.startswith("relabel="):
             relabel = arg.split("=", 1)[1].lower() == "true"
         elif arg.startswith("physics_format="):
             physics_format = arg.split("=", 1)[1]
         else:
             rest.append(arg)
-    if relabel:
-        raise NotImplementedError(
-            "relabel=true needs the reward zoo, not ported to "
-            "controllable_agent_torch yet (ROADMAP Queue A item 7); pass "
-            "relabel=false to train on the rewards stored in the episodes")
-    if replay_dir is None:
-        raise ValueError("train_offline needs replay_dir=<directory of .npz episodes>")
-    episodes = load_exorl_episodes(Path(replay_dir), physics_format=physics_format)
-    first = next(episodes, None)
-    if first is None:
-        raise ValueError(f"no .npz episodes in {replay_dir}")
-    spec = EnvSpec(obs_dim=first["observation"].shape[-1],
-                   action_dim=first["action"].shape[-1],
-                   episode_length=first["observation"].shape[0] - 1)
-    ws = build_workspace(rest, spec)
-    ws.buffer.load_episodes(itertools.chain([first], episodes))
-    ws.last_row = ws.train()
-    ws.inferred_z = ws._infer_meta_from_replay()
-    print("inferred z (r^T B / N from the stored rewards): "
-          + " ".join(f"{v:.4f}" for v in ws.inferred_z.tolist()), flush=True)
+    cfg, agent_overrides, agent_cfg_base = build_config(rest)
+
+    # the port takes the environment's sizes from the data, so the data is
+    # opened before the workspace is built
+    episodes: tp.Optional[tp.Iterator[Episode]] = None
+    if replay_dir is not None:
+        episodes = load_exorl_episodes(Path(replay_dir), physics_format=physics_format)
+        if physics_format != "native":
+            # foreign-engine episodes: the stored observations follow the
+            # source engine's sign conventions; recompute them from the
+            # adapted physics, as the native engine emits them
+            env = make_env(cfg.task, cfg.episode_length)
+            if not hasattr(env, "obs_from_physics"):
+                raise ValueError(f"physics_format={physics_format} needs a task "
+                                 f"with obs_from_physics, not {cfg.task!r}")
+            episodes = ({**ep, "observation": env.obs_from_physics(ep["physics"]).numpy()}
+                        for ep in episodes)
+        first = next(episodes, None)
+        if first is None:
+            raise ValueError(f"no .npz episodes in {replay_dir}")
+        episodes = itertools.chain([first], episodes)
+        spec = _spec_of(first, time_axis=0)
+    elif load_replay is not None:
+        # read once, straight onto the run's device
+        restored = ckpt_lib.load_checkpoint(Path(load_replay), only=["replay"],
+                                            device=resolve_device(cfg.device))
+        if "replay" not in restored or restored["replay"].n_episodes == 0:
+            raise ValueError(f"no episodes in {load_replay}")
+        spec = _spec_of(restored["replay"].storage, time_axis=1)
+    else:
+        raise ValueError("train_offline needs replay_dir=<directory of .npz "
+                         "episodes> or load_replay=<checkpoint>")
+
+    ws = OfflineWorkspace(cfg, spec, agent_cfg_overrides=agent_overrides,
+                          agent_cfg_base=agent_cfg_base)
+    reward_fn = get_reward_function(cfg.task, cfg.seed) if relabel else None
+    if load_replay is not None:
+        # the buffer of a checkpoint: its replay only, then rewards for the
+        # target task from the stored physics and the goal column for the
+        # requested goal space, both on the buffer's device
+        ws.buffer.state = restored["replay"]
+        if reward_fn is not None:
+            ws.buffer.relabel(reward_fn.from_physics)
+        if ws.goal_fn is not None:
+            ws.buffer.set_goals(ws.goal_fn)
+    if episodes is not None:
+        if reward_fn is not None:
+            episodes = ({**ep, "reward": reward_fn.from_physics(ep["physics"])
+                         .reshape(-1, 1).numpy()} for ep in episodes)
+        if ws.goal_fn is not None:
+            goal_fn = ws.goal_fn
+            episodes = ({**ep, "goal": goal_fn(ep["physics"]).numpy()}
+                        for ep in episodes)
+        ws.buffer.load_episodes(episodes)
+    ws.train()
+    ws.inferred_z = ws._init_eval_meta()[ws.agent.meta_key]
+    print("inferred z: " + " ".join(f"{v:.4f}" for v in ws.inferred_z.tolist()),
+          flush=True)
     return ws
 
 

@@ -42,9 +42,12 @@ class TruncatedNormal:
         return self._clamp(self.loc + eps)
 
     def log_prob(self, value: torch.Tensor) -> torch.Tensor:
-        scale = torch.as_tensor(self.scale, dtype=value.dtype, device=value.device)
+        # a float scale stays on the host: making a device tensor of it
+        # would be a copy, which a CUDA graph capture refuses
+        scale = self.scale
+        log_scale = torch.log(scale) if isinstance(scale, torch.Tensor) else math.log(scale)
         return (-(value - self.loc) ** 2 / (2 * scale ** 2)
-                - torch.log(scale) - 0.5 * math.log(2 * math.pi))
+                - log_scale - 0.5 * math.log(2 * math.pi))
 
 
 class SquashedNormal:

@@ -11,8 +11,8 @@ def soft_update(module: nn.Module, target: nn.Module, tau: float) -> None:
     """target <- tau * params + (1 - tau) * target.
 
     Unlike the JAX version, which returns a new tree, this updates the
-    target's parameters in place with ``lerp_`` (target + tau * (p - target)):
-    no second copy of the target net is allocated per step.
+    target's parameters in place (target + tau * (p - target)), all of them
+    in one ``_foreach_lerp_``: no second copy of the target net is allocated
+    per step, and the step costs one launch instead of one per parameter.
     """
-    for p, t in zip(module.parameters(), target.parameters()):
-        t.lerp_(p, tau)
+    torch._foreach_lerp_(list(target.parameters()), list(module.parameters()), tau)

@@ -10,7 +10,14 @@ import numpy as np
 import pytest
 import torch
 
+from controllable_agent_torch.agents import FBDDPGAgent, FBDDPGConfig, UpdateNoise
+from controllable_agent_torch.data import ReplayBuffer
+from controllable_agent_torch.data import replay as replay_lib
+from controllable_agent_torch.data.exorl import synthetic_episodes
+from controllable_agent_torch.goals import get_reward_function
 from controllable_agent_torch.ops import fused_fb as ff
+from controllable_agent_torch.train.loops import (WARMUP_RUNS, CapturedProgram,
+                                                  make_offline_trainer)
 
 
 @pytest.fixture
@@ -148,3 +155,117 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device) -> None:
         ff.fwd(*args[:2], args[2].T.contiguous().T, *args[3:])
     with pytest.raises(ValueError, match="d <= 64"):
         ff.fwd(*[torch.zeros(16, 65, device=cuda_device)] * 6, args[6])
+
+
+SMALL = dict(hidden_dim=64, backward_hidden_dim=64, feature_dim=32, z_dim=16, batch_size=128,
+             use_pallas_loss=True, compute_dtype="bfloat16",
+             stddev_schedule="linear(1.0,0.1,4)")
+
+
+def _agent_and_buffer(cuda_device):
+    agent = FBDDPGAgent(FBDDPGConfig(**SMALL), 24, 6, device=cuda_device, seed=0)
+    buf = ReplayBuffer(8, discount=0.98, future=0.99, device=cuda_device)
+    buf.load_episodes(synthetic_episodes(8, 50, 24, 6, seed=0))
+    return agent, buf
+
+
+@pytest.mark.cuda
+def test_captured_update_matches_eager(cuda_device) -> None:
+    """The same updates from the same state, batch and noise through a
+    captured program and eagerly: the same kernels in the same order, so
+    every tensor of the train state agrees to the bit (the step counter and
+    Adam's counts advance inside the replays; the schedule follows them)."""
+    agent, buf = _agent_and_buffer(cuda_device)
+    twin = FBDDPGAgent(agent.cfg, 24, 6, device=cuda_device, seed=0)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    batch = buf.sample(gen, 128)
+    noise = UpdateNoise.draw(agent.cfg, 128, 6, gen, cuda_device)
+    ff.reset_launches()
+    program = CapturedProgram(lambda: agent._update(batch, noise), agent)
+    assert agent.step == 0 and ff.launches == {"fwd": WARMUP_RUNS, "bwd": WARMUP_RUNS}
+    assert program.held == {"fwd": 1, "bwd": 1}
+    assert ff.device_runs() == ff.launches  # the capture itself ran nothing
+    program.replay(3)
+    assert ff.launches == {"fwd": WARMUP_RUNS + 3, "bwd": WARMUP_RUNS + 3}
+    assert ff.device_runs() == ff.launches  # counted by the kernels inside the replays
+    for _ in range(3):
+        twin._update(batch, noise)
+    torch.cuda.synchronize()
+    assert agent.step == twin.step == 3 and agent.fw_opt.count == 3
+    for k, v in twin.train_state().items():
+        assert torch.equal(agent.train_state()[k], v), k
+
+
+@pytest.mark.cuda
+def test_replays_draw_fresh_noise_and_batches(cuda_device) -> None:
+    """The generator is registered with the graph: each replay samples
+    another batch and draws other noise, and the generator moves on as it
+    would under eager draws."""
+    agent, buf = _agent_and_buffer(cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+
+    def draw():
+        batch = replay_lib.sample(buf.state, gen, 128, buf.cfg)
+        return batch.obs, UpdateNoise.draw(agent.cfg, 128, 6, gen, cuda_device).z_normal
+
+    program = CapturedProgram(draw, agent, [gen])
+    seen = []
+    for _ in range(3):
+        program.replay()
+        torch.cuda.synchronize()
+        seen.append([x.clone() for x in program.out])
+    for a, b in ((0, 1), (1, 2), (0, 2)):
+        assert not torch.equal(seen[a][0], seen[b][0])
+        assert not torch.equal(seen[a][1], seen[b][1])
+    # the same seed replays the same stream
+    gen.manual_seed(2)
+    program.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(program.out[0], seen[0][0]) and torch.equal(program.out[1], seen[0][1])
+
+
+@pytest.mark.cuda
+def test_captured_trainer_trains_and_counts(cuda_device) -> None:
+    """The trainer on the card replays a graph: the counters move by the
+    updates it replays, consecutive calls give different losses, the agent's
+    step follows, and a grown buffer makes it capture anew."""
+    agent, buf = _agent_and_buffer(cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    trainer = make_offline_trainer(agent, buf.cfg, 128, steps_per_call=6)
+    ff.reset_launches()
+    first = float(trainer(buf.state, gen)["fb_loss"])
+    assert ff.launches == {"fwd": WARMUP_RUNS + 6, "bwd": WARMUP_RUNS + 6} and agent.step == 6
+    second = float(trainer(buf.state, gen)["fb_loss"])
+    assert ff.launches["fwd"] == WARMUP_RUNS + 12 and agent.step == 12
+    assert np.isfinite([first, second]).all() and first != second
+    grown = ReplayBuffer(9, discount=0.98, future=0.99, device=cuda_device)
+    grown.load_episodes(synthetic_episodes(9, 50, 24, 6, seed=1))
+    trainer(grown.state, gen)
+    assert ff.launches["fwd"] == 2 * WARMUP_RUNS + 18 and agent.step == 18
+    assert ff.device_runs() == ff.launches
+    eager = make_offline_trainer(agent, buf.cfg, 128, steps_per_call=2, capture=False)
+    assert np.isfinite(float(eager(buf.state, gen)["fb_loss"])) and agent.step == 20
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", ["walker_walk", "walker_flip", "cheetah_run", "hopper_hop"])
+def test_relabel_on_the_card_matches_the_cpu(cuda_device, task) -> None:
+    """The same reward functions on the card and on the CPU (atol 1e-5: the
+    device's sin, cos and exp differ from the host's in the last bits)."""
+    ndof = 7 if task.startswith("hopper") else 9
+    rng = np.random.RandomState(4)
+    q = rng.uniform(-1, 1, (16, 101, ndof))
+    q[..., 1] = rng.uniform(0.3, 1.6, (16, 101))
+    physics = np.concatenate([q, rng.randn(16, 101, ndof) * 2], -1).astype(np.float32)
+    episodes = [{"observation": np.zeros((101, 3), np.float32),
+                 "action": np.zeros((101, 2), np.float32),
+                 "reward": np.zeros((101, 1), np.float32),
+                 "discount": np.ones((101, 1), np.float32), "physics": p} for p in physics]
+    reward = get_reward_function(task)
+    buf = ReplayBuffer(16, discount=0.98, future=0.99, device=cuda_device)
+    buf.load_episodes(episodes)
+    buf.relabel(reward.from_physics)
+    want = reward.from_physics(torch.from_numpy(physics))
+    got = buf.state.storage["reward"][:, :, 0]
+    assert got.device.type == "cuda"
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)

@@ -11,6 +11,7 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 
@@ -22,6 +23,8 @@ from controllable_agent_torch.convert import flax_to_state_dict, load_fb_train_s
 from controllable_agent_torch.data import ReplayBuffer
 from controllable_agent_torch.data.episode_batch import EpisodeBatch
 from controllable_agent_torch.data.exorl import synthetic_episodes
+from controllable_agent_torch.optim import Adam
+from controllable_agent_torch.utils.schedules import schedule
 
 N, OBS, ACT = 16, 6, 3
 SMALL = dict(hidden_dim=32, backward_hidden_dim=32, feature_dim=16, z_dim=8,
@@ -179,6 +182,82 @@ def test_second_update_uses_loaded_adam_state() -> None:
     _close(metrics_t["fb_loss"], metrics_j["fb_loss"])
     _close_params(tagent.forward_net, new_state.forward_params, jcfg.lr, "forward")
     _close_params(tagent.actor, new_state.actor_params, jcfg.lr, "actor")
+
+
+@pytest.mark.parametrize("mu_dtype", ["float32", "bfloat16"])
+def test_adam_with_device_counters_against_optax(mu_dtype) -> None:
+    """Five steps of the port's Adam (counts and moments in fixed tensors,
+    foreach arithmetic) against ``optax.adam(lr, mu_dtype=...)`` on the same
+    gradients. float32 moments: each step's move agrees to 1e-4 of lr. A
+    bfloat16 first moment may round the other way where the float32 values
+    differ in the last bit: 1/128 of a move of at most lr, per step."""
+    rng = np.random.RandomState(0)
+    lr, steps = 1e-2, 5
+    module = torch.nn.Linear(7, 5)
+    params = {"weight": rng.randn(5, 7).astype(np.float32),
+              "bias": rng.randn(5).astype(np.float32)}
+    module.load_state_dict({k: torch.from_numpy(v.copy()) for k, v in params.items()})
+    opt = Adam(module, lr, torch.bfloat16 if mu_dtype == "bfloat16" else torch.float32)
+    mu_before = {k: v.data_ptr() for k, v in opt.mu.items()}
+    tx = optax.adam(lr, mu_dtype=jnp.dtype(mu_dtype))
+    jparams = {k: jnp.asarray(v) for k, v in params.items()}
+    jstate = tx.init(jparams)
+    tol = (steps * lr / 128 if mu_dtype == "bfloat16" else 1e-4 * lr)
+    for step in range(1, steps + 1):
+        grads = {k: (rng.randn(*v.shape) * 10.0 ** rng.randint(-3, 2)).astype(np.float32)
+                 for k, v in params.items()}
+        updates, jstate = tx.update({k: jnp.asarray(g) for k, g in grads.items()}, jstate)
+        jparams = optax.apply_updates(jparams, updates)
+        opt.step([torch.from_numpy(grads[k]) for k in opt.params])
+        assert opt.count == int(jstate[0].count) == step
+        for k, p in opt.params.items():
+            np.testing.assert_allclose(p.detach().numpy(), np.asarray(jparams[k]),
+                                       rtol=0, atol=tol, err_msg=f"{k} at step {step}")
+            np.testing.assert_allclose(opt.nu[k].numpy(), np.asarray(jstate[0].nu[k]),
+                                       rtol=1e-6, atol=1e-12)
+            # a bf16 moment: one rounding (2^-8) of the decayed moment, which
+            # the new gradient may mostly cancel, so of the largest entry
+            want_mu = np.asarray(jstate[0].mu[k].astype(jnp.float32))
+            np.testing.assert_allclose(
+                opt.mu[k].float().numpy(), want_mu, rtol=1e-6,
+                atol=np.abs(want_mu).max() / 128 if mu_dtype == "bfloat16" else 1e-9)
+    # the moments were updated in place: a captured step keeps its buffers
+    assert {k: v.data_ptr() for k, v in opt.mu.items()} == mu_before
+    assert sorted(opt.state()) == ["count", "mu.bias", "mu.weight", "nu.bias", "nu.weight"]
+
+
+def test_stddev_schedule_follows_the_device_step() -> None:
+    """``stddev_schedule=linear(...)``: the port reads the schedule at its
+    device step counter, as the JAX update reads it at ``state.step``. Three
+    updates in a row; before each the port loads the JAX state, so both take
+    the step from the same place, and the metrics (which feel the stddev
+    through both policy noises) agree at the update test's tolerance."""
+    spec = "linear(1.0,0.1,2)"
+    jcfg, jagent, state, tagent = _agents(stddev_schedule=spec, stddev_clip=5.0)
+    jbatch, tbatch = _batch(2)
+    update = jax.jit(jagent._update)
+    seen = []
+    for step in range(3):
+        load_fb_train_state(tagent, jax.tree.map(np.asarray, state))
+        assert tagent.step == step
+        stddev = tagent._stddev(tagent.step_t)
+        assert torch.is_tensor(stddev) and stddev.dtype == torch.float32
+        seen.append(float(stddev))
+        key = jax.random.key(10 + step)
+        state, metrics_j = update(state, jbatch, key)
+        metrics_t = tagent._update(tbatch, jax_update_noise(jcfg, key))
+        for k in metrics_j:
+            _close(metrics_t[k], metrics_j[k], atol=1e-5, msg=f"{k} at step {step}")
+        assert tagent.step == int(state.step) == step + 1
+    np.testing.assert_allclose(seen, [1.0, 0.55, 0.1], rtol=1e-6)
+    # without the schedule the same noise gives another actor loss
+    _, _, state0, plain = _agents(stddev_clip=5.0)
+    key = jax.random.key(10)
+    metrics_0 = plain._update(tbatch, jax_update_noise(jcfg, key))
+    load_fb_train_state(tagent, jax.tree.map(np.asarray, state0))
+    metrics_1 = tagent._update(tbatch, jax_update_noise(jcfg, key))
+    assert float(metrics_0["actor_logprob"]) != float(metrics_1["actor_logprob"])
+    assert schedule("0.2")(tagent.step_t) == 0.2  # a constant stays a host float
 
 
 def test_inference_and_diagnostics() -> None:

@@ -6,10 +6,19 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+import jax.numpy as jnp
+
+from controllable_agent_tpu.data import ReplayBuffer as JaxReplayBuffer
 from controllable_agent_tpu.data.exorl import load_exorl_episodes as jax_load_exorl
+from controllable_agent_tpu.envs import locomotion as jax_locomotion
+from controllable_agent_tpu.goals import get_reward_function as jax_get_reward_function
+from controllable_agent_tpu.goals import goal_spaces as jax_goal_spaces
 from controllable_agent_torch.data import ReplayBuffer
 from controllable_agent_torch.data.exorl import load_exorl_episodes, save_exorl_episodes
 from controllable_agent_torch.data.replay import SampleConfig, sample
+from controllable_agent_torch.envs import locomotion
+from controllable_agent_torch.goals import get_reward_function, goal_spaces
 
 
 def _episode(ep: int, length: int, obs_dim: int = 2):
@@ -129,8 +138,87 @@ def test_exorl_files_round_trip_and_read_by_the_jax_loader(tmp_path) -> None:
             np.testing.assert_array_equal(ours[i][k], v)
             np.testing.assert_array_equal(theirs[i][k], v)
     assert len(list(load_exorl_episodes(tmp_path, limit=2, shard=1, num_shards=2))) == 1
-    with pytest.raises(NotImplementedError, match="item 7"):
-        list(load_exorl_episodes(tmp_path, physics_format="mujoco_walker"))
+    with pytest.raises(ValueError, match="Unknown physics_format"):
+        list(load_exorl_episodes(tmp_path, physics_format="mujoco_nope"))
+    # an adapter leaves episodes without physics alone
+    adapted = list(load_exorl_episodes(tmp_path, physics_format="mujoco_walker"))
+    np.testing.assert_array_equal(adapted[0]["observation"], ours[0]["observation"])
+
+
+def _physics_buffers(lengths=(9, 6, 12)):
+    """The same walker-shaped episodes with physics in a JAX buffer and in
+    the port's."""
+    rng = np.random.RandomState(5)
+    episodes = []
+    for i, n in enumerate(lengths):
+        q = rng.uniform(-1, 1, (n + 1, 9))
+        q[:, 1] = rng.uniform(0.6, 1.5, n + 1)
+        episodes.append({**_episode(i, n), "physics": np.concatenate(
+            [q, rng.randn(n + 1, 9) * 2], -1).astype(np.float32)})
+    jbuf = JaxReplayBuffer(len(lengths), discount=0.9, future=0.99,
+                           max_episode_length=max(lengths))
+    jbuf.load_episodes(episodes)
+    tbuf = ReplayBuffer(len(lengths), discount=0.9, future=0.99,
+                        max_episode_length=max(lengths), device="cpu")
+    tbuf.load_episodes(episodes)
+    return jbuf, tbuf
+
+
+@pytest.mark.parametrize("task", ["walker_walk", "walker_flip", "walker_yoga_kneel"])
+def test_relabel_matches_the_jax_buffer(task) -> None:
+    """Every stored reward, padding rows included, after relabeling for the
+    task (atol 1e-5, as the reward functions' own tests)."""
+    jbuf, tbuf = _physics_buffers()
+    before = tbuf.state.storage["reward"]
+    jbuf.relabel(jax_get_reward_function(task).from_physics)
+    tbuf.relabel(get_reward_function(task).from_physics)
+    assert tbuf.state.storage["reward"] is before  # relabeled in place
+    np.testing.assert_allclose(before.numpy(), np.asarray(jbuf.state.storage["reward"]),
+                               rtol=1e-5, atol=1e-5)
+    assert before.shape == (3, 13, 1) and float(before.std()) > 0
+
+
+@pytest.mark.parametrize("space", ["simplified_walker", "walker_pos_speed", "walker_pos_speed_z"])
+def test_set_goals_matches_the_jax_buffer(space) -> None:
+    jbuf, tbuf = _physics_buffers()
+    jenv, tenv = jax_locomotion.make("walker_walk"), locomotion.make("walker_walk")
+    jfn, tfn = jax_goal_spaces.funcs["walker"][space], goal_spaces.funcs["walker"][space]
+    jbuf.set_goals(lambda p: jfn(jenv.goal_features(p)))
+    tbuf.set_goals(lambda p: tfn(tenv.goal_features(p)))
+    np.testing.assert_allclose(tbuf.state.storage["goal"].numpy(),
+                               np.asarray(jbuf.state.storage["goal"]), rtol=1e-4, atol=1e-5)
+    batch = tbuf.sample(torch.Generator().manual_seed(0), 32)
+    assert batch.goal.shape == batch.next_goal.shape == batch.future_goal.shape == (
+        32, tbuf.state.storage["goal"].shape[-1])
+
+
+def test_sample_with_custom_reward_and_physics() -> None:
+    """custom_reward replaces the batch's rewards by that function of the
+    sampled physics rows, as the JAX buffer's does; physics comes back only
+    when asked for."""
+    jbuf, tbuf = _physics_buffers()
+    reward = get_reward_function("walker_run")
+    gen = torch.Generator().manual_seed(1)
+    state = gen.get_state()
+    plain = tbuf.sample(gen, 64, with_physics=True)
+    gen.set_state(state)
+    batch = tbuf.sample(gen, 64, custom_reward=reward.from_physics)
+    assert batch.physics is None and plain.physics.shape == (64, 18)
+    torch.testing.assert_close(batch.reward, reward.from_physics(plain.physics).reshape(-1, 1))
+    assert torch.equal(batch.obs, plain.obs) and not torch.equal(batch.reward, plain.reward)
+    jbatch = jbuf.sample(jax.random.key(0), 64, with_physics=True)
+    jrelabeled = jbuf.sample(jax.random.key(0), 64,
+                             custom_reward=jax_get_reward_function("walker_run").from_physics)
+    np.testing.assert_allclose(
+        np.asarray(jrelabeled.reward),
+        reward.from_physics(torch.from_numpy(np.array(jbatch.physics))).reshape(-1, 1).numpy(),
+        rtol=1e-5, atol=1e-5)
+    assert jrelabeled.physics is None
+    assert tbuf.avg_episode_length == jbuf.avg_episode_length == 9
+    empty = ReplayBuffer(2, discount=0.9, future=0.99, device="cpu")
+    assert empty.avg_episode_length == 0
+    with pytest.raises(ValueError, match="no physics"):
+        _buffer([4]).relabel(reward.from_physics)
 
 
 def test_buffer_needs_a_card_unless_asked_for_cpu(monkeypatch) -> None:

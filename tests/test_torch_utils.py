@@ -42,6 +42,10 @@ def _close(got, want, rtol=RTOL, atol=ATOL) -> None:
 def test_schedule(spec) -> None:
     for step in (0, 1, 25, 50, 51, 99, 100, 149, 150, 1000):
         assert schedule(spec)(step) == pytest.approx(float(jschedule(spec)(step)), rel=1e-6)
+        # a device step (the agent's update counter) takes the tensor path
+        got = schedule(spec)(torch.tensor(step))
+        assert float(got) == pytest.approx(float(jschedule(spec)(step)), rel=1e-6)
+        assert torch.is_tensor(got) == (spec != "0.2")
     with pytest.raises(NotImplementedError):
         schedule("cosine(1)")
 
