@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives ``controllable_agent_torch`` (and nothing of the JAX package) in nine
+Drives ``controllable_agent_torch`` (and nothing of the JAX package) in eleven
 phases, each printed on its own line; any failure exits non-zero:
 
   1. build the CUDA kernels of ``controllable_agent_torch/csrc`` with nvcc;
@@ -17,7 +17,9 @@ phases, each printed on its own line; any failure exits non-zero:
      physics 18) written with ``save_exorl_episodes``, relabeled for
      ``walker_walk``, a few hundred updates at full width in bf16 with
      ``agent.use_pallas_loss=true``, run as replays of one captured CUDA
-     graph; every kernel's launch count must equal the number of updates
+     graph, with ``evaluate()`` (10 episodes x 1,000 steps) twice between
+     those replays and ``finalize()`` after them: the ``eval.csv`` rows and
+     ``test_rewards.json`` of that run are required; every kernel's launch count must equal the number of updates
      plus the capture's eager warm-up runs, and so must the runs that the
      kernels count on the device themselves; the run's peak device memory;
      then the updates/s of the eager loop at the same size beside it;
@@ -40,7 +42,20 @@ phases, each printed on its own line; any failure exits non-zero:
   9. z for a named task (``walker_run`` rewards from the stored physics, 8
      draws): finite and of norm sqrt(z_dim); then the checkpoint phase 4
      left, loaded by a fresh workspace on the same folder: identical state
-     and an identical next update.
+     and an identical next update;
+ 10. the planar dynamics on the card: ``forward_dynamics`` and one control
+     step (``step``) for walker, cheetah and hopper on 4,096 random states,
+     a share of them penetrating the ground, against the same functions in
+     float64 on the CPU (``tools/dynamics_check.py``, which states the
+     tolerances);
+ 11. evaluation at full width on the workspace phase 4 trained:
+     ``evaluate()`` with 10 episodes x 1,000 steps as replays of the captured
+     step, twice more (other initial states), then ``finalize()`` with
+     ``final_tests=10`` (four walker tasks in one batch of 40 episodes) into
+     ``test_rewards.json``; captured against eager rollouts over 20 steps;
+     a ``torch.profiler`` trace of 20 replayed steps at 10 and at 16,384
+     environments; environment steps/s and peak memory at 10, 1,024 and
+     16,384 environments.
 
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -49,6 +64,7 @@ without the package beside it, the script fails before printing a result.
 
 from __future__ import annotations
 
+import csv
 import json
 import math
 import sys
@@ -68,7 +84,8 @@ from controllable_agent_torch.envs import locomotion
 from controllable_agent_torch.goals import get_reward_function
 from controllable_agent_torch.ops import fused_fb as ff
 from controllable_agent_torch.pretrain import build_workspace
-from controllable_agent_torch.train.loops import (WARMUP_RUNS, CapturedProgram,
+from controllable_agent_torch.tools import dynamics_check
+from controllable_agent_torch.train.loops import (WARMUP_RUNS, CapturedProgram, Rollout,
                                                   make_offline_trainer)
 from controllable_agent_torch.utils.device import card_name_and_power_limit, query_card
 
@@ -82,6 +99,12 @@ PROFILE_STEPS = 20
 CAPTURED_UPDATES = 3  # phase 7: updates through the captured program and eagerly
 RELABEL_EPISODES, RELABEL_ROWS_CHECKED = 1000, 4096
 Z_DRAWS = 8
+DYNAMICS_STATES = 4096  # phase 10
+EVAL_EVERY = 300  # phase 4 evaluates between replays of the training graph, twice
+EVAL_EPISODES, FINAL_TESTS = 10, 10  # phases 4 and 11
+WALKER_TASKS = tuple(f"walker_{t}" for t in ("stand", "walk", "run", "flip"))
+COMPARED_STEPS = 20  # captured against eager, and the profiled window
+ROLLOUT_SIZES = (10, 1024, 16384)  # environments advanced together
 # device kernels of each wrapper, as the profiler names them
 KERNEL_NAMES = {"fwd": ("fb_fwd_tile_kernel", "fb_fwd_reduce_kernel"),
                 "bwd": ("fb_bwd_tile_kernel", "fb_bwd_reduce_kernel")}
@@ -208,8 +231,27 @@ def slice_args(folder: str, episodes_dir: str) -> tp.List[str]:
             "agent=fb_ddpg", "agent.use_pallas_loss=true",
             "agent.compute_dtype=bfloat16", f"num_grad_steps={SLICE_STEPS}",
             f"steps_per_call={STEPS_PER_CALL}", f"log_every_steps={STEPS_PER_CALL}",
-            "eval_every_steps=0", "checkpoint_every=0", "final_tests=0",
+            f"eval_every_steps={EVAL_EVERY}", f"num_eval_episodes={EVAL_EPISODES}",
+            "checkpoint_every=0", f"final_tests={FINAL_TESTS}", "save_eval_video=false",
             f"replay_buffer_episodes={EPISODES}", f"folder={folder}", f"seed={SEED}"]
+
+
+def read_csv(path: tp.Any) -> tp.List[tp.Dict[str, str]]:
+    with open(path, newline="") as f:
+        return list(csv.DictReader(f))
+
+
+def check_test_rewards(ws: tp.Any, returned: tp.Any = None) -> tp.Dict[str, tp.List[float]]:
+    """``test_rewards.json`` of the workspace: the four walker tasks with
+    FINAL_TESTS finite returns each inside [0, episode_length]."""
+    horizon = ws.spec.episode_length
+    written = json.loads((ws.work_dir / "test_rewards.json").read_text())
+    if (returned is not None and written != returned) or tuple(written) != WALKER_TASKS \
+            or not all(len(v) == FINAL_TESTS
+                       and all(math.isfinite(r) and 0.0 <= r <= horizon for r in v)
+                       for v in written.values()):
+        raise AssertionError(f"bad test_rewards.json: {written}")
+    return written
 
 
 def run_slice(tmp: str) -> tp.Tuple[tp.Dict[str, int], tp.Any]:
@@ -256,8 +298,26 @@ def run_slice(tmp: str) -> tp.Tuple[tp.Dict[str, int], tp.Any]:
           f"{row['actor_loss']:.4f}, on {card_name_and_power_limit()}")
     print("phase 4 slice: inferred z " + " ".join(f"{v:.4f}" for v in z.tolist()))
     print(f"phase 4 slice: peak device memory {peak / 2**20:.1f} MiB "
-          "(torch.cuda.max_memory_allocated over the run, replay and the graph's "
-          "pool included)")
+          "(torch.cuda.max_memory_allocated over the run: replay, the training graph's "
+          "pool and the two rollouts' buffers and graphs included)")
+
+    # the evaluations ran between replays of the training graph, each drawing its
+    # initial states eagerly from the generator that the graph is registered with
+    windows = [float(r["fps"]) for r in read_csv(ws.work_dir / "train.csv")]
+    evals = read_csv(ws.work_dir / "eval.csv")
+    returns = [float(r["episode_reward"]) for r in evals]
+    print(f"phase 4 slice: evaluated at steps {[int(float(r['step'])) for r in evals]} "
+          f"({EVAL_EPISODES} episodes x {ws.spec.episode_length} steps each, the first with "
+          f"the rollout's capture), episode_reward " + ", ".join(f"{r:.2f}" for r in returns)
+          + "; updates/s by window of the train rows (a window after an evaluation holds "
+          "its time): " + ", ".join(f"{w:.1f}" for w in windows))
+    if [int(float(r["step"])) for r in evals] != list(range(EVAL_EVERY, SLICE_STEPS + 1, EVAL_EVERY)) \
+            or not all(math.isfinite(r) and 0.0 <= r <= ws.spec.episode_length for r in returns) \
+            or returns[0] == returns[-1]:
+        raise AssertionError(f"bad eval rows from the training run: {evals}")
+    written = check_test_rewards(ws)
+    print("phase 4 slice: test_rewards.json from the run's finalize(): mean returns "
+          + ", ".join(f"{t} {np.mean(written[t]):.2f}" for t in WALKER_TASKS))
 
     # the eager loop at the same size, once, beside the captured trainer
     eager = make_offline_trainer(ws.agent, ws.buffer.cfg, ws.agent.cfg.batch_size,
@@ -434,7 +494,8 @@ def check_capture(ws: tp.Any) -> None:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     batch = ws.buffer.sample(gen, N)
     noise = UpdateNoise.draw(cfg, N, ACTION_DIM, gen, torch.device("cuda"))
-    program = CapturedProgram(lambda: captured._update(batch, noise), captured)
+    program = CapturedProgram(lambda: captured._update(batch, noise), captured.device,
+                              captured.train_state().values())
     program.replay(CAPTURED_UPDATES)
     for _ in range(CAPTURED_UPDATES):
         eager._update(batch, noise)
@@ -470,7 +531,7 @@ def check_capture(ws: tp.Any) -> None:
         return sampled.obs, UpdateNoise.draw(cfg, N, ACTION_DIM, gen,
                                              torch.device("cuda")).z_normal
 
-    drawing = CapturedProgram(draw, captured, [gen])
+    drawing = CapturedProgram(draw, captured.device, generators=[gen])
     seen = []
     for _ in range(2):
         drawing.replay()
@@ -551,7 +612,7 @@ def check_task_z_and_checkpoint(ws: tp.Any, tmp: str) -> None:
     ws.save_checkpoint()
     args = [a for a in slice_args(f"{tmp}/run", f"{tmp}/episodes")
             if not a.startswith(("replay_dir=", "relabel="))]
-    fresh = build_workspace(args, ws.spec)
+    fresh = build_workspace(args)
     same = all(torch.equal(v, fresh.agent.train_state()[k])
                for k, v in ws.agent.train_state().items())
     same_gen = torch.equal(ws.generator.get_state(), fresh.generator.get_state())
@@ -571,6 +632,133 @@ def check_task_z_and_checkpoint(ws: tp.Any, tmp: str) -> None:
         raise AssertionError("the resumed workspace differs from the saved one")
 
 
+def check_dynamics() -> None:
+    """The planar dynamics on the card against float64 on the CPU."""
+    for domain in dynamics_check.DOMAINS:
+        pressed, held = dynamics_check.check_domain(domain, DYNAMICS_STATES, "cuda", SEED)
+        ok = all(h.ok for h in held)
+        print(f"phase 10 dynamics {domain}: {DYNAMICS_STATES} states, {pressed:.2f} of them "
+              f"with a contact pressed, card float32 against CPU float64 (tolerances "
+              f"{dynamics_check.DYNAMICS_TOL} and {dynamics_check.STEP_TOL} of the largest "
+              f"entry, by state; a state beyond it within {dynamics_check.OUTLIER_FACTOR:.0f}x): "
+              + "; ".join(str(h) for h in held) + (" ok" if ok else " FAIL"))
+        if not ok:
+            raise AssertionError(f"the {domain}'s dynamics on the card disagree with the CPU's")
+
+
+def _timed(fn: tp.Callable[[], tp.Any]) -> tp.Tuple[tp.Any, float]:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def profile_rollout(rollout: Rollout, z: torch.Tensor, state: tp.Any, ts: tp.Any,
+                    substeps: int) -> None:
+    """A ``torch.profiler`` trace of one captured rollout of COMPARED_STEPS
+    steps: launches and device time per control step, the busy share, and
+    the kernels that take most of the device time."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        _, wall = _timed(lambda: rollout(z, state, ts))
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    graph_launches = sum(e.name == "cudaGraphLaunch" for e in prof.events())
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    by_name: tp.Dict[str, float] = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    print(f"phase 11 profile E={rollout.num_envs}: {COMPARED_STEPS} control steps in "
+          f"{graph_launches} graph launches: {len(kernels) / COMPARED_STEPS:.1f} kernel launches "
+          f"and {1e-3 * busy_us / COMPARED_STEPS:.4f} ms of device time per control step "
+          f"({substeps} substeps), {1e3 * wall / COMPARED_STEPS:.3f} ms of wall time per step "
+          f"under the profiler (busy share {1e-6 * busy_us / wall:.4f}); most device time: "
+          + "; ".join(f"{name[:48]} {us / busy_us:.3f}" for name, us in top))
+    if graph_launches != COMPARED_STEPS or not kernels:
+        raise AssertionError(f"expected {COMPARED_STEPS} graph launches with device kernels, "
+                             f"the profiler saw {graph_launches} and {len(kernels)} kernels")
+
+
+def check_evaluation(ws: tp.Any) -> None:
+    """``evaluate()`` and ``finalize()`` at full width, the captured rollout
+    against the eager one, its trace, and its rate by number of environments."""
+    card = card_name_and_power_limit()
+    horizon = ws.spec.episode_length
+    torch.cuda.reset_peak_memory_stats()
+    first, first_s = _timed(ws.evaluate)
+    starts = ws._rollouts[EVAL_EPISODES].physics[:, 0].clone()
+    second, second_s = _timed(ws.evaluate)
+    peak = torch.cuda.max_memory_allocated()
+    fresh = not torch.equal(starts, ws._rollouts[EVAL_EPISODES].physics[:, 0])
+    rows = read_csv(ws.work_dir / "eval.csv")
+    print(f"phase 11 evaluate: {EVAL_EPISODES} episodes x {horizon} steps as replays of the "
+          f"step that phase 4's first evaluation captured: {first_s:.3f} s and {second_s:.3f} s "
+          f"({EVAL_EPISODES * horizon / second_s:.0f} environment steps/s, z inference, "
+          f"diagnostics and the csv row included); episode_reward {first['episode_reward']:.2f} "
+          f"and {second['episode_reward']:.2f}, z_norm {second['z_norm']:.4f}; the two "
+          f"evaluations started from different states: {fresh}; {len(rows)} rows in "
+          f"eval.csv; peak device memory {peak / 2**20:.1f} MiB, on {card}")
+    if not (fresh and len(rows) == SLICE_STEPS // EVAL_EVERY + 2
+            and all(math.isfinite(v) for m in (first, second) for v in m.values())
+            and 0.0 <= second["episode_reward"] <= horizon):
+        raise AssertionError(f"bad evaluation: {first}, {second}")
+
+    rewards, final_s = _timed(ws.finalize)
+    written = check_test_rewards(ws, rewards)
+    print(f"phase 11 finalize: {len(WALKER_TASKS)} tasks x {FINAL_TESTS} episodes x {horizon} "
+          f"steps in one batch of {len(WALKER_TASKS) * FINAL_TESTS}, as replays of the step "
+          f"that phase 4's finalize() captured: {final_s:.3f} s; mean returns "
+          + ", ".join(f"{t} {np.mean(written[t]):.2f}" for t in WALKER_TASKS) + f", on {card}")
+
+    # captured against eager over COMPARED_STEPS steps from the same states
+    env = locomotion.make(ws.cfg.task, COMPARED_STEPS)
+    z = ws._init_eval_meta()[ws.agent.meta_key]
+    state, ts = env.reset(ws.generator, EVAL_EPISODES)
+    captured = Rollout(env, ws.agent, EVAL_EPISODES)
+    eager = Rollout(env, ws.agent, EVAL_EPISODES, capture=False)
+    got = [x.clone() for x in captured(z, state, ts)]
+    eager(z, state, ts)  # warm-up
+    want, eager_s = _timed(lambda: eager(z, state, ts))
+    _, captured_s = _timed(lambda: captured(z, state, ts))
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, want))
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    print(f"phase 11 captured vs eager: {COMPARED_STEPS} steps x {EVAL_EPISODES} episodes from the "
+          f"same states: equal to the bit: {bitwise} (max abs diff {err:.3e}; the same kernels "
+          f"in the same order, so no tolerance is allowed); eager {1e3 * eager_s / COMPARED_STEPS:.3f} "
+          f"ms per control step, captured {1e3 * captured_s / COMPARED_STEPS:.3f}, on {card}")
+    if not bitwise:
+        raise AssertionError("captured and eager rollouts disagree")
+
+    del eager, got, want
+    profile_rollout(captured, z, state, ts, env.n_substeps)
+    wide = Rollout(env, ws.agent, ROLLOUT_SIZES[-1])
+    state, ts = env.reset(ws.generator, ROLLOUT_SIZES[-1])
+    wide(z, state, ts)  # captures
+    profile_rollout(wide, z, state, ts, env.n_substeps)
+    del captured, wide, state, ts
+
+    for envs in ROLLOUT_SIZES:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        rollout = Rollout(ws.env, ws.agent, envs)
+        state, ts = ws.env.reset(ws.generator, envs)
+        _, capture_s = _timed(lambda: rollout(z, state, ts))
+        (totals, physics, _), run_s = _timed(lambda: rollout(z, state, ts))
+        peak = torch.cuda.max_memory_allocated()
+        finite = bool(torch.isfinite(totals).all() & torch.isfinite(physics).all())
+        print(f"phase 11 rollout E={envs}: {horizon} steps in {run_s:.3f} s "
+              f"({1e3 * run_s / horizon:.3f} ms per control step, {envs * horizon / run_s:.0f} "
+              f"environment steps/s; {capture_s:.3f} s with the capture); peak device memory "
+              f"{peak / 2**20:.1f} MiB, {(peak - held) / 2**20:.1f} MiB above what was held "
+              f"before, the [E, T, .] buffers included; mean return {float(totals.mean()):.2f}; "
+              f"finite: {finite}, on {card}")
+        if not finite:
+            raise AssertionError(f"non-finite rollout at E={envs}")
+        del rollout, state, ts, totals, physics
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -580,6 +768,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}")
+    started = time.perf_counter()
 
     seconds, logs = _build.build()
     for log in logs.values():
@@ -599,7 +788,10 @@ def main() -> int:
         check_capture(ws)
         check_relabel()
         check_task_z_and_checkpoint(ws, tmp)
+        check_dynamics()
+        check_evaluation(ws)
 
+    print(f"total: {time.perf_counter() - started:.1f} s for phases 1-11, the build included")
     print(json.dumps({"kernels": rows}))
     print(f"card: {card_name_and_power_limit()}")
     print(json.dumps({"ok": True, "device": {

@@ -9,9 +9,11 @@ becomes a state dict of the port's networks by name alone: ``MLP_i`` ->
 A whole ``FBTrainState`` (``controllable_agent_tpu/agents/fb_ddpg.py:102``)
 loads into an ``FBDDPGAgent``: the networks, the target networks, the step
 counter and the three Adam states (optax ``ScaleByAdamState`` mu, nu,
-count). This module reads those objects by attribute and converts their
-leaves with numpy, so it imports nothing of JAX: pass the state as it is or
-after ``jax.tree.map(np.asarray, state)``.
+count). This module reads those objects by attribute, or by key when the
+state is the nested dict of a decoded checkpoint
+(``train/jax_checkpoint.py``: fields by name, tuples by position), and
+converts their leaves with numpy or torch, so it imports nothing of JAX:
+pass the state as it is or after ``jax.tree.map(np.asarray, state)``.
 """
 
 from __future__ import annotations
@@ -43,6 +45,8 @@ def flax_to_state_dict(tree: tp.Any) -> tp.Dict[str, torch.Tensor]:
         *modules, leaf_name = parts
         names = [f"mlps.{m.rpartition('_')[2]}" if m.startswith("MLP_") else m
                  for m in modules]
+        if isinstance(leaf, torch.Tensor):
+            leaf = leaf.float().numpy()
         x = np.array(leaf, dtype=np.float32)  # a writable copy; bf16 widens exactly
         if leaf_name == "kernel":
             leaf_name, x = "weight", x.T
@@ -52,27 +56,34 @@ def flax_to_state_dict(tree: tp.Any) -> tp.Dict[str, torch.Tensor]:
     return out
 
 
+def _get(node: tp.Any, name: str) -> tp.Any:
+    """A field of a state object, or of its decoded dict."""
+    return node[name] if isinstance(node, dict) else getattr(node, name)
+
+
 def _load_adam(opt: Adam, opt_state: tp.Any) -> None:
-    adam = next(s for s in opt_state if hasattr(s, "mu"))
-    mu, nu = flax_to_state_dict(adam.mu), flax_to_state_dict(adam.nu)
+    parts = opt_state.values() if isinstance(opt_state, dict) else opt_state
+    adam = next(s for s in parts if hasattr(s, "mu") or (isinstance(s, dict) and "mu" in s))
+    mu, nu = flax_to_state_dict(_get(adam, "mu")), flax_to_state_dict(_get(adam, "nu"))
     if set(mu) != set(opt.params) or set(nu) != set(opt.params):
         raise ValueError(f"Adam state names {sorted(mu)} do not match the "
                          f"parameters {sorted(opt.params)}")
     for name in opt.params:
         opt.mu[name].copy_(mu[name])
         opt.nu[name].copy_(nu[name])
-    opt.count = int(np.asarray(adam.count))
+    opt.count = int(np.asarray(_get(adam, "count")))
 
 
 def load_fb_train_state(agent: FBDDPGAgent, state: tp.Any) -> None:
-    """Load a JAX ``FBTrainState`` into ``agent`` (in place)."""
-    for module, params in ((agent.actor, state.actor_params),
-                           (agent.forward_net, state.forward_params),
-                           (agent.backward_net, state.backward_params),
-                           (agent.target_forward_net, state.target_forward_params),
-                           (agent.target_backward_net, state.target_backward_params)):
-        module.load_state_dict(flax_to_state_dict(params))
-    agent.step = int(np.asarray(state.step))
-    _load_adam(agent.actor_opt, state.actor_opt_state)
-    _load_adam(agent.fw_opt, state.fw_opt_state)
-    _load_adam(agent.bw_opt, state.bw_opt_state)
+    """Load a JAX ``FBTrainState``, or its decoded dict, into ``agent`` (in
+    place)."""
+    for module, name in ((agent.actor, "actor_params"),
+                         (agent.forward_net, "forward_params"),
+                         (agent.backward_net, "backward_params"),
+                         (agent.target_forward_net, "target_forward_params"),
+                         (agent.target_backward_net, "target_backward_params")):
+        module.load_state_dict(flax_to_state_dict(_get(state, name)))
+    agent.step = int(np.asarray(_get(state, "step")))
+    _load_adam(agent.actor_opt, _get(state, "actor_opt_state"))
+    _load_adam(agent.fw_opt, _get(state, "fw_opt_state"))
+    _load_adam(agent.bw_opt, _get(state, "bw_opt_state"))

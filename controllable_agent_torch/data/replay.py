@@ -162,6 +162,13 @@ def sample(state: ReplayState, generator: torch.Generator, batch_size: int,
 
 
 RewardFn = tp.Callable[[Tensor], Tensor]
+# relabeling maps the stored physics this many rows at a time: the reward and
+# goal functions hold some 1 KB of intermediates per row
+ROWS_PER_PASS = 1 << 18
+
+
+def _by_rows(fn: RewardFn, rows: Tensor) -> Tensor:
+    return torch.cat([fn(part) for part in rows.split(ROWS_PER_PASS)])
 
 
 class ReplayBuffer:
@@ -274,11 +281,11 @@ class ReplayBuffer:
         reading the same memory)."""
         rows, e, t = self._physics_rows()
         assert self.state is not None
-        rewards = custom_reward(rows).float().reshape(e, t, 1)
+        rewards = _by_rows(custom_reward, rows).float().reshape(e, t, 1)
         self.state.storage["reward"].copy_(rewards)
 
     def set_goals(self, goal_fn: RewardFn) -> None:
         """(Re)compute the goal column from the stored physics."""
         rows, e, t = self._physics_rows()
         assert self.state is not None
-        self.state.storage["goal"] = goal_fn(rows).float().reshape(e, t, -1)
+        self.state.storage["goal"] = _by_rows(goal_fn, rows).float().reshape(e, t, -1)

@@ -1,17 +1,15 @@
-"""Walker / Cheetah / Hopper: models, observations, goal features and task
-rewards as functions of stored physics (mirror of
-``controllable_agent_tpu/envs/locomotion.py`` without ``reset``/``step``).
+"""Walker / Cheetah / Hopper: planar locomotion on ``physics2d`` (mirror of
+``controllable_agent_tpu/envs/locomotion.py``).
 
-The physics vector is [q, qd]; everything here is a batched function of it
-over any leading dimensions, on the tensor's device, so relabeling a buffer
-is one pass where the buffer lives. The models' geometry, the task set, the
-observation layouts and the reward shapes are the JAX package's:
+The physics vector is [q, qd]; observations, goal features and rewards are
+batched functions of it over any leading dimensions, on the tensor's device,
+so relabeling a buffer is one pass where the buffer lives. ``reset`` and
+``step`` advance ``[E]`` instances at once. The models' geometry, the task
+set, the observation layouts and the reward shapes are the JAX package's:
 
   walker: orientations (cos/sin per body, 14) + torso height + qvel  -> 24
   cheetah: qpos[1:] (8) + qvel (9)                                   -> 17
   hopper: qpos[1:] (6) + qvel (7) + log1p(touch toe/heel) (2)        -> 15
-
-The dynamics (``reset``, ``step``) wait for ROADMAP Queue A item 9.
 """
 
 from __future__ import annotations
@@ -24,6 +22,7 @@ import torch
 
 from ..ops.tolerance import tolerance
 from . import physics2d as p2d
+from .base import Environment, EnvSpec, StepType, TimeStep
 
 Tensor = torch.Tensor
 
@@ -244,17 +243,15 @@ def walker_features(model: p2d.PlanarModel, physics: Tensor) -> Tensor:
 
 
 @dataclasses.dataclass(frozen=True)
-class LocomotionSpec:
-    """The sizes of a locomotion environment's interface."""
-
-    obs_dim: int
-    action_dim: int
-    physics_dim: int
-    episode_length: int
+class LocoState:
+    q: Tensor  # [E, ndof]
+    qd: Tensor  # [E, ndof]
+    touch: Tensor  # [E, nc] largest normal force of each contact over the last step
+    t: Tensor  # [E] int32
 
 
-class LocomotionEnv:
-    """A planar locomotion task as functions of stored physics."""
+class LocomotionEnv(Environment):
+    """Planar locomotion environment over ``physics2d``."""
 
     def __init__(self, domain: str, task: str, episode_length: int = 1000) -> None:
         if task not in TASKS[domain]:
@@ -269,9 +266,22 @@ class LocomotionEnv:
         obs_dim = {"walker": 2 * self.model.nb + 1 + ndof,
                    "cheetah": (ndof - 1) + ndof,
                    "hopper": (ndof - 1) + ndof + 2}[domain]
-        self.spec = LocomotionSpec(obs_dim=obs_dim, action_dim=ndof - 3,
-                                   physics_dim=2 * ndof,
-                                   episode_length=episode_length)
+        self.spec = EnvSpec(obs_dim=obs_dim, action_dim=ndof - 3,
+                            physics_dim=2 * ndof, goal_dim=0,
+                            episode_length=episode_length)
+
+    # -- observables -----------------------------------------------------
+    def _obs(self, q: Tensor, qd: Tensor, touch: tp.Optional[Tensor]) -> Tensor:
+        if self.domain == "walker":
+            angles = q[..., 2:] @ self.model.tensors(q.device, q.dtype).body_frames.T
+            orient = torch.stack([torch.cos(angles), torch.sin(angles)], -1)
+            return torch.cat([orient.flatten(-2), q[..., 1:2], qd], -1)
+        if self.domain == "cheetah":
+            return torch.cat([q[..., 1:], qd], -1)
+        # hopper: qpos[1:] + qvel + log1p(touch toe/heel)
+        sensed = (torch.zeros_like(q[..., :2]) if touch is None
+                  else torch.log1p(touch[..., 1:3]))
+        return torch.cat([q[..., 1:], qd, sensed], -1)
 
     def obs_from_physics(self, physics: Tensor) -> Tensor:
         """Observation as a function of [q, qd], batched over leading dims.
@@ -279,16 +289,8 @@ class LocomotionEnv:
         (data/exorl.py physics adapters), whose stored observations follow
         MuJoCo's hinge sign convention. Hopper's touch sensors are not part
         of [q, qd]; they read 0."""
-        physics = torch.as_tensor(physics)
-        q, qd = _split_qqd(self.model, physics)
-        if self.domain == "walker":
-            _, angles = p2d.fk(self.model, q)
-            orient = torch.stack([torch.cos(angles), torch.sin(angles)], -1)
-            return torch.cat([orient.flatten(-2), q[..., 1:2], qd], -1)
-        if self.domain == "cheetah":
-            return torch.cat([q[..., 1:], qd], -1)
-        touch = torch.zeros_like(q[..., :2])  # log1p(0) of toe and heel
-        return torch.cat([q[..., 1:], qd, touch], -1)
+        q, qd = _split_qqd(self.model, torch.as_tensor(physics))
+        return self._obs(q, qd, None)
 
     def goal_features(self, physics: Tensor) -> Tensor:
         """Domain goal-feature extraction, batched over leading dims."""
@@ -347,12 +349,49 @@ class LocomotionEnv:
                                 sigmoid="linear")
         return standing * hopping
 
-    def reset(self, *args: tp.Any, **kwargs: tp.Any) -> tp.Any:
-        raise NotImplementedError(
-            "the planar dynamics (reset/step) are not ported to "
-            "controllable_agent_torch yet (ROADMAP Queue A item 9)")
+    # -- API -------------------------------------------------------------
+    def reset(self, generator: torch.Generator, num_envs: int) -> tp.Tuple[LocoState, TimeStep]:
+        nj = self.model.ndof - 3
+        return self.reset_from_uniform(
+            torch.rand((num_envs, nj), generator=generator, device=generator.device))
 
-    step = reset
+    def reset_from_uniform(self, u: Tensor) -> tp.Tuple[LocoState, TimeStep]:
+        """``reset`` with its uniform draw ``u`` [E, nj] handed in: the joints
+        at ``u`` of the way through their limits, the root at ``init_z``, at
+        rest."""
+        c = self.model.tensors(u.device, u.dtype)
+        qj = c.limit_lo + u * (c.limit_hi - c.limit_lo)
+        root = torch.tensor([0.0, self.init_z, 0.0], dtype=u.dtype, device=u.device)
+        q = torch.cat([root.expand(u.shape[0], 3), qj], -1)
+        qd = torch.zeros_like(q)
+        if self.domain == "cheetah":
+            # stabilize for 2 s of simulated time before the episode starts
+            rest = torch.zeros_like(qj)
+            for _ in range(int(round(2.0 / self.control_dt))):
+                q, qd, _ = p2d.step(self.model, q, qd, rest, self.control_dt, self.n_substeps)
+        state = LocoState(q=q, qd=qd, touch=torch.zeros_like(c.contact_radius.expand(u.shape[0], -1)),
+                          t=torch.zeros(u.shape[0], dtype=torch.int32, device=u.device))
+        physics = torch.cat([q, qd], -1)
+        ts = TimeStep(
+            step_type=torch.full_like(state.t, StepType.FIRST),
+            reward=torch.zeros_like(q[:, 0]), discount=torch.ones_like(q[:, 0]),
+            observation=self._obs(q, qd, state.touch), action=torch.zeros_like(qj),
+            physics=physics)
+        return state, ts
+
+    def step(self, state: LocoState, action: Tensor) -> tp.Tuple[LocoState, TimeStep]:
+        action = action.float().clamp(-1.0, 1.0)
+        q, qd, touch = p2d.step(self.model, state.q, state.qd, action,
+                                self.control_dt, self.n_substeps)
+        t = state.t + 1
+        physics = torch.cat([q, qd], -1)
+        ts = TimeStep(
+            step_type=torch.where(t >= self.episode_length, StepType.LAST,
+                                  StepType.MID).to(torch.int32),
+            reward=self.reward_from_physics(physics).float(),
+            discount=torch.ones_like(q[:, 0]),
+            observation=self._obs(q, qd, touch), action=action, physics=physics)
+        return LocoState(q=q, qd=qd, touch=touch, t=t), ts
 
 
 def make(name: str, episode_length: int = 1000) -> LocomotionEnv:

@@ -1,19 +1,37 @@
-"""Planar articulated rigid-body kinematics (mirror of the kinematic half of
+"""Planar articulated rigid-body physics (mirror of
 ``controllable_agent_tpu/envs/physics2d.py``).
 
 Models are kinematic trees of capsule links with hinge joints in the x-z
 plane; the root has a free planar joint (x, z, pitch). Every function here
-is batched: ``q`` and ``qd`` are ``[..., ndof]`` tensors on any device, and
-the loop over the (static, small) body count is unrolled in Python with the
-model's constants as Python floats, so the model needs no device.
+is batched: ``q`` and ``qd`` are ``[..., ndof]`` tensors on any device.
 
-``subtree_momentum`` needs each body's COM velocity. The JAX package takes
-the Jacobian of ``com_world`` with ``jax.jacfwd``; here the velocities come
-from the same recursion as the positions, differentiated by hand (a hinge
-adds its rate to the angular velocity, an offset rotates with its parent).
+The recursions over the tree are written as products with constant
+matrices (``ModelTensors``, built once per device and dtype), so that a
+function costs a few launches whatever the number of bodies, and nothing is
+copied from the host while it runs (a CUDA graph can hold it).
 
-The dynamics (``mass_matrix`` ... ``step``) are not ported yet (ROADMAP
-Queue A item 9).
+The kinematic half (``fk`` ... ``subtree_momentum``): every offset of the
+tree (anchors, COMs, contact points) is rotated by the angle of its frame in
+one pass, and a 0/1 matrix sums the offsets along each point's chain.
+``subtree_momentum`` needs each body's COM velocity; the JAX package takes
+the Jacobian of ``com_world`` with ``jax.jacfwd``, here an offset turning at
+its frame's rate moves its tip at rate x perp(offset), summed along the
+chain in the same way.
+
+The dynamic half (``mass_matrix`` ... ``step``) is the JAX package's
+Lagrangian dynamics with every derivative taken by hand instead of by
+autodiff:
+
+  * dof k is x, z, the pitch (k = 2, body 0) or the hinge of body j = k - 2.
+    For a point p fixed on body b, dp/dq_k = perp(p - origin_j) when j is b
+    or an ancestor of b, else 0, with perp(x, z) = (-z, x); dp/dx = (1, 0),
+    dp/dz = (0, 1);
+  * M = sum_b m_b J_b^T J_b + I_b w_b w_b^T + diag(0, 0, 0, armature); only
+    the first term depends on q, so the Coriolis and centrifugal forces
+    (the JAX ``jvp`` and ``grad`` of M) equal sum_b m_b J_b^T a_b, where a_b
+    is the COM's acceleration at zero joint acceleration: the centripetal
+    terms -w^2 (rotated offset) summed along b's chain;
+  * gravity is sum_b J_b^T (0, -g m_b).
 """
 
 from __future__ import annotations
@@ -23,6 +41,7 @@ import typing as tp
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 Tensor = torch.Tensor
 
@@ -61,6 +80,8 @@ class PlanarModel:
     # solver
     limit_stiffness: float = 300.0
     limit_damping: float = 10.0
+    _tensors: tp.Dict[tp.Tuple[torch.device, torch.dtype], "ModelTensors"] = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False)
 
     @property
     def nb(self) -> int:
@@ -70,62 +91,156 @@ class PlanarModel:
     def ndof(self) -> int:
         return self.nb + 2
 
+    def tensors(self, device: torch.device, dtype: torch.dtype) -> "ModelTensors":
+        """The model's constants on ``device``, built once for each device
+        and dtype."""
+        key = (torch.device(device), dtype)
+        if key not in self._tensors:
+            self._tensors[key] = ModelTensors.build(self, *key)
+        return self._tensors[key]
 
-def _rotate(angle: Tensor, point: tp.Sequence[float]) -> Tensor:
-    """R(angle) @ point for a constant 2-vector: [..., 2]."""
-    c, s = torch.cos(angle), torch.sin(angle)
-    px, pz = float(point[0]), float(point[1])
-    return torch.stack([c * px - s * pz, s * px + c * pz], -1)
+
+# -------------------------------------------------------------- constants
+
+@dataclasses.dataclass(frozen=True)
+class ModelTensors:
+    """A model's constants as tensors on one device, laid out for the
+    kinematics and the dynamics.
+
+    The tree is flattened into ``no = 2 nb + nc`` rotating offsets (each
+    body's anchor in its parent's frame, each body's COM and each contact
+    point in their body's frame) and ``nr = 2 nb + nc`` points relative to
+    the root (the body origins, the COMs, the contact points). The
+    Jacobians are taken at the ``np = nb + nc`` COMs and contact points.
+    """
+
+    frames: Tensor  # [no, nb] 1 where rotation dof j (pitch, hinges) turns the offset's frame
+    offsets: Tensor  # [no, 4] (ox, oz, -oz, ox): the offset and its perp at angle 0
+    offsets_quarter: Tensor  # [no, 4] the same a quarter turn on: (-oz, ox, -ox, -oz)
+    place: Tensor  # [nr, no] 1 where the offset lies on the chain from the root to the point
+    chain: Tensor  # [nb, np, 1] 1 where body j is the point's body or an ancestor of it
+    root_jacobian: Tensor  # [2, 2 np] d(point)/d(x, z)
+    mass: Tensor  # [nb]
+    inertia: Tensor  # [nb]
+    mass_share: Tensor  # [nb] each body's share of the total mass
+    mass2: Tensor  # [2 nb] each body's mass, for both coordinates of its COM
+    weight2: Tensor  # [2 nb] gravity on each COM coordinate: (0, -g m_b)
+    constant_inertia: Tensor  # [ndof, ndof] sum_b I_b w_b w_b^T + diag(armature)
+    solve_shift: Tensor  # [ndof, ndof] 1e-9 I, added to M before the solve
+    contact_radius: Tensor  # [nc]
+    gear: Tensor  # [nj]
+    damping: Tensor
+    limit_lo: Tensor
+    limit_hi: Tensor
+    stiffness: tp.Optional[Tensor]
+
+    @property
+    def body_frames(self) -> Tensor:
+        """[nb, nb]: body angles = q[..., 2:] @ body_frames.T (each COM
+        offset turns with its own body)."""
+        nb = self.frames.shape[1]
+        return self.frames[nb:2 * nb]
+
+    @classmethod
+    def build(cls, model: PlanarModel, device: torch.device,
+              dtype: torch.dtype) -> "ModelTensors":
+        nb, nc, ndof = model.nb, len(model.contact_body), model.ndof
+        chain = np.zeros((nb, nb))  # chain[b, j]: j is b or an ancestor of b
+        for b in range(nb):
+            chain[b, b] = 1.0
+            if b > 0:
+                chain[b] += chain[model.parent[b]]
+        point_body = list(range(nb)) + list(model.contact_body)
+        frame_body = [model.parent[b] for b in range(nb)] + point_body
+        offsets = np.concatenate([np.asarray(model.anchor, np.float64),
+                                  np.asarray(model.com, np.float64),
+                                  np.asarray(model.contact_point, np.float64).reshape(nc, 2)])
+        offsets[0] = 0.0  # the root has no anchor
+        frames = np.stack([chain[b] if b >= 0 else np.zeros(nb) for b in frame_body])
+        ox, oz = offsets[:, 0], offsets[:, 1]
+        place = np.zeros((2 * nb + nc, 2 * nb + nc))
+        for row, b in enumerate(list(range(nb)) + point_body):
+            place[row, :nb] = chain[b]
+            if row >= nb:
+                place[row, row] = 1.0  # the point's own offset on its body
+        inertia = np.zeros((ndof, ndof))
+        inertia[2:, 2:] = np.einsum("b,bj,bk->jk", np.asarray(model.inertia, np.float64),
+                                    chain, chain)
+        inertia[3:, 3:] += np.diag(np.asarray(model.armature, np.float64))
+        mass2 = np.repeat(np.asarray(model.mass, np.float64), 2)
+
+        def on(x: tp.Any) -> Tensor:
+            return torch.as_tensor(np.asarray(x), dtype=dtype).to(device)
+
+        return cls(
+            frames=on(frames), offsets=on(np.stack([ox, oz, -oz, ox], -1)),
+            offsets_quarter=on(np.stack([-oz, ox, -ox, -oz], -1)), place=on(place),
+            chain=on(chain[point_body].T[:, :, None]),
+            root_jacobian=on(np.tile(np.eye(2), (1, nb + nc))),
+            mass=on(model.mass), inertia=on(model.inertia),
+            mass_share=on(mass2[::2] / mass2[::2].sum()), mass2=on(mass2),
+            weight2=on(mass2 * np.tile([0.0, -GRAVITY], nb)),
+            constant_inertia=on(inertia), solve_shift=on(1e-9 * np.eye(ndof)),
+            contact_radius=on(model.contact_radius), gear=on(model.gear),
+            damping=on(model.damping), limit_lo=on(model.limit_lo),
+            limit_hi=on(model.limit_hi),
+            stiffness=None if model.stiffness is None else on(model.stiffness))
 
 
-def _rotate_rate(angle: Tensor, rate: Tensor, point: tp.Sequence[float]) -> Tensor:
-    """d/dt of ``_rotate(angle, point)`` when the angle moves at ``rate``."""
-    c, s = torch.cos(angle), torch.sin(angle)
-    px, pz = float(point[0]), float(point[1])
-    return torch.stack([(-s * px - c * pz) * rate, (c * px - s * pz) * rate], -1)
+class _Pose(tp.NamedTuple):
+    """A pose's offsets and points, all relative to the root position."""
 
+    rotated: Tensor  # [..., no, 4] every offset in the world frame, and its perp
+    points: Tensor  # [..., nr, 4] origins, COMs and contact points, and their perps
+
+
+def _pose(c: ModelTensors, q: Tensor) -> _Pose:
+    angles = q[..., 2:] @ c.frames.T  # [..., no] the angle of each offset's frame
+    rotated = torch.addcmul(torch.cos(angles).unsqueeze(-1) * c.offsets,
+                            torch.sin(angles).unsqueeze(-1), c.offsets_quarter)
+    return _Pose(rotated, c.place @ rotated)
+
+
+def _constants_and_pose(model: PlanarModel, q: Tensor) -> tp.Tuple[ModelTensors, _Pose]:
+    c = model.tensors(q.device, q.dtype)
+    return c, _pose(c, q)
+
+
+# -------------------------------------------------------------- kinematics
 
 def fk(model: PlanarModel, q: Tensor) -> tp.Tuple[Tensor, Tensor]:
     """Forward kinematics: body origins [..., nb, 2] and angles [..., nb]."""
-    origins = [q[..., 0:2]]
-    angles = [q[..., 2]]
-    for b in range(1, model.nb):
-        p = model.parent[b]
-        origins.append(origins[p] + _rotate(angles[p], model.anchor[b]))
-        angles.append(angles[p] + q[..., 2 + b])
-    return torch.stack(origins, -2), torch.stack(angles, -1)
+    c, pose = _constants_and_pose(model, q)
+    return (pose.points[..., :model.nb, :2] + q[..., None, :2],
+            q[..., 2:] @ c.body_frames.T)
 
 
 def com_world(model: PlanarModel, q: Tensor) -> tp.Tuple[Tensor, Tensor]:
     """Body COM positions [..., nb, 2] and angles [..., nb]."""
-    origins, angles = fk(model, q)
-    offsets = torch.stack([_rotate(angles[..., b], model.com[b])
-                           for b in range(model.nb)], -2)
-    return origins + offsets, angles
+    c, pose = _constants_and_pose(model, q)
+    return (pose.points[..., model.nb:2 * model.nb, :2] + q[..., None, :2],
+            q[..., 2:] @ c.body_frames.T)
 
 
 def contact_world(model: PlanarModel, q: Tensor) -> Tensor:
     """Contact points in the world frame, [..., nc, 2]."""
-    origins, angles = fk(model, q)
-    return torch.stack([origins[..., b, :] + _rotate(angles[..., b], point)
-                        for b, point in zip(model.contact_body, model.contact_point)], -2)
+    _, pose = _constants_and_pose(model, q)
+    return pose.points[..., 2 * model.nb:, :2] + q[..., None, :2]
+
+
+def _com_velocities(c: ModelTensors, pose: _Pose, qd: Tensor) -> tp.Tuple[Tensor, Tensor]:
+    nb = c.frames.shape[1]
+    rates = qd[..., 2:] @ c.frames.T  # [..., no] the rate of each offset's frame
+    # an offset turning at its frame's rate moves its tip at rate x perp(offset)
+    swept = rates.unsqueeze(-1) * pose.rotated[..., 2:]
+    return (c.place[nb:2 * nb] @ swept + qd[..., None, :2], qd[..., 2:] @ c.body_frames.T)
 
 
 def com_velocities(model: PlanarModel, q: Tensor, qd: Tensor
                    ) -> tp.Tuple[Tensor, Tensor]:
     """Per-body COM velocity [..., nb, 2] and angular velocity [..., nb]."""
-    angles = [q[..., 2]]
-    rates = [qd[..., 2]]
-    origin_vels = [qd[..., 0:2]]
-    for b in range(1, model.nb):
-        p = model.parent[b]
-        origin_vels.append(origin_vels[p]
-                           + _rotate_rate(angles[p], rates[p], model.anchor[b]))
-        angles.append(angles[p] + q[..., 2 + b])
-        rates.append(rates[p] + qd[..., 2 + b])
-    vels = [origin_vels[b] + _rotate_rate(angles[b], rates[b], model.com[b])
-            for b in range(model.nb)]
-    return torch.stack(vels, -2), torch.stack(rates, -1)
+    c, pose = _constants_and_pose(model, q)
+    return _com_velocities(c, pose, qd)
 
 
 def subtree_momentum(model: PlanarModel, q: Tensor, qd: Tensor
@@ -133,21 +248,154 @@ def subtree_momentum(model: PlanarModel, q: Tensor, qd: Tensor
     """(linear COM velocity [..., 2], angular momentum about the total COM
     [...], total COM position [..., 2]): the planar analogues of MuJoCo's
     subtree_linvel / subtree_angmom used by the goal spaces."""
-    coms, _ = com_world(model, q)
-    v, w = com_velocities(model, q, qd)
-    mass = torch.as_tensor(model.mass, dtype=q.dtype, device=q.device)
-    inertia = torch.as_tensor(model.inertia, dtype=q.dtype, device=q.device)
-    total_mass = mass.sum()
-    com = (mass[:, None] * coms).sum(-2) / total_mass
-    v_com = (mass[:, None] * v).sum(-2) / total_mass
+    c, pose = _constants_and_pose(model, q)
+    coms = pose.points[..., model.nb:2 * model.nb, :2] + q[..., None, :2]
+    v, w = _com_velocities(c, pose, qd)
+    com = c.mass_share @ coms
+    v_com = c.mass_share @ v
     rel = coms - com[..., None, :]
     relv = v - v_com[..., None, :]
     # angular momentum about MuJoCo's y-axis (x forward, z up, y left):
     # (r x v)_y = z_rel*vx - x_rel*vz; the planar angle is counterclockwise
     # in the x-z plane, i.e. w_y = -theta_dot, hence the -I*w spin term
-    l_y = (-inertia * w + mass * (rel[..., 1] * relv[..., 0]
-                                  - rel[..., 0] * relv[..., 1])).sum(-1)
+    l_y = (-c.inertia * w + c.mass * (rel[..., 1] * relv[..., 0]
+                                      - rel[..., 0] * relv[..., 1])).sum(-1)
     return v_com, l_y, com
+
+
+# --------------------------------------------------------------- dynamics
+
+class _Kinematics(tp.NamedTuple):
+    """What the dynamics need of a pose."""
+
+    rotated: Tensor  # as in _Pose
+    points: Tensor
+    jacobian_t: Tensor  # [..., ndof, 2 np] transposed Jacobians of the COMs and contact points
+
+
+def _kinematics(c: ModelTensors, q: Tensor) -> _Kinematics:
+    nb = c.frames.shape[1]
+    rotated, points = _pose(c, q)
+    # d(point i)/d(rotation dof j) = perp(point i - origin j) along i's chain
+    perp = points[..., 2:]
+    turn = (perp[..., None, nb:, :] - perp[..., :nb, None, :]) * c.chain
+    root = c.root_jacobian.expand(*q.shape[:-1], *c.root_jacobian.shape)
+    return _Kinematics(rotated, points, torch.cat([root, turn.flatten(-2)], -2))
+
+
+def _com_jacobian_t(c: ModelTensors, kin: _Kinematics) -> Tensor:
+    return kin.jacobian_t[..., :c.mass2.shape[0]]
+
+
+def _mass_matrix(c: ModelTensors, kin: _Kinematics) -> Tensor:
+    jac_t = _com_jacobian_t(c, kin)
+    return (jac_t * c.mass2) @ jac_t.mT + c.constant_inertia
+
+
+def _com_wrench(c: ModelTensors, kin: _Kinematics, forces: Tensor) -> Tensor:
+    """Generalized force of ``forces`` [..., 2 nb] applied at the COMs."""
+    return (_com_jacobian_t(c, kin) @ forces.unsqueeze(-1)).squeeze(-1)
+
+
+def _com_inertial_forces(c: ModelTensors, kin: _Kinematics, qd: Tensor) -> Tensor:
+    """m_b a_b [..., 2 nb], with a_b the acceleration of body b's COM at
+    zero joint acceleration: every offset on its chain turns at its frame's
+    constant rate, which pulls the COM towards the offset's base."""
+    nb = c.frames.shape[1]
+    rates = qd[..., 2:] @ c.frames.T
+    centripetal = -(rates * rates).unsqueeze(-1) * kin.rotated[..., :2]
+    return (c.place[nb:2 * nb] @ centripetal).flatten(-2) * c.mass2
+
+
+def _contact_forces(model: PlanarModel, c: ModelTensors, kin: _Kinematics,
+                    q: Tensor, qd: Tensor) -> tp.Tuple[Tensor, Tensor]:
+    first = c.mass2.shape[0]  # COM columns come first
+    jac_t = kin.jacobian_t[..., first:]
+    vel = (qd.unsqueeze(-2) @ jac_t).squeeze(-2).unflatten(-1, (-1, 2))
+    phi = c.contact_radius - (kin.points[..., first:, 1] + q[..., 1:2])
+    fn = torch.where(phi > 0, (model.contact_stiffness * phi
+                               - model.contact_damping * vel[..., 1]).clamp_min(0.0), 0.0)
+    v_slip = 0.1
+    ft = -model.friction * fn * (vel[..., 0] / v_slip).clamp(-1.0, 1.0)
+    forces = torch.stack([ft, fn], -1).flatten(-2)
+    return (jac_t @ forces.unsqueeze(-1)).squeeze(-1), fn
+
+
+def _joint_torques(model: PlanarModel, c: ModelTensors, q: Tensor, qd: Tensor,
+                   action: Tensor) -> Tensor:
+    qj, qdj = q[..., 3:], qd[..., 3:]
+    tau = c.gear * action - c.damping * qdj
+    if c.stiffness is not None:
+        tau = tau - c.stiffness * qj
+    # soft limits: a spring on the excursion beyond [lo, hi], a damper while beyond
+    excess = qj - torch.clamp(qj, c.limit_lo, c.limit_hi)
+    return tau - model.limit_stiffness * excess - model.limit_damping * qdj * (excess != 0)
+
+
+def _constants_and_kinematics(model: PlanarModel, q: Tensor
+                              ) -> tp.Tuple[ModelTensors, _Kinematics]:
+    c = model.tensors(q.device, q.dtype)
+    return c, _kinematics(c, q)
+
+
+def mass_matrix(model: PlanarModel, q: Tensor) -> Tensor:
+    """M(q) = sum_b m_b J_c^T J_c + I_b J_w^T J_w + armature, [..., ndof, ndof]."""
+    return _mass_matrix(*_constants_and_kinematics(model, q))
+
+
+def bias_forces(model: PlanarModel, q: Tensor, qd: Tensor) -> Tensor:
+    """Coriolis/centrifugal h(q, qd) = Mdot qd - 1/2 d/dq (qd^T M qd)."""
+    c, kin = _constants_and_kinematics(model, q)
+    return _com_wrench(c, kin, _com_inertial_forces(c, kin, qd))
+
+
+def gravity_forces(model: PlanarModel, q: Tensor) -> Tensor:
+    """-dV/dq with V = g sum_b m_b z_com."""
+    c, kin = _constants_and_kinematics(model, q)
+    return _com_wrench(c, kin, c.weight2)
+
+
+def contact_forces(model: PlanarModel, q: Tensor, qd: Tensor) -> tp.Tuple[Tensor, Tensor]:
+    """Generalized ground-contact force [..., ndof] and per-contact normal
+    forces [..., nc]. Regularized soft contact: fn = (kn phi - dn v_z)+ gated
+    on penetration phi = r - z > 0; tangential ft = -mu fn sat(v_x / v_slip)."""
+    c, kin = _constants_and_kinematics(model, q)
+    return _contact_forces(model, c, kin, q, qd)
+
+
+def joint_forces(model: PlanarModel, q: Tensor, qd: Tensor, action: Tensor) -> Tensor:
+    """Actuation + joint damping + soft joint limits on the hinge dofs."""
+    c = model.tensors(q.device, q.dtype)
+    return F.pad(_joint_torques(model, c, q, qd, action), (3, 0))
+
+
+def forward_dynamics(model: PlanarModel, q: Tensor, qd: Tensor, action: Tensor
+                     ) -> tp.Tuple[Tensor, Tensor]:
+    """qdd = M^-1 (tau + J_c^T f_contact - h - dV/dq); also returns the
+    contact normal forces (for touch sensing)."""
+    c, kin = _constants_and_kinematics(model, q)
+    qf_contact, fn = _contact_forces(model, c, kin, q, qd)
+    rhs = (F.pad(_joint_torques(model, c, q, qd, action), (3, 0)) + qf_contact
+           + _com_wrench(c, kin, c.weight2 - _com_inertial_forces(c, kin, qd)))
+    # no error check: it would wait for the device, and M is positive definite
+    qdd = torch.linalg.solve_ex(_mass_matrix(c, kin) + c.solve_shift, rhs)[0]
+    return qdd, fn
+
+
+def step(model: PlanarModel, q: Tensor, qd: Tensor, action: Tensor, dt: float,
+         n_substeps: int) -> tp.Tuple[Tensor, Tensor, Tensor]:
+    """Semi-implicit Euler with substeps. Returns (q, qd, touch) where touch
+    is the max per-contact normal force over the substeps."""
+    h = dt / n_substeps
+    touch = torch.zeros((), dtype=q.dtype, device=q.device)
+    for _ in range(n_substeps):
+        qdd, fn = forward_dynamics(model, q, qd, action)
+        # clamp runaway velocities (keeps the explicit integrator sane under
+        # deep penetration)
+        qd = torch.add(qd, qdd, alpha=h).clamp(-100.0, 100.0)
+        q = torch.add(q, qd, alpha=h)
+        touch = torch.maximum(touch, fn)
+    return q, qd, touch
 
 
 # ---------------------------------------------------------------- helpers

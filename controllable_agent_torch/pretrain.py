@@ -16,7 +16,7 @@ import typing as tp
 from pathlib import Path
 
 from .config import apply_overrides
-from .train.workspace import EnvSpec, OfflineWorkspace, WorkspaceConfig
+from .train.workspace import OfflineWorkspace, WorkspaceConfig
 
 AgentConfigBase = tp.Optional[tp.Dict[str, tp.Any]]
 
@@ -70,10 +70,10 @@ def build_config(argv: tp.Sequence[str]
     return apply_overrides(base, ws_overrides), agent_overrides, agent_cfg_base
 
 
-def build_workspace(argv: tp.Sequence[str], spec: EnvSpec,
+def build_workspace(argv: tp.Sequence[str],
                     workspace_cls: type = OfflineWorkspace) -> tp.Any:
     cfg, agent_overrides, agent_cfg_base = build_config(argv)
-    return workspace_cls(cfg, spec, agent_cfg_overrides=agent_overrides,
+    return workspace_cls(cfg, agent_cfg_overrides=agent_overrides,
                          agent_cfg_base=agent_cfg_base)
 
 

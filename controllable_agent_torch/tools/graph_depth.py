@@ -54,7 +54,8 @@ def main() -> int:
     for depth in DEPTHS:
         held = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
-        programs[depth] = CapturedProgram(lambda: updates(depth), agent, [gen])
+        programs[depth] = CapturedProgram(lambda: updates(depth), agent.device,
+                                          agent.train_state().values(), [gen])
         torch.cuda.synchronize()
         notes[depth] = (f"captured in {time.perf_counter() - t0:.2f} s, "
                         f"{(torch.cuda.memory_allocated() - held) / 2**20:.0f} MiB held")

@@ -1,16 +1,17 @@
-"""Workspace: agent + replay + logger + checkpoints, zero-shot task
-inference, and the offline training loop (sliced mirror of
-``controllable_agent_tpu/train/workspace.py``).
+"""Workspace: environment + agent + replay + logger + checkpoints, zero-shot
+task inference, evaluation rollouts, the final test battery and the offline
+training loop (sliced mirror of ``controllable_agent_tpu/train/workspace.py``).
 
-The port has no environment dynamics yet, so the workspace takes the
-observation and action sizes and the episode length from the data
-(``EnvSpec``); for the planar locomotion domains ``make_env`` gives the
-kinematic side (goal features, observations and rewards from stored
-physics). Parts of the JAX workspace that are not ported raise
-``NotImplementedError`` naming the ROADMAP item that ports them, whenever a
-config would make them fire: evaluation rollouts and ``finalize`` (item 9),
-videos, TensorBoard/wandb and profiles (item 15), the other agents,
-pixels and d4rl.
+Evaluation advances all its episodes at once (``loops.Rollout``): on a CUDA
+device the per-step program (policy -> ``env.step`` -> reward sum ->
+trajectory writes) is one captured CUDA graph replayed ``episode_length``
+times; on the CPU the same function runs eagerly. z may differ per episode,
+so ``finalize`` rolls every task's episodes out in one batch.
+
+Parts of the JAX workspace that are not ported raise ``NotImplementedError``
+naming the ROADMAP item that ports them, whenever a config would make them
+fire: videos, TensorBoard/wandb and profiles (item 15), the other agents
+(13), pixels, d4rl and the other environments (12).
 """
 
 from __future__ import annotations
@@ -25,11 +26,16 @@ import torch
 from ..agents import AGENTS
 from ..config import apply_overrides, to_flat_dict
 from ..data import ReplayBuffer
+from ..envs.base import Environment, EnvSpec
+from ..envs.pointmass import TASKS as _PMM_TASKS
+from ..envs.pointmass import PointMassMaze
 from ..goals import get_goal_space_dim, get_reward_function, goal_spaces, goals
 from ..utils import Stopwatch, crossed, resolve_device
 from . import checkpoint as ckpt_lib
+from . import jax_checkpoint
 from .logger import Logger
-from .loops import make_offline_trainer
+from .loops import Rollout, make_offline_trainer
+from .physics_stats import PhysicsAggregator
 
 Tensor = torch.Tensor
 
@@ -80,27 +86,21 @@ class WorkspaceConfig:
     device: str = "cuda"  # "cpu" runs the whole slice on the CPU (tests)
 
 
-@dataclasses.dataclass(frozen=True)
-class EnvSpec:
-    """What the agent and the replay need to know of the environment."""
-
-    obs_dim: int
-    action_dim: int
-    episode_length: int
-
-
 def _not_ported(what: str, item: int) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to controllable_agent_torch yet "
         f"(ROADMAP Queue A item {item})")
 
 
-def make_env(task: str, episode_length: tp.Optional[int] = None) -> tp.Any:
-    """The kinematic side of a task's environment, by name: a
-    ``LocomotionEnv`` for walker, cheetah and hopper, None for the point
-    mass (its goal features are its physics). Other domains are not ported."""
+def make_env(task: str, episode_length: tp.Optional[int] = None) -> Environment:
+    """Name-based environment dispatch: the point-mass maze, and walker,
+    cheetah and hopper. Other domains are not ported."""
     if task.startswith("point_mass_maze_"):
-        return None
+        sub = task[len("point_mass_maze_"):]
+        if sub not in _PMM_TASKS and sub != "multi_goal":
+            raise ValueError(f"Unknown point-mass task {sub}")
+        return PointMassMaze(sub if sub in _PMM_TASKS else "reach_top_left",
+                             episode_length=episode_length or 1000)
     domain = task.split("_", 1)[0]
     if domain in ("walker", "cheetah", "hopper"):
         from ..envs import locomotion
@@ -108,25 +108,31 @@ def make_env(task: str, episode_length: tp.Optional[int] = None) -> tp.Any:
     raise _not_ported(f"the environment of task {task!r}", 12)
 
 
+# the tasks of the final test battery, by domain
+_FINAL_TASKS = {
+    "cheetah": ["walk", "walk_backward", "run", "run_backward"],
+    "walker": ["stand", "walk", "run", "flip"],
+    "hopper": ["stand", "hop", "hop_backward", "flip"],
+}
+
+
 class Workspace:
-    def __init__(self, cfg: WorkspaceConfig, spec: EnvSpec,
+    def __init__(self, cfg: WorkspaceConfig,
                  agent_cfg_overrides: tp.Sequence[str] = (),
                  agent_cfg_base: tp.Optional[tp.Dict[str, tp.Any]] = None) -> None:
         unported = [
             (cfg.agent_name != "fb_ddpg", f"agent {cfg.agent_name!r}", 13),
             (cfg.obs_type != "states", "obs_type=pixels", 12),
             (cfg.d4rl_dataset is not None, "d4rl_dataset", 12),
-            (cfg.append_goal_to_observation, "append_goal_to_observation", 9),
             (cfg.use_tb or cfg.use_wandb or cfg.profile_dir is not None,
              "use_tb/use_wandb/profile_dir", 15),
-            (cfg.eval_every_steps > 0, "evaluation (eval_every_steps; set it to 0)", 9),
-            (cfg.final_tests > 0, "finalize (final_tests; set it to 0)", 9),
+            (cfg.save_eval_video and cfg.eval_every_steps > 0,
+             "save_eval_video (videos of evaluation rollouts; set it to false)", 15),
         ]
         for fires, what, item in unported:
             if fires:
                 raise _not_ported(what, item)
         self.cfg = cfg
-        self.spec = spec
         self.device = resolve_device(cfg.device)
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
         self.work_dir = Path(cfg.folder)
@@ -134,6 +140,7 @@ class Workspace:
         self.domain = cfg.task.split("_", 1)[0]
         if self.domain == "point":
             self.domain = "point_mass_maze"
+        self.env: Environment = make_env(cfg.task, cfg.episode_length)
 
         # goal space -> goal_fn over physics + goal dim
         self.goal_fn: tp.Optional[tp.Callable[[Tensor], Tensor]] = None
@@ -144,10 +151,15 @@ class Workspace:
                 raise ValueError(
                     f"Unknown goal space {cfg.goal_space} for {self.domain}")
             space_fn = space_fns[cfg.goal_space]
-            env = make_env(cfg.task, cfg.episode_length)
-            feats_fn = getattr(env, "goal_features", lambda p: p)
+            feats_fn = getattr(self.env, "goal_features", lambda p: p)
             self.goal_fn = lambda phys: space_fn(feats_fn(torch.as_tensor(phys)))
             goal_dim = get_goal_space_dim(cfg.goal_space)
+            if cfg.append_goal_to_observation:
+                from ..envs.wrappers import GoalAppendWrapper
+                self.env = GoalAppendWrapper(self.env, self.goal_fn,
+                                             append_goal_to_observation=True)
+        self.spec: EnvSpec = self.env.spec
+        spec = self.spec
 
         agent_cfg_cls, agent_cls = AGENTS[cfg.agent_name]
         field_names = {f.name for f in dataclasses.fields(agent_cfg_cls)}
@@ -163,16 +175,19 @@ class Workspace:
         self.agent_cfg = apply_overrides(base_agent_cfg, list(agent_cfg_overrides))
         self.agent = agent_cls(self.agent_cfg, spec.obs_dim, spec.action_dim,
                                goal_dim=goal_dim, device=self.device, seed=cfg.seed)
+        # sized by the first episode loaded: stored episodes may be longer or
+        # shorter than the evaluation's episode_length
         self.buffer = ReplayBuffer(
             max_episodes=cfg.replay_buffer_episodes, discount=cfg.discount,
-            future=cfg.future, max_episode_length=spec.episode_length,
-            device=self.device)
+            future=cfg.future, device=self.device)
         self.logger = Logger(self.work_dir, use_console=cfg.use_console)
         self.timer = Stopwatch()
         self.global_step = 0
         self.global_episode = 0
         self.last_row: tp.Dict[str, float] = {}
         self.inferred_z: tp.Optional[Tensor] = None
+        self._rollouts: tp.Dict[int, Rollout] = {}
+        self.eval_rewards_history: tp.List[float] = []
 
         # the RESOLVED agent config is saved beside the workspace fields
         # (flattened agent.* keys): a folder resume must rebuild the network
@@ -243,6 +258,126 @@ class Workspace:
         mean = mean / torch.linalg.vector_norm(mean).clamp_min(1e-12)
         return mean * torch.linalg.vector_norm(zs[0])
 
+    # -- evaluation -----------------------------------------------------
+    def check_data(self, storage: tp.Mapping[str, tp.Any]) -> None:
+        """Raise if loaded episodes do not have the environment's sizes."""
+        want = {"observation": self.spec.obs_dim, "action": self.spec.action_dim,
+                "physics": self.spec.physics_dim}
+        for name, size in want.items():
+            if name in storage and storage[name].shape[-1] != size:
+                raise ValueError(
+                    f"the loaded episodes have {storage[name].shape[-1]} {name} columns, "
+                    f"the environment of task {self.cfg.task!r} has {size}")
+
+    def _eval_rollout(self, z: Tensor, num_envs: int) -> tp.Tuple[Tensor, Tensor, Tensor]:
+        """Fresh initial states from the workspace's generator, rolled out
+        under ``z`` ([z_dim], or [E, z_dim] for a z per episode). The result
+        lives in the rollout's buffers until its next run."""
+        if num_envs not in self._rollouts:
+            self._rollouts[num_envs] = Rollout(self.env, self.agent, num_envs)
+        state, ts = self.env.reset(self.generator, num_envs)
+        totals, physics, obs = self._rollouts[num_envs](z, state, ts)
+        if not bool(torch.isfinite(totals).all() & torch.isfinite(physics).all()):
+            raise FloatingPointError("an evaluation rollout reached a non-finite state")
+        return totals, physics, obs
+
+    def _base_env(self) -> Environment:
+        env = self.env
+        while hasattr(env, "env"):
+            env = env.env
+        return env
+
+    def evaluate(self) -> tp.Dict[str, float]:
+        if self.cfg.save_eval_video:
+            raise _not_ported("save_eval_video (videos of evaluation rollouts; "
+                              "set it to false)", 15)
+        meta = self._init_eval_meta()
+        meta_key = self.agent.meta_key
+        totals, phys, obs = self._eval_rollout(meta[meta_key], self.cfg.num_eval_episodes)
+        if self.cfg.custom_reward is not None:
+            reward = get_reward_function(self.cfg.custom_reward, self.cfg.seed)
+            totals = reward.from_physics(phys).sum(1)
+        metrics = {
+            "episode_reward": float(totals.mean()),
+            "episode_length": float(self.spec.episode_length),
+            "episode": float(self.global_episode),
+            "step": float(self.global_step),
+        }
+        if totals.numel() > 1:
+            metrics["episode_reward#std"] = float(totals.std(unbiased=False))
+        metrics["z_norm"] = float(torch.linalg.vector_norm(meta[meta_key]))
+        metrics.update(self._eval_diagnostics(meta, phys, obs))
+        # physics stats in every eval dump
+        agg = PhysicsAggregator(self.domain,
+                                features_fn=getattr(self._base_env(), "goal_features", None))
+        agg.add_batch(phys.flatten(0, 1))
+        metrics.update(dict(agg.dump()))
+        self.eval_rewards_history.append(metrics["episode_reward"])
+        with self.logger.log_and_dump_ctx(self.global_step, ty="eval") as log:
+            for k, v in metrics.items():
+                log(k, v)
+        return metrics
+
+    def _eval_diagnostics(self, meta: tp.Dict[str, Tensor], phys: Tensor,
+                          obs: Tensor) -> tp.Dict[str, float]:
+        """FB health diagnostics over the whole eval rollout set (z_correl,
+        actor_success; gated by agent.cfg.additional_metric)."""
+        agent = self.agent
+        if not (agent.cfg.additional_metric and "z" in meta):
+            return {}
+        horizon = phys.shape[1]
+        obs_flat = obs.flatten(0, 1)
+        goals = self.goal_fn(phys.flatten(0, 1)) if self.goal_fn is not None else obs_flat
+        # one dot per step summed and divided by episodes: T x the per-step mean
+        return {"z_correl": float(agent.compute_z_correl(goals, meta["z"])) * horizon,
+                "actor_success": float(agent.compute_actor_success(
+                    obs_flat, meta["z"], self.generator))}
+
+    def eval_maze_goals(self) -> tp.Dict[str, float]:
+        """20-goal maze sweep, two episodes per goal, all rolled out at once:
+        mean reward and distance at the last step."""
+        from ..goals.rewards import MazeMultiGoal
+        mg = MazeMultiGoal()
+        goals = torch.as_tensor(mg.goals, device=self.device).repeat_interleave(2, 0)
+        z = torch.stack([self.agent.get_goal_meta(goal) for goal in goals])
+        _, physics, _ = self._eval_rollout(z, goals.shape[0])
+        reward, distance = mg.from_goal(physics[:, -1, :2], goals)
+        metrics = {"reward": float(reward.mean()), "distance": float(distance.mean()),
+                   "step": float(self.global_step)}
+        with self.logger.log_and_dump_ctx(self.global_step, ty="eval") as log:
+            for k, v in metrics.items():
+                log(k, v)
+        return metrics
+
+    def finalize(self) -> tp.Dict[str, tp.List[float]]:
+        """Final multi-task test battery: every task of the domain, z from
+        rewards relabeled on the replay's physics, ``final_tests`` episodes
+        each, all tasks in one batch of rollouts; writes test_rewards.json."""
+        from ..envs import locomotion
+        repeat = self.cfg.final_tests
+        if not repeat:
+            return {}
+        out_path = self.work_dir / "test_rewards.json"
+        if self.cfg.custom_reward == "maze_multi_goal":
+            rewards = {"rewards": [self.eval_maze_goals()["reward"]]}
+            out_path.write_text(json.dumps(rewards))
+            return rewards
+        if self.domain not in _FINAL_TASKS:
+            return {}
+        if len(self.buffer) == 0 or "physics" not in self.buffer.state.storage:
+            return {}
+        names = [name for name in _FINAL_TASKS[self.domain]
+                 if name in locomotion.TASKS[self.domain]]
+        reward_fns = {f"{self.domain}_{name}": get_reward_function(
+            f"{self.domain}_{name}", self.cfg.seed) for name in names}
+        z = torch.stack([self._infer_meta_from_replay(fn) for fn in reward_fns.values()])
+        _, physics, _ = self._eval_rollout(z.repeat_interleave(repeat, 0),
+                                           repeat * len(reward_fns))
+        rewards = {task: fn.from_physics(part).sum(1).tolist()
+                   for (task, fn), part in zip(reward_fns.items(), physics.split(repeat))}
+        out_path.write_text(json.dumps(rewards))
+        return rewards
+
     # -- checkpointing ---------------------------------------------------
     def _maybe_snapshot(self, prev_step: int) -> None:
         """Save milestone snapshots for steps crossed since prev_step (the
@@ -267,6 +402,19 @@ class Workspace:
     def load_checkpoint(self, path: Path,
                         only: tp.Optional[tp.Sequence[str]] = None,
                         exclude: tp.Sequence[str] = ()) -> None:
+        if (Path(path) / "agent.msgpack").exists():
+            # a checkpoint of the JAX package: the agent and the counters
+            # (its replay is not read; the generator starts from the seed)
+            if only is not None and "replay" in only and "replay" not in exclude:
+                raise ValueError(
+                    f"checkpoint {path} is a folder of the JAX package: the port reads its "
+                    f"agent and counters, not its replay (load_replay= takes a checkpoint "
+                    f"of the port, replay_dir= episodes)")
+            if (only is None or "agent" in only) and "agent" not in exclude:
+                meta = jax_checkpoint.load_agent(path, self.agent)
+                self.global_step = meta["global_step"]
+                self.global_episode = meta["global_episode"]
+            return
         out = ckpt_lib.load_checkpoint(path, only=only, exclude=exclude,
                                        device=self.device)
         if "agent" in out:
@@ -305,9 +453,9 @@ class OfflineWorkspace(Workspace):
         self.last_row = log.row
 
     def train(self) -> tp.Dict[str, float]:
-        """Runs updates up to ``num_grad_steps``, with train rows, snapshots
-        and periodic checkpoints, and saves a final checkpoint; returns the
-        last train row."""
+        """Runs updates up to ``num_grad_steps``, with train rows, snapshots,
+        periodic evaluations and checkpoints, saves a final checkpoint and
+        runs the final test battery; returns the last train row."""
         cfg = self.cfg
         assert len(self.buffer) > 0, "offline training requires a loaded buffer"
         trainer = make_offline_trainer(self.agent, self.buffer.cfg,
@@ -328,9 +476,12 @@ class OfflineWorkspace(Workspace):
                 # queue up; this is the only host sync
                 self._log_train(steps_since_log, metrics)
                 steps_since_log = 0
+            if crossed(self.global_step, cfg.eval_every_steps, cfg.steps_per_call):
+                self.evaluate()
             if crossed(self.global_step, cfg.checkpoint_every, cfg.steps_per_call):
                 self.save_checkpoint()
         if steps_since_log:
             self._log_train(steps_since_log, metrics)
         self.save_checkpoint()
+        self.finalize()
         return self.last_row

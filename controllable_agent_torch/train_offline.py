@@ -9,24 +9,27 @@ relabel their rewards for ``task`` from the stored physics
     python -m controllable_agent_torch.train_offline agent=fb_ddpg \\
         task=walker_walk replay_dir=/path/to/episodes \\
         agent.use_pallas_loss=true agent.compute_dtype=bfloat16 \\
-        num_grad_steps=100000 eval_every_steps=0 final_tests=0
+        num_grad_steps=100000 eval_every_steps=10000 final_tests=10 \\
+        save_eval_video=false
 
     python -m controllable_agent_torch.train_offline agent=fb_ddpg \\
         task=walker_walk goal_space=walker_pos_speed_z \\
-        load_replay=exp_rnd/models/latest relabel=true \\
-        eval_every_steps=0 final_tests=0
+        load_replay=exp_rnd/models/latest relabel=true save_eval_video=false
 
 ``physics_format=mujoco_walker`` (``_cheetah``, ``_hopper``) converts
 dm_control physics to the native layout and recomputes the observations
 from it. The run writes ``train.csv``, ``hip.log`` and
 ``models/latest`` into ``folder``; running the same command again resumes
-from that checkpoint. When training ends it prints the task z chosen as
-evaluation would choose it (a registered goal, else z = rᵀB/N over the
-replay, spherical mean of ``z_inference_draws`` draws). ``device=cpu`` runs
-on the CPU; the default is the card.
-
-Not ported yet: evaluation rollouts and the final test battery
-(``eval_every_steps`` and ``final_tests`` must be 0; ROADMAP Queue A item 9).
+from that checkpoint. Every ``eval_every_steps`` updates it rolls out
+``num_eval_episodes`` episodes of the task's environment under the task's z
+(an ``eval`` row in ``eval.csv``), and when training ends it runs the final
+test battery (``final_tests`` episodes for each task of the domain, z from
+rewards relabeled on the replay's physics) into ``test_rewards.json`` and
+prints the task z chosen as evaluation chooses it (a registered goal, else
+z = rᵀB/N over the replay, spherical mean of ``z_inference_draws`` draws).
+``load_model=`` warm-starts from a checkpoint of the port or of the JAX
+package (a folder with ``agent.msgpack``). ``device=cpu`` runs on the CPU;
+the default is the card. Videos are not ported: ``save_eval_video=false``.
 """
 
 from __future__ import annotations
@@ -42,16 +45,10 @@ from .data.exorl import load_exorl_episodes
 from .goals import get_reward_function
 from .pretrain import build_config
 from .train import checkpoint as ckpt_lib
-from .train.workspace import EnvSpec, OfflineWorkspace, make_env
+from .train.workspace import OfflineWorkspace, make_env
 from .utils import resolve_device
 
 Episode = tp.Dict[str, np.ndarray]
-
-
-def _spec_of(storage: tp.Mapping[str, tp.Any], time_axis: int) -> EnvSpec:
-    return EnvSpec(obs_dim=storage["observation"].shape[-1],
-                   action_dim=storage["action"].shape[-1],
-                   episode_length=storage["observation"].shape[time_axis] - 1)
 
 
 def main(argv: tp.Optional[tp.Sequence[str]] = None) -> OfflineWorkspace:
@@ -76,8 +73,6 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> OfflineWorkspace:
             rest.append(arg)
     cfg, agent_overrides, agent_cfg_base = build_config(rest)
 
-    # the port takes the environment's sizes from the data, so the data is
-    # opened before the workspace is built
     episodes: tp.Optional[tp.Iterator[Episode]] = None
     if replay_dir is not None:
         episodes = load_exorl_episodes(Path(replay_dir), physics_format=physics_format)
@@ -95,20 +90,20 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> OfflineWorkspace:
         if first is None:
             raise ValueError(f"no .npz episodes in {replay_dir}")
         episodes = itertools.chain([first], episodes)
-        spec = _spec_of(first, time_axis=0)
     elif load_replay is not None:
         # read once, straight onto the run's device
         restored = ckpt_lib.load_checkpoint(Path(load_replay), only=["replay"],
                                             device=resolve_device(cfg.device))
         if "replay" not in restored or restored["replay"].n_episodes == 0:
             raise ValueError(f"no episodes in {load_replay}")
-        spec = _spec_of(restored["replay"].storage, time_axis=1)
+        first = restored["replay"].storage
     else:
         raise ValueError("train_offline needs replay_dir=<directory of .npz "
                          "episodes> or load_replay=<checkpoint>")
 
-    ws = OfflineWorkspace(cfg, spec, agent_cfg_overrides=agent_overrides,
+    ws = OfflineWorkspace(cfg, agent_cfg_overrides=agent_overrides,
                           agent_cfg_base=agent_cfg_base)
+    ws.check_data(first)
     reward_fn = get_reward_function(cfg.task, cfg.seed) if relabel else None
     if load_replay is not None:
         # the buffer of a checkpoint: its replay only, then rewards for the
@@ -129,9 +124,10 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> OfflineWorkspace:
                         for ep in episodes)
         ws.buffer.load_episodes(episodes)
     ws.train()
-    ws.inferred_z = ws._init_eval_meta()[ws.agent.meta_key]
-    print("inferred z: " + " ".join(f"{v:.4f}" for v in ws.inferred_z.tolist()),
-          flush=True)
+    if cfg.custom_reward != "maze_multi_goal":  # a battery of goals has no one z
+        ws.inferred_z = ws._init_eval_meta()[ws.agent.meta_key]
+        print("inferred z: " + " ".join(f"{v:.4f}" for v in ws.inferred_z.tolist()),
+              flush=True)
     return ws
 
 

@@ -14,9 +14,9 @@ from controllable_agent_torch.agents import FBDDPGAgent, FBDDPGConfig
 from controllable_agent_torch.data import ReplayBuffer
 from controllable_agent_torch.data.exorl import synthetic_episodes
 from controllable_agent_torch.train import checkpoint as ckpt
-from controllable_agent_torch.train.workspace import EnvSpec, OfflineWorkspace, WorkspaceConfig
+from controllable_agent_torch.train.workspace import OfflineWorkspace, WorkspaceConfig
 
-OBS, ACT = 6, 3
+OBS, ACT = 4, 2  # the default task's environment, the point-mass maze
 SMALL = dict(hidden_dim=32, backward_hidden_dim=32, feature_dim=16, z_dim=8, batch_size=16)
 SMALL_ARGS = [f"{k}={v}" for k, v in SMALL.items()]
 
@@ -44,7 +44,7 @@ def _workspace(folder, **overrides) -> OfflineWorkspace:
                   checkpoint_every=0, replay_buffer_episodes=4, steps_per_call=2,
                   log_every_steps=2, use_console=False)
     cfg = WorkspaceConfig(**{**fields, **overrides})
-    return OfflineWorkspace(cfg, EnvSpec(OBS, ACT, 20), agent_cfg_overrides=SMALL_ARGS)
+    return OfflineWorkspace(cfg, agent_cfg_overrides=SMALL_ARGS)
 
 
 def test_train_state_names_every_tensor_an_update_changes() -> None:

@@ -14,9 +14,13 @@ from controllable_agent_torch.agents import FBDDPGAgent, FBDDPGConfig, UpdateNoi
 from controllable_agent_torch.data import ReplayBuffer
 from controllable_agent_torch.data import replay as replay_lib
 from controllable_agent_torch.data.exorl import synthetic_episodes
+from controllable_agent_torch.envs import locomotion, pointmass
+from controllable_agent_torch.envs.wrappers import (ActionRepeatWrapper, FrameStackWrapper,
+                                                    StatefulEnv)
 from controllable_agent_torch.goals import get_reward_function
 from controllable_agent_torch.ops import fused_fb as ff
-from controllable_agent_torch.train.loops import (WARMUP_RUNS, CapturedProgram,
+from controllable_agent_torch.tools import dynamics_check
+from controllable_agent_torch.train.loops import (WARMUP_RUNS, CapturedProgram, Rollout,
                                                   make_offline_trainer)
 
 
@@ -181,7 +185,8 @@ def test_captured_update_matches_eager(cuda_device) -> None:
     batch = buf.sample(gen, 128)
     noise = UpdateNoise.draw(agent.cfg, 128, 6, gen, cuda_device)
     ff.reset_launches()
-    program = CapturedProgram(lambda: agent._update(batch, noise), agent)
+    program = CapturedProgram(lambda: agent._update(batch, noise), agent.device,
+                              agent.train_state().values())
     assert agent.step == 0 and ff.launches == {"fwd": WARMUP_RUNS, "bwd": WARMUP_RUNS}
     assert program.held == {"fwd": 1, "bwd": 1}
     assert ff.device_runs() == ff.launches  # the capture itself ran nothing
@@ -208,7 +213,7 @@ def test_replays_draw_fresh_noise_and_batches(cuda_device) -> None:
         batch = replay_lib.sample(buf.state, gen, 128, buf.cfg)
         return batch.obs, UpdateNoise.draw(agent.cfg, 128, 6, gen, cuda_device).z_normal
 
-    program = CapturedProgram(draw, agent, [gen])
+    program = CapturedProgram(draw, agent.device, generators=[gen])
     seen = []
     for _ in range(3):
         program.replay()
@@ -269,3 +274,84 @@ def test_relabel_on_the_card_matches_the_cpu(cuda_device, task) -> None:
     got = buf.state.storage["reward"][:, :, 0]
     assert got.device.type == "cuda"
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("domain", dynamics_check.DOMAINS)
+def test_dynamics_on_the_card_match_the_cpu(cuda_device, domain) -> None:
+    """``forward_dynamics`` and one control step on the card against float64
+    on the CPU, by the comparison the smoke run shares: 1e-4 and 1e-3 of each
+    output's largest entry (a float32 LU of the mass matrix, stiff contacts),
+    with the share of states that may cross a contact gate in another substep
+    and their bound as ``tools/dynamics_check.py`` states them."""
+    _, held = dynamics_check.check_domain(domain, 4096, cuda_device, seed=0)
+    assert all(h.ok for h in held), "; ".join(str(h) for h in held)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", ["walker_walk", "hopper_hop", "point_mass"])
+def test_captured_rollout_equals_the_eager_one(cuda_device, task) -> None:
+    """The rollout as replays of one captured step against the same steps run
+    eagerly, from the same initial states under a z per episode: equal to the
+    bit; a second run from other states and z gives other trajectories."""
+    env = (pointmass.PointMassMaze("reach_top_left", 12) if task == "point_mass"
+           else locomotion.make(task, 12))
+    cfg = FBDDPGConfig(hidden_dim=64, backward_hidden_dim=64, feature_dim=32, z_dim=16,
+                       compute_dtype="bfloat16")
+    agent = FBDDPGAgent(cfg, env.spec.obs_dim, env.spec.action_dim, device=cuda_device, seed=2)
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    captured, eager = Rollout(env, agent, 6), Rollout(env, agent, 6, capture=False)
+    assert captured.capture and not eager.capture
+    seen = []
+    for _ in range(2):
+        z = agent.sample_z(6, gen)
+        state, ts = env.reset(gen, 6)
+        got = [x.clone() for x in captured(z, state, ts)]
+        want = eager(z, state, ts)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        assert bool(torch.isfinite(got[1]).all()) and float(got[1].abs().max()) > 0.0
+        seen.append(got[1])
+    assert not torch.equal(seen[0], seen[1])
+    assert int(captured._index) == 12 and captured._program is not None
+
+
+@pytest.mark.cuda
+def test_captured_rollout_of_a_one_step_episode(cuda_device) -> None:
+    """An episode shorter than the capture's usual warm-up: the warm-up stays
+    inside the [E, T, .] buffers and the one replayed step equals the eager one."""
+    env = locomotion.make("hopper_hop", 1)
+    cfg = FBDDPGConfig(hidden_dim=64, backward_hidden_dim=64, feature_dim=32, z_dim=16)
+    agent = FBDDPGAgent(cfg, env.spec.obs_dim, env.spec.action_dim, device=cuda_device, seed=2)
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    z = agent.sample_z(4, gen)
+    state, ts = env.reset(gen, 4)
+    got = [x.clone() for x in Rollout(env, agent, 4)(z, state, ts)]
+    want = Rollout(env, agent, 4, capture=False)(z, state, ts)
+    assert got[1].shape == (4, 1, env.spec.physics_dim)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_wrappers_on_the_card(cuda_device) -> None:
+    """The stateful adapter over frame stacking over action repeat over the
+    walker, on its default device: every tensor on the card, the repeated
+    step equal to the inner steps it stands for, the newest frame last."""
+    inner = locomotion.make("walker_walk", 20)
+    env = StatefulEnv(FrameStackWrapper(ActionRepeatWrapper(inner, 2), 3), seed=1, num_envs=5)
+    first = env.reset()
+    assert first.observation.device.type == "cuda"
+    assert first.observation.shape == (5, 3 * inner.spec.obs_dim)
+    state = env._state.inner
+    action = torch.full((inner.spec.action_dim,), 0.5)
+    ts = env.step(action)
+    want_state, total = state, torch.zeros(5, device=cuda_device)
+    for _ in range(2):
+        want_state, want = inner.step(want_state, action.to(cuda_device).expand(5, -1))
+        total = total + want.reward
+    torch.testing.assert_close(ts.reward, total)
+    assert torch.equal(ts.physics, want.physics)
+    assert torch.equal(ts.observation[:, -inner.spec.obs_dim:], want.observation)
+    assert torch.equal(ts.observation[:, :2 * inner.spec.obs_dim],
+                       first.observation[:, inner.spec.obs_dim:])
+    assert bool(torch.isfinite(ts.observation).all())

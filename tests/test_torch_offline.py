@@ -38,7 +38,7 @@ def replay_dir(tmp_path) -> Path:
     rng = np.random.RandomState(0)
     store = ReplayBuffer(6, discount=0.98, future=0.99, device="cpu")
     store.load_episodes([{
-        "observation": rng.randn(31, 5).astype(np.float32),
+        "observation": rng.randn(31, 4).astype(np.float32),  # the point-mass maze's sizes
         "action": rng.uniform(-1, 1, (31, 2)).astype(np.float32),
         "reward": rng.rand(31, 1).astype(np.float32),
         "discount": np.ones((31, 1), np.float32)} for _ in range(6)])
@@ -247,7 +247,7 @@ def test_train_offline_cli(replay_dir, tmp_path, capsys, fused) -> None:
     out = capsys.readouterr().out
     assert ws.global_step == 6 and ws.agent.step == 6
     assert len(ws.buffer) == 6 and ws.buffer.state.max_episode_length == 30
-    assert ws.agent.obs_dim == 5 and ws.agent.action_dim == 2
+    assert ws.agent.obs_dim == 4 and ws.agent.action_dim == 2
     assert all(np.isfinite(v) for v in ws.last_row.values())
     assert "fb_loss" in ws.last_row and "actor_loss" in ws.last_row
     assert ("target_M" in ws.last_row) is not fused  # full-matrix metric: unfused only
@@ -260,14 +260,24 @@ def test_train_offline_cli(replay_dir, tmp_path, capsys, fused) -> None:
 
 
 @pytest.mark.parametrize("args,item", [
-    (["eval_every_steps=100"], "item 9"),
-    (["final_tests=3"], "item 9"),
-], ids=["eval", "finalize"])
+    (["eval_every_steps=2", "save_eval_video=true"], "item 15"),
+    (["use_tb=true"], "item 15"),
+    (["agent=sf"], "item 13"),
+    (["task=quadruped_walk"], "item 12"),
+], ids=["eval_video", "tensorboard", "other_agent", "other_environment"])
 def test_unported_options_raise(replay_dir, tmp_path, args, item) -> None:
     base = [f"replay_dir={replay_dir}", *SMALL, *SLICE, "num_grad_steps=2",
             "steps_per_call=2", f"folder={tmp_path}/run"]
     with pytest.raises(NotImplementedError, match=item):
         train_offline.main(base + args)
+    assert not (tmp_path / "run" / "train.csv").exists()  # refused before any training
+
+
+def test_data_of_another_environment_is_refused(replay_dir, tmp_path) -> None:
+    """The environment gives the sizes; episodes of other sizes raise."""
+    with pytest.raises(ValueError, match="observation columns"):
+        train_offline.main([f"replay_dir={replay_dir}", *SMALL, *SLICE, "task=walker_walk",
+                            f"folder={tmp_path}/run"])
 
 
 def _imports(path: Path):
@@ -279,9 +289,9 @@ def _imports(path: Path):
 
 
 def test_port_imports_nothing_of_jax() -> None:
-    """No file of the port, and not chip_smoke.py, imports jax, flax, optax
-    or the JAX package."""
-    banned = {"jax", "jaxlib", "flax", "optax", "controllable_agent_tpu"}
+    """No file of the port, and not chip_smoke.py, imports jax, flax, optax,
+    msgpack or the JAX package."""
+    banned = {"jax", "jaxlib", "flax", "optax", "msgpack", "controllable_agent_tpu"}
     files = sorted((REPO / "controllable_agent_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20

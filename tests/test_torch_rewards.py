@@ -139,8 +139,10 @@ def test_features_observations_and_rewards(domain, task) -> None:
     assert got.shape == (phys.shape[0],) and float(got.max()) > float(got.min())
     # leading dimensions: [4, 16, D] in one call
     _close(tenv.reward_from_physics(t.reshape(4, 16, -1)).reshape(-1), want, **tol)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tenv.reset()
+    # the reward of a step is this function of the physics it reaches
+    state, _ = tenv.reset(torch.Generator().manual_seed(0), 2)
+    _, ts = tenv.step(state, torch.zeros(2, tenv.spec.action_dim))
+    torch.testing.assert_close(ts.reward, tenv.reward_from_physics(ts.physics))
 
 
 def test_registries_match() -> None:

@@ -1,7 +1,8 @@
 """Static checks of the PyTorch/CUDA port (``controllable_agent_torch/`` and
 ``chip_smoke.py``), read with ``ast``; nothing here runs the port.
 
-  * the port imports nothing of JAX and nothing of the JAX package;
+  * the port imports nothing of JAX, no msgpack package (the card's machine
+    has none) and nothing of the JAX package;
   * in ``ops/fused_fb.py`` every kernel's plain version has its wrapper
     beside it, and the wrapper takes that plain version for CPU tensors and
     counts its launches.
@@ -15,7 +16,7 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "controllable_agent_torch"
 PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "controllable_agent_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack", "controllable_agent_tpu"}
 FUSED = PORT / "ops" / "fused_fb.py"
 
 
