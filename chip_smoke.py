@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives ``controllable_agent_torch`` (and nothing of the JAX package) in eleven
+Drives ``controllable_agent_torch`` (and nothing of the JAX package) in thirteen
 phases, each printed on its own line; any failure exits non-zero:
 
   1. build the CUDA kernels of ``controllable_agent_torch/csrc`` with nvcc;
@@ -57,6 +57,25 @@ phases, each printed on its own line; any failure exits non-zero:
      environments; environment steps/s and peak memory at 10, 1,024 and
      16,384 environments.
 
+ 12. online FB pretraining through its entry point, ``pretrain.main``, at
+     full width in bf16 with ``agent.use_pallas_loss=true``: ``walker_walk``,
+     4 environments, one seed cycle of 4,000 steps, then three cycles of
+     4,000 steps and 2,000 updates each; per cycle the collection's seconds
+     and environment steps/s (the captured control step), the updates/s and
+     the buffer's size; the update program captured once across the cycles'
+     commits; each fused wrapper's launches, by its count and by the
+     kernels' own, equal to the updates plus the capture's warm-up runs;
+     two evaluations (``eval.csv``, videos) and ``test_rewards.json``; the
+     run's peak device memory; then a fresh run on the folder resumes for
+     one more cycle, continuing the step, the replay and the agent's step;
+ 13. the other online paths: ``train_online.main`` with half of each
+     cycle's episodes directed by a task z (``task_episode_reward``);
+     ``pretrain.main agent=rnd`` at full width for three cycles; a captured
+     RND update, a captured collector step and two programs replayed in
+     turns on one generator, each against its eager counterpart to the bit;
+     the cheetah's reset with its settling steps captured against the same
+     steps launched from the host, in time and to the bit.
+
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the package beside it, the script fails before printing a result.
@@ -65,6 +84,7 @@ without the package beside it, the script fails before printing a result.
 from __future__ import annotations
 
 import csv
+import gc
 import json
 import math
 import sys
@@ -75,8 +95,9 @@ import typing as tp
 import numpy as np
 import torch
 
-from controllable_agent_torch import _build, train_offline
-from controllable_agent_torch.agents import FBDDPGAgent, FBDDPGConfig, UpdateNoise
+from controllable_agent_torch import _build, pretrain, train_offline, train_online
+from controllable_agent_torch.agents import (DDPGNoise, FBDDPGAgent, FBDDPGConfig, RNDAgent,
+                                             UpdateNoise)
 from controllable_agent_torch.data import ReplayBuffer
 from controllable_agent_torch.data import replay as replay_lib
 from controllable_agent_torch.data.exorl import save_exorl_episodes, synthetic_episodes
@@ -84,8 +105,10 @@ from controllable_agent_torch.envs import locomotion
 from controllable_agent_torch.goals import get_reward_function
 from controllable_agent_torch.ops import fused_fb as ff
 from controllable_agent_torch.pretrain import build_workspace
+from controllable_agent_torch.train.workspace import OfflineWorkspace
 from controllable_agent_torch.tools import dynamics_check
-from controllable_agent_torch.train.loops import (WARMUP_RUNS, CapturedProgram, Rollout,
+from controllable_agent_torch.train.loops import (WARMUP_RUNS, CapturedProgram,
+                                                  EpisodeCollector, Rollout, init_meta_batched,
                                                   make_offline_trainer)
 from controllable_agent_torch.utils.device import card_name_and_power_limit, query_card
 
@@ -112,6 +135,12 @@ KERNEL_NAMES = {"fwd": ("fb_fwd_tile_kernel", "fb_fwd_reduce_kernel"),
 # the rate of float32-accurate products on the tensor cores: 3xTF32 does
 # three TF32 products per product, so a third of the 495 TFLOP/s TF32 peak.
 F32_ACCURATE_TC_FLOP_PER_S = 495e12 / 3
+ONLINE_ENVS, ONLINE_CYCLES = 4, 4  # phase 12: a seed cycle, then three of 2,000 updates
+CYCLE_STEPS = ONLINE_ENVS * EPISODE_LENGTH  # environment steps of one cycle
+ONLINE_EVAL_EVERY = 8000  # crossed at 8,000 and 16,000 steps
+DIRECTED_CYCLES, DIRECTED_UPDATES = 3, 50  # phase 13's train_online run
+RND_CYCLES = 3  # phase 13: a seed cycle, then two of 2,000 updates
+CHEETAH_RESETS = 10  # environments of phase 13's cheetah reset, an evaluation's
 HBM_BYTES_PER_S = 3.35e12
 FWD_RTOL = 2e-4  # as tests/test_pallas_fb.py: order of f32 sums over n^2
 GRAD_RTOL = 1e-4  # of the largest entry: f32 accumulation order only
@@ -400,7 +429,9 @@ def time_kernels(errors: tp.Dict[str, float], counts: tp.Dict[str, int]
                      "replaces": f"controllable_agent_tpu/ops/pallas_fb.py:{replaces}",
                      "launches": counts[kernel], "max_abs_err": errors[err],
                      "ms": times[0], "plain_ms": times[1], "bound_ms": least[0],
-                     "bound_by": least[1], "library_ms": None, "note": note})
+                     "bound_by": least[1], "library_ms": None, "wrapper": kernel,
+                     "launches_by_path": {"train_offline (phase 4)": counts[kernel]},
+                     "note": note})
 
     for n in SIZES:
         xs = kernel_inputs(n, D, SEED)
@@ -612,7 +643,7 @@ def check_task_z_and_checkpoint(ws: tp.Any, tmp: str) -> None:
     ws.save_checkpoint()
     args = [a for a in slice_args(f"{tmp}/run", f"{tmp}/episodes")
             if not a.startswith(("replay_dir=", "relabel="))]
-    fresh = build_workspace(args)
+    fresh = build_workspace(args, OfflineWorkspace)
     same = all(torch.equal(v, fresh.agent.train_state()[k])
                for k, v in ws.agent.train_state().items())
     same_gen = torch.equal(ws.generator.get_state(), fresh.generator.get_state())
@@ -759,6 +790,226 @@ def check_evaluation(ws: tp.Any) -> None:
         del rollout, state, ts, totals, physics
 
 
+def replay_bytes(ws: tp.Any) -> int:
+    return sum(v.numel() * v.element_size() for v in ws.buffer.state.storage.values())
+
+
+def online_args(folder: str, frames: int, *extra: str) -> tp.List[str]:
+    """Phase 12's command line: FB at full width, bf16, the fused loss."""
+    return ["task=walker_walk", "agent=fb_ddpg", "agent.use_pallas_loss=true",
+            "agent.compute_dtype=bfloat16", f"num_envs={ONLINE_ENVS}",
+            f"num_seed_frames={CYCLE_STEPS}", f"num_train_frames={frames}",
+            f"eval_every_steps={ONLINE_EVAL_EVERY}", f"num_eval_episodes={EVAL_EPISODES}",
+            f"final_tests={FINAL_TESTS}", f"folder={folder}", f"seed={SEED}", *extra]
+
+
+def report_cycles(ws: tp.Any, phase: str) -> tp.List[tp.Dict[str, float]]:
+    """One line per cycle of an ``OnlineWorkspace`` run: the collection's
+    seconds and environment steps/s, the updates/s, the collection's share
+    of the cycle, the buffer's size (from ``train.csv``)."""
+    rows = read_csv(ws.work_dir / "train.csv")[-len(ws.cycle_timings):]
+    out = []
+    for i, (timing, row) in enumerate(zip(ws.cycle_timings, rows)):
+        collect, update, updates = timing["collect"], timing["update"], int(timing["updates"])
+        share = collect / (collect + update)
+        out.append({"collect_s": collect, "steps_per_s": CYCLE_STEPS / collect,
+                    "updates_per_s": updates / update if updates else float("nan"),
+                    "share": share})
+        print(f"{phase} cycle {i + 1}: step {int(float(row['step']))}; collection of "
+              f"{ONLINE_ENVS} x {EPISODE_LENGTH} steps {collect:.3f} s "
+              f"({CYCLE_STEPS / collect:.0f} environment steps/s, the reset included"
+              f"{', and the capture of the control step' if i == 0 else ''}); {updates} updates "
+              f"in {update:.3f} s ({out[-1]['updates_per_s']:.1f} updates/s, the commit "
+              f"included{', and the capture of the update' if updates and i == 1 else ''}); "
+              f"collection {share:.4f} of the cycle; buffer {int(float(row['buffer_size']))} episodes; "
+              f"episode_reward {float(row['episode_reward']):.2f}")
+    return out
+
+
+def run_online(tmp: str) -> tp.Tuple[tp.Dict[str, int], tp.Any]:
+    """Phase 12: online FB pretraining through ``pretrain.main``, then a
+    resumed run on its folder."""
+    card = card_name_and_power_limit()
+    folder = f"{tmp}/online"
+    frames = ONLINE_CYCLES * CYCLE_STEPS
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    ff.reset_launches()
+    ws, wall = _timed(lambda: pretrain.main(online_args(folder, frames)))
+    counts, ran = dict(ff.launches), ff.device_runs()
+    peak = torch.cuda.max_memory_allocated()
+    cycles = report_cycles(ws, "phase 12")
+    updates = sum(int(t["updates"]) for t in ws.cycle_timings)
+    captures = ws.online_trainer.trainer.captures
+    expected = updates + WARMUP_RUNS
+    print(f"phase 12 pretrain: {ONLINE_CYCLES} cycles, {ws.global_step} environment steps, "
+          f"{updates} updates in {wall:.1f} s (two evaluations with their videos, finalize() "
+          f"and the checkpoint included); the update program captured {captures} time(s) "
+          f"across {len(ws.buffer)} committed episodes; launches {counts} = {updates} replayed "
+          f"updates + {WARMUP_RUNS} eager warm-up runs; runs counted on the device by the "
+          f"kernels themselves {ran}; peak device memory {peak / 2**20:.1f} MiB, "
+          f"{(peak - held) / 2**20:.1f} MiB above the {held / 2**20:.1f} held before (the replay "
+          f"of {ws.cfg.replay_buffer_episodes} episodes, {replay_bytes(ws) / 2**20:.1f} MiB, "
+          f"allocated at the first commit), on {card}")
+    if captures != 1 or ws.agent.step != updates \
+            or updates != (ONLINE_CYCLES - 1) * CYCLE_STEPS // 2 \
+            or any(c != expected for c in counts.values()) or ran != counts \
+            or ws.global_step != frames or len(ws.buffer) != ONLINE_CYCLES * ONLINE_ENVS:
+        raise AssertionError(f"online run: captures {captures}, agent step {ws.agent.step}, "
+                             f"updates {updates}, launches {counts}, device runs {ran}, "
+                             f"step {ws.global_step}, buffer {len(ws.buffer)}")
+    row = ws.last_row
+    if not all(math.isfinite(v) for v in row.values()):
+        raise AssertionError(f"non-finite train metrics: {row}")
+    steady = cycles[2:]
+    print(f"phase 12 collection (the captured control step at E={ONLINE_ENVS}) after the first "
+          f"cycle: " + ", ".join(f"{c['steps_per_s']:.0f}" for c in steady) + " environment "
+          f"steps/s; updates/s " + ", ".join(f"{c['updates_per_s']:.1f}" for c in steady)
+          + "; collection's share of a training cycle "
+          + ", ".join(f"{c['share']:.4f}" for c in steady) + f", on {card}")
+    evals = read_csv(ws.work_dir / "eval.csv")
+    returns = [float(r["episode_reward"]) for r in evals]
+    steps = [int(float(r["step"])) for r in evals]
+    videos = [(ws.work_dir / "eval_video" / f"{s}.png").stat().st_size for s in steps]
+    physics = ws._rollouts[EVAL_EPISODES].physics[0]
+    _, video_s = _timed(lambda: ws._record_eval_video(physics))
+    print(f"phase 12 evaluations at steps {steps}: episode_reward "
+          + ", ".join(f"{r:.2f}" for r in returns) + f"; videos of {videos} bytes, "
+          f"{video_s:.3f} s of host time to draw and write one ({physics.shape[0]} steps, "
+          f"every {max(1, physics.shape[0] // 250)}th drawn)")
+    if steps != list(range(ONLINE_EVAL_EVERY, frames + 1, ONLINE_EVAL_EVERY)) \
+            or not all(math.isfinite(r) and 0.0 <= r <= EPISODE_LENGTH for r in returns) \
+            or not all(videos):
+        raise AssertionError(f"bad eval rows from the online run: {evals}")
+    written = check_test_rewards(ws)
+    print("phase 12 test_rewards.json from the run's finalize(): mean returns "
+          + ", ".join(f"{t} {np.mean(written[t]):.2f}" for t in WALKER_TASKS))
+
+    ff.reset_launches()
+    resumed, wall = _timed(lambda: pretrain.main(online_args(folder, frames + CYCLE_STEPS,
+                                                             "final_tests=0")))
+    rows = read_csv(resumed.work_dir / "train.csv")
+    more = CYCLE_STEPS // 2
+    report_cycles(resumed, "phase 12 resumed")
+    print(f"phase 12 resumed: a fresh run on the folder continued from step {frames} to "
+          f"{resumed.global_step} (train rows at steps {[int(float(r['step'])) for r in rows]}), "
+          f"agent step {updates} -> {resumed.agent.step}, buffer {len(ws.buffer)} -> "
+          f"{len(resumed.buffer)} episodes, launches {dict(ff.launches)} in {wall:.1f} s")
+    if resumed.global_step != frames + CYCLE_STEPS or resumed.agent.step != updates + more \
+            or len(resumed.buffer) != len(ws.buffer) + ONLINE_ENVS \
+            or int(float(rows[-1]["step"])) != frames + CYCLE_STEPS \
+            or any(c != more + WARMUP_RUNS for c in ff.launches.values()):
+        raise AssertionError("the resumed online run did not continue the saved one")
+    return counts, resumed
+
+
+def check_online_paths(tmp: str, fb_agent: tp.Any) -> None:
+    """Phase 13: ``train_online.main`` with directed episodes, the RND
+    explorer through ``pretrain.main``, captured programs against eager ones
+    at full width, and the cheetah's reset."""
+    card = card_name_and_power_limit()
+    frames = DIRECTED_CYCLES * CYCLE_STEPS
+    ff.reset_launches()
+    directed, wall = _timed(lambda: train_online.main([
+        "task=walker_walk", "agent=fb_ddpg", "agent.use_pallas_loss=true",
+        "agent.compute_dtype=bfloat16", "rollout_task_z_ratio=0.5",
+        f"num_rollout_episodes={ONLINE_ENVS}", f"num_agent_updates={DIRECTED_UPDATES}",
+        f"num_seed_frames={CYCLE_STEPS}", f"num_train_frames={frames}", "eval_every_steps=0",
+        "final_tests=0", f"folder={tmp}/directed", f"seed={SEED}"]))
+    rows = read_csv(directed.work_dir / "train.csv")
+    # the first cycle directs no episode (the seed frames are not in yet)
+    task = [float(r.get("task_episode_reward") or "nan") for r in rows[1:]]
+    print(f"phase 13 train_online: {DIRECTED_CYCLES} cycles of {ONLINE_ENVS} episodes, half of "
+          f"them holding the walker_walk z inferred from the replay once the seed frames are "
+          f"in, {DIRECTED_UPDATES} updates each, in {wall:.1f} s; episode_reward "
+          + ", ".join(f"{float(r['episode_reward']):.2f}" for r in rows)
+          + "; task_episode_reward from the second cycle on " + ", ".join(f"{t:.2f}" for t in task)
+          + f"; launches {dict(ff.launches)}, on {card}")
+    if directed.global_step != frames or len(directed.buffer) != DIRECTED_CYCLES * ONLINE_ENVS \
+            or not all(math.isfinite(t) for t in task) \
+            or any(c != DIRECTED_CYCLES * DIRECTED_UPDATES + WARMUP_RUNS
+                   for c in ff.launches.values()):
+        raise AssertionError(f"bad directed run: {rows}")
+    del directed
+
+    rnd, wall = _timed(lambda: pretrain.main([
+        "agent=rnd", "task=walker_walk", f"num_envs={ONLINE_ENVS}",
+        f"num_seed_frames={CYCLE_STEPS}", f"num_train_frames={RND_CYCLES * CYCLE_STEPS}",
+        f"eval_every_steps={RND_CYCLES * CYCLE_STEPS}", f"num_eval_episodes={EVAL_EPISODES}",
+        "final_tests=0", "save_eval_video=false", f"folder={tmp}/rnd", f"seed={SEED}"]))
+    report_cycles(rnd, "phase 13 rnd")
+    row, evals = rnd.last_row, read_csv(rnd.work_dir / "eval.csv")
+    print(f"phase 13 rnd: pretrain.main agent=rnd (hidden {rnd.agent.cfg.hidden_dim}, batch "
+          f"{rnd.agent.cfg.batch_size}, nstep {rnd.buffer.cfg.nstep}) {RND_CYCLES} cycles in "
+          f"{wall:.1f} s, agent step {rnd.agent.step}, update captured "
+          f"{rnd.online_trainer.trainer.captures} time(s); intr_reward {row['intr_reward']:.4f}, "
+          f"rnd_loss {row['rnd_loss']:.4f}, critic_loss {row['critic_loss']:.4f}; evaluation "
+          f"episode_reward {float(evals[-1]['episode_reward']):.2f}")
+    if rnd.agent.step != (RND_CYCLES - 1) * CYCLE_STEPS // 2 \
+            or rnd.online_trainer.trainer.captures != 1 or rnd.buffer.cfg.nstep != 3 \
+            or not all(math.isfinite(v) for v in row.values()) or len(evals) != 1:
+        raise AssertionError(f"bad RND run: {row}, {evals}")
+
+    # a full-width RND update (n-step batch, running statistics) captured and eager
+    agents = [RNDAgent(rnd.agent.cfg, OBS_DIM, ACTION_DIM, device="cuda", seed=SEED)
+              for _ in range(2)]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    batch = rnd.buffer.sample(gen, rnd.agent.cfg.batch_size)
+    noise = DDPGNoise.draw(rnd.agent.cfg.batch_size, ACTION_DIM, gen, torch.device("cuda"))
+    program = CapturedProgram(lambda: agents[0]._update(batch, noise), agents[0].device,
+                              agents[0].train_state().values())
+    program.replay(CAPTURED_UPDATES)
+    for _ in range(CAPTURED_UPDATES):
+        agents[1]._update(batch, noise)
+    torch.cuda.synchronize()
+    unequal = [k for k, v in agents[1].train_state().items()
+               if not torch.equal(agents[0].train_state()[k], v)]
+    print(f"phase 13 rnd captured vs eager: {CAPTURED_UPDATES} full-width updates from one state, "
+          f"batch and noise; tensors of the train state that differ: {unequal or 'none'}")
+    if unequal or agents[0].step != CAPTURED_UPDATES:
+        raise AssertionError("captured and eager RND updates disagree")
+    del rnd, agents, program
+
+    # the collector at full width: captured against eager over COMPARED_STEPS steps,
+    # across the exploration schedule's end and an in-episode z resample
+    env = locomotion.make("walker_walk", COMPARED_STEPS)
+    gens = [torch.Generator(device="cuda").manual_seed(SEED + 5) for _ in range(2)]
+    collectors = [EpisodeCollector(env, fb_agent, ONLINE_ENVS, gens[0]),
+                  EpisodeCollector(env, fb_agent, ONLINE_ENVS, gens[1], capture=False)]
+    runs = []
+    for collector, gen in zip(collectors, gens):
+        meta = init_meta_batched(fb_agent, gen, ONLINE_ENVS)
+        state, ts = env.reset(gen, ONLINE_ENVS)
+        runs.append({k: v.clone() for k, v in collector(meta, state, ts, 0).items()})
+    unequal = [k for k, v in runs[1].items() if not torch.equal(runs[0][k], v)]
+    print(f"phase 13 collector captured vs eager: {ONLINE_ENVS} walker episodes x "
+          f"{COMPARED_STEPS} steps, full-width bf16 policy with its noise; columns that "
+          f"differ: {unequal or 'none'}; generators in the same state after: "
+          f"{torch.equal(gens[0].get_state(), gens[1].get_state())}")
+    if unequal or not torch.equal(gens[0].get_state(), gens[1].get_state()):
+        raise AssertionError("captured and eager collectors disagree")
+
+    # the cheetah's reset: 200 settling steps replayed from one captured step
+    cheetah = locomotion.make("cheetah_run")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    _, capture_s = _timed(lambda: cheetah.reset(gen, CHEETAH_RESETS))
+    (state, _), reset_s = _timed(lambda: cheetah.reset(gen, CHEETAH_RESETS))
+    c = cheetah.model.tensors(state.q.device, state.q.dtype)
+    u = torch.rand((CHEETAH_RESETS, cheetah.spec.action_dim), generator=gen, device="cuda")
+    q = torch.cat([torch.tensor([0.0, cheetah.init_z, 0.0], device="cuda").expand(
+        CHEETAH_RESETS, 3), c.limit_lo + u * (c.limit_hi - c.limit_lo)], -1)
+    qd = torch.zeros_like(q)
+    eager, eager_s = _timed(lambda: cheetah.settle(q, qd, capture=False))
+    captured, settle_s = _timed(lambda: cheetah.settle(q, qd))
+    bitwise = all(torch.equal(a, b) for a, b in zip(captured, eager))
+    print(f"phase 13 cheetah reset of {CHEETAH_RESETS} environments: {reset_s:.3f} s with its "
+          f"200 settling steps replayed ({capture_s:.3f} s with the capture); the settling steps "
+          f"alone {settle_s:.3f} s replayed, {eager_s:.3f} s launched from the host; equal to "
+          f"the bit: {bitwise}, on {card}")
+    if not bitwise:
+        raise AssertionError("captured and eager settling steps disagree")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -790,8 +1041,19 @@ def main() -> int:
         check_task_z_and_checkpoint(ws, tmp)
         check_dynamics()
         check_evaluation(ws)
+        # free the offline workspace (its rollouts of up to 16,384 environments
+        # included) so that phase 12's peak memory is its own
+        del ws
+        gc.collect()
+        torch.cuda.empty_cache()
+        # this slice's main path: the kernels' launches of the online run
+        online_counts, online_ws = run_online(tmp)
+        for row in rows:
+            row["launches"] = online_counts[row["wrapper"]]
+            row["launches_by_path"]["pretrain (phase 12)"] = online_counts[row["wrapper"]]
+        check_online_paths(tmp, online_ws.agent)
 
-    print(f"total: {time.perf_counter() - started:.1f} s for phases 1-11, the build included")
+    print(f"total: {time.perf_counter() - started:.1f} s for phases 1-13, the build included")
     print(json.dumps({"kernels": rows}))
     print(f"card: {card_name_and_power_limit()}")
     print(json.dumps({"ok": True, "device": {

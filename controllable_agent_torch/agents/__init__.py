@@ -1,5 +1,39 @@
+"""Agent registry (mirror of ``controllable_agent_tpu/agents/registry.py``):
+name -> (config class, agent class)."""
+
+from __future__ import annotations
+
+import typing as tp
+
+from .ddpg import DDPGAgent, DDPGConfig, DDPGNoise
+from .exploration import IntrinsicDDPGAgent, RNDAgent, RNDConfig
 from .fb_ddpg import FBDDPGAgent, FBDDPGConfig, UpdateNoise
 
-AGENTS = {"fb_ddpg": (FBDDPGConfig, FBDDPGAgent)}
+AGENTS: tp.Dict[str, tp.Tuple[type, type]] = {
+    "fb_ddpg": (FBDDPGConfig, FBDDPGAgent),
+    "ddpg": (DDPGConfig, DDPGAgent),
+    "rnd": (RNDConfig, RNDAgent),
+}
 
-__all__ = ["AGENTS", "FBDDPGAgent", "FBDDPGConfig", "UpdateNoise"]
+# the JAX registry's other names: their agents are ROADMAP Queue A item 13
+NOT_PORTED = ("aps", "new_aps", "diayn", "icm", "icm_apt", "disagreement", "max_ent",
+              "smm", "proto", "uvf", "sf", "sf_svd", "goal_td3", "goal_sm",
+              "discrete_fb", "discrete_sf")
+
+
+def agent_classes(name: str) -> tp.Tuple[type, type]:
+    """(config class, agent class) of ``name``; a name of the JAX package
+    that is not ported raises ``NotImplementedError``, any other unknown
+    name ``ValueError`` with the known ones."""
+    if name in AGENTS:
+        return AGENTS[name]
+    if name in NOT_PORTED:
+        raise NotImplementedError(
+            f"agent {name!r} is not ported to controllable_agent_torch yet "
+            f"(ROADMAP Queue A item 13); ported: {sorted(AGENTS)}")
+    raise ValueError(f"Unknown agent {name!r}; known: {sorted(AGENTS)}")
+
+
+__all__ = ["AGENTS", "DDPGAgent", "DDPGConfig", "DDPGNoise", "FBDDPGAgent",
+           "FBDDPGConfig", "IntrinsicDDPGAgent", "NOT_PORTED", "RNDAgent", "RNDConfig",
+           "UpdateNoise", "agent_classes"]

@@ -1,12 +1,87 @@
-"""Agent meta-dict interface (mirror of ``controllable_agent_tpu/agents/base.py``)."""
+"""Agent meta-dict interface (mirror of ``controllable_agent_tpu/agents/base.py``).
+
+The episode collector advances a batch of environments one control step at
+a time, and on a CUDA device that step is a captured graph: so everything
+a step reads (the step counter that the exploration schedule takes, the
+index ``t`` inside the episode) is a device tensor, and every random draw of
+a step is one ``StepNoise``, drawn from a ``torch.Generator`` or, in a
+parity test, handed in.
+"""
 
 from __future__ import annotations
 
+import dataclasses
 import typing as tp
 
 import torch
 
 MetaDict = tp.Dict[str, torch.Tensor]
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass
+class StepNoise:
+    """Every random draw of one collector step for ``n`` environments, in
+    the shapes the JAX collector draws them: the policy's noise and uniform
+    exploration (``act``), and the draws of ``rollout_update_meta``."""
+
+    act_normal: Tensor  # [n, action_dim]
+    act_uniform: Tensor  # [n, action_dim], in [0, 1)
+    meta_uniform: tp.Optional[Tensor] = None  # [n, 1], resample when < update_z_proba
+    z_normal: tp.Optional[Tensor] = None  # [n, z_dim], the new z's normal draw
+    z_uniform: tp.Optional[Tensor] = None  # [n, z_dim], norm_z=False only
+
+    @classmethod
+    def draw(cls, n: int, action_dim: int, generator: torch.Generator,
+             device: torch.device, z_dim: int = 0, norm_z: bool = True) -> "StepNoise":
+        """The draws of one step; ``z_dim`` > 0 adds those of a z resample."""
+        def normal(*shape: int) -> Tensor:
+            return torch.randn(shape, generator=generator, device=device)
+
+        def uniform(*shape: int) -> Tensor:
+            return torch.rand(shape, generator=generator, device=device)
+
+        return cls(act_normal=normal(n, action_dim), act_uniform=uniform(n, action_dim),
+                   meta_uniform=uniform(n, 1) if z_dim else None,
+                   z_normal=normal(n, z_dim) if z_dim else None,
+                   z_uniform=uniform(n, z_dim) if z_dim and not norm_z else None)
+
+
+def act_draws(noise: tp.Optional[StepNoise], mu: Tensor,
+              generator: tp.Optional[torch.Generator]) -> tp.Tuple[Tensor, Tensor]:
+    """The policy's normal and uniform draws: ``noise``'s, or fresh ones."""
+    if noise is not None:
+        return noise.act_normal, noise.act_uniform
+    return (torch.randn(mu.shape, generator=generator, device=mu.device),
+            torch.rand(mu.shape, generator=generator, device=mu.device))
+
+
+def explore_until(action: Tensor, uniform: Tensor, step: tp.Union[int, Tensor],
+                  num_expl_steps: int) -> Tensor:
+    """``action``, or the uniform action ``2 u - 1`` while ``step`` <
+    ``num_expl_steps``; a device ``step`` selects on the device."""
+    explore = step < num_expl_steps
+    expl = (uniform * 2 - 1).to(action.dtype)
+    if isinstance(explore, Tensor):
+        return torch.where(explore, expl, action)
+    return expl if explore else action
+
+
+def load_train_state(agent: tp.Any, state: tp.Mapping[str, Tensor]) -> None:
+    """Copy ``state`` (as the agent's ``train_state`` names it) into the
+    agent, in place, so that a captured update keeps seeing it."""
+    own = agent.train_state()
+    if set(own) != set(state):
+        raise ValueError(
+            "agent state does not match this agent: missing "
+            f"{sorted(set(own) - set(state))}, unexpected "
+            f"{sorted(set(state) - set(own))}")
+    with torch.no_grad():
+        for name, dst in own.items():
+            if dst.shape != state[name].shape:
+                raise ValueError(f"{name}: saved shape {tuple(state[name].shape)}, "
+                                 f"agent has {tuple(dst.shape)}")
+            dst.copy_(state[name])
 
 
 class ZMetaMixin:
@@ -15,11 +90,35 @@ class ZMetaMixin:
 
     meta_key: str = "z"
 
-    def policy_act(self, obs: torch.Tensor, meta: MetaDict, step: int,
+    def policy_act(self, obs: Tensor, meta: MetaDict, step: tp.Union[int, Tensor],
                    generator: tp.Optional[torch.Generator] = None,
-                   eval_mode: bool = False) -> torch.Tensor:
+                   eval_mode: bool = False,
+                   noise: tp.Optional[StepNoise] = None) -> Tensor:
         return self.act(obs, meta[self.meta_key], step, generator,  # type: ignore[attr-defined]
-                        eval_mode=eval_mode)
+                        eval_mode=eval_mode, noise=noise)
+
+    def step_noise(self, n: int, generator: torch.Generator) -> StepNoise:
+        """The draws of one collector step for ``n`` environments."""
+        cfg = self.cfg  # type: ignore[attr-defined]
+        resamples = bool(getattr(cfg, "update_z_every_step", 0))
+        return StepNoise.draw(n, self.action_dim, generator,  # type: ignore[attr-defined]
+                              self.device,  # type: ignore[attr-defined]
+                              z_dim=cfg.z_dim if resamples else 0,
+                              norm_z=getattr(cfg, "norm_z", True))
+
+    def rollout_update_meta(self, meta: MetaDict, t: Tensor, noise: StepNoise) -> MetaDict:
+        """Resample the task vector of each environment at the steps ``t``
+        (a device tensor: the index inside the episode) that are multiples of
+        update_z_every_step, with probability update_z_proba."""
+        cfg = self.cfg  # type: ignore[attr-defined]
+        every = getattr(cfg, "update_z_every_step", 0)
+        if not every or not hasattr(self, "z_from_noise"):
+            return meta
+        assert noise.meta_uniform is not None and noise.z_normal is not None
+        z = meta[self.meta_key]
+        resample = ((t % every) == 0) & (noise.meta_uniform < getattr(cfg, "update_z_proba", 1.0))
+        new_z = self.z_from_noise(noise.z_normal, noise.z_uniform)
+        return {**meta, self.meta_key: torch.where(resample, new_z, z)}
 
     def infer_meta(self, buffer: tp.Any, generator: torch.Generator) -> MetaDict:
         """Task inference from a replay buffer's STORED rewards: sample

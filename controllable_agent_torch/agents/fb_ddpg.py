@@ -42,7 +42,8 @@ from ..utils.device import DeviceLike, resolve_device
 from ..utils.distributions import SquashedNormal, TruncatedNormal
 from ..utils.schedules import schedule
 from ..utils.tree import soft_update
-from .base import MetaDict, ZMetaMixin
+from .base import (MetaDict, StepNoise, ZMetaMixin, act_draws, explore_until,
+                   load_train_state)
 
 Tensor = torch.Tensor
 Metrics = tp.Dict[str, Tensor]
@@ -204,18 +205,7 @@ class FBDDPGAgent(ZMetaMixin, nn.Module):
 
     def load_train_state(self, state: tp.Mapping[str, Tensor]) -> None:
         """Copy ``state`` (as ``train_state`` names it) into the agent."""
-        own = self.train_state()
-        if set(own) != set(state):
-            raise ValueError(
-                "agent state does not match this agent: missing "
-                f"{sorted(set(own) - set(state))}, unexpected "
-                f"{sorted(set(state) - set(own))}")
-        with torch.no_grad():
-            for name, dst in own.items():
-                if dst.shape != state[name].shape:
-                    raise ValueError(f"{name}: saved shape {tuple(state[name].shape)}, "
-                                     f"agent has {tuple(dst.shape)}")
-                dst.copy_(state[name])
+        load_train_state(self, state)
 
     # -- z sampling and meta -------------------------------------------
     def sample_z(self, size: int, generator: torch.Generator) -> Tensor:
@@ -223,10 +213,25 @@ class FBDDPGAgent(ZMetaMixin, nn.Module):
                              device=self.device)
         uniform = None if self.cfg.norm_z else torch.rand(
             size, self.cfg.z_dim, generator=generator, device=self.device)
+        return self.z_from_noise(normal, uniform)
+
+    def z_from_noise(self, normal: Tensor, uniform: tp.Optional[Tensor]) -> Tensor:
+        """``sample_z`` from its draws: a normal and, without norm_z, a uniform."""
         return sample_z(normal, uniform, self.cfg.norm_z)
 
     def init_meta(self, generator: torch.Generator) -> MetaDict:
         return {"z": self.sample_z(1, generator)[0]}
+
+    def update_meta(self, meta: MetaDict, global_step: int,
+                    generator: torch.Generator) -> MetaDict:
+        """Resample z every update_z_every_step environment steps, with
+        probability update_z_proba (the host-side hook; the collector
+        resamples inside its step with ``rollout_update_meta``)."""
+        if global_step % self.cfg.update_z_every_step == 0:
+            new_z = self.sample_z(1, generator)[0]
+            take = torch.rand((), generator=generator, device=self.device) < self.cfg.update_z_proba
+            return {**meta, "z": torch.where(take, new_z, meta["z"])}
+        return meta
 
     @torch.no_grad()
     def get_goal_meta(self, goal: Tensor) -> Tensor:
@@ -275,25 +280,29 @@ class FBDDPGAgent(ZMetaMixin, nn.Module):
 
     # -- acting ---------------------------------------------------------
     @torch.no_grad()
-    def act(self, obs: Tensor, z: Tensor, step: int,
+    def act(self, obs: Tensor, z: Tensor, step: tp.Union[int, Tensor],
             generator: tp.Optional[torch.Generator] = None,
-            eval_mode: bool = False) -> Tensor:
-        """Batched policy; obs [B, obs_dim], z [B, z_dim] -> action [B, A]."""
+            eval_mode: bool = False, noise: tp.Optional[StepNoise] = None) -> Tensor:
+        """Batched policy; obs [B, obs_dim], z [B, z_dim] -> action [B, A].
+
+        Out of eval mode the action is the truncated-normal sample at the
+        schedule's stddev, or a uniform action while ``step`` <
+        num_expl_steps. ``step`` may be a device tensor: both draws are made
+        and one is selected on the device, so a captured collector step
+        follows the step it is handed at every replay. The draws come from
+        ``noise`` or, without it, from ``generator``."""
         if self.cfg.boltzmann:
             mu, std = self.actor(obs, z)
             dist = SquashedNormal(mu, std)
             if eval_mode:
                 return dist.mean
-            return dist.sample(torch.randn(mu.shape, generator=generator,
-                                           device=mu.device))
+            return dist.sample(act_draws(noise, mu, generator)[0])
         mu = self.actor(obs, z)
         if eval_mode:
             return mu
-        if step < self.cfg.num_expl_steps:
-            return torch.rand(mu.shape, generator=generator, device=mu.device) * 2 - 1
-        dist = TruncatedNormal(mu, self._stddev(step))
-        return dist.sample(torch.randn(mu.shape, generator=generator,
-                                       device=mu.device))
+        normal, uniform = act_draws(noise, mu, generator)
+        action = TruncatedNormal(mu, self._stddev(step)).sample(normal)
+        return explore_until(action, uniform, step, self.cfg.num_expl_steps)
 
     # -- z construction for the update ----------------------------------
     @torch.no_grad()

@@ -9,7 +9,12 @@ becomes a state dict of the port's networks by name alone: ``MLP_i`` ->
 A whole ``FBTrainState`` (``controllable_agent_tpu/agents/fb_ddpg.py:102``)
 loads into an ``FBDDPGAgent``: the networks, the target networks, the step
 counter and the three Adam states (optax ``ScaleByAdamState`` mu, nu,
-count). This module reads those objects by attribute, or by key when the
+count). A ``DDPGTrainState`` (``agents/ddpg.py:99``) loads into a
+``DDPGAgent`` the same way, and an ``IntrinsicTrainState``
+(``agents/exploration.py:48``: the DDPG state, the module, its Adam state
+and the running statistics) into an ``IntrinsicDDPGAgent`` such as RND;
+``load_train_state`` picks by the agent's class. This module reads those
+objects by attribute, or by key when the
 state is the nested dict of a decoded checkpoint
 (``train/jax_checkpoint.py``: fields by name, tuples by position), and
 converts their leaves with numpy or torch, so it imports nothing of JAX:
@@ -23,6 +28,8 @@ import typing as tp
 import numpy as np
 import torch
 
+from .agents.ddpg import DDPGAgent
+from .agents.exploration import IntrinsicDDPGAgent
 from .agents.fb_ddpg import FBDDPGAgent
 from .optim import Adam
 
@@ -61,6 +68,13 @@ def _get(node: tp.Any, name: str) -> tp.Any:
     return node[name] if isinstance(node, dict) else getattr(node, name)
 
 
+def _tensor(x: tp.Any) -> torch.Tensor:
+    """A leaf as a float32 tensor."""
+    if isinstance(x, torch.Tensor):
+        return x.float()
+    return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
 def _load_adam(opt: Adam, opt_state: tp.Any) -> None:
     parts = opt_state.values() if isinstance(opt_state, dict) else opt_state
     adam = next(s for s in parts if hasattr(s, "mu") or (isinstance(s, dict) and "mu" in s))
@@ -87,3 +101,46 @@ def load_fb_train_state(agent: FBDDPGAgent, state: tp.Any) -> None:
     _load_adam(agent.actor_opt, _get(state, "actor_opt_state"))
     _load_adam(agent.fw_opt, _get(state, "fw_opt_state"))
     _load_adam(agent.bw_opt, _get(state, "bw_opt_state"))
+
+
+def load_ddpg_train_state(agent: DDPGAgent, state: tp.Any) -> None:
+    """Load a JAX ``DDPGTrainState``, or its decoded dict, into ``agent`` (in
+    place); the reward model and its Adam state when the agent has one."""
+    for module, name in ((agent.actor, "actor_params"), (agent.critic, "critic_params"),
+                         (agent.target_critic, "target_critic_params")):
+        module.load_state_dict(flax_to_state_dict(_get(state, name)))
+    agent.step = int(np.asarray(_get(state, "step")))
+    _load_adam(agent.actor_opt, _get(state, "actor_opt_state"))
+    _load_adam(agent.critic_opt, _get(state, "critic_opt_state"))
+    if agent.reward_model is not None:
+        assert agent.reward_opt is not None
+        agent.reward_model.mlps[0].load_state_dict(
+            flax_to_state_dict(_get(state, "reward_params")))
+        _load_adam(agent.reward_opt, _get(state, "reward_opt_state"))
+
+
+def load_intrinsic_train_state(agent: IntrinsicDDPGAgent, state: tp.Any) -> None:
+    """Load a JAX ``IntrinsicTrainState``, or its decoded dict, into
+    ``agent`` (in place): the DDPG state, the module and its Adam state, and
+    the running statistics."""
+    load_ddpg_train_state(agent.ddpg, _get(state, "ddpg"))
+    if agent.module is not None:
+        assert agent.module_opt is not None
+        agent.module.load_state_dict(flax_to_state_dict(_get(state, "module_params")))
+        _load_adam(agent.module_opt, _get(state, "module_opt_state"))
+    rms = _get(state, "rms")
+    with torch.no_grad():
+        for name in ("mean", "var", "n"):
+            getattr(agent, f"rms_{name}").copy_(_tensor(_get(rms, name)))
+
+
+def load_train_state(agent: tp.Any, state: tp.Any) -> None:
+    """Load the JAX train state of ``agent``'s kind into it."""
+    if isinstance(agent, FBDDPGAgent):
+        load_fb_train_state(agent, state)
+    elif isinstance(agent, IntrinsicDDPGAgent):
+        load_intrinsic_train_state(agent, state)
+    elif isinstance(agent, DDPGAgent):
+        load_ddpg_train_state(agent, state)
+    else:
+        raise TypeError(f"no JAX train state converts into a {type(agent).__name__}")

@@ -8,10 +8,12 @@ dummy first transition, so ``action[t]`` is the action leading into
 ``obs[t]``.
 
 Randomness comes from an explicit ``torch.Generator`` on the storage's
-device. ``sample`` reads no value on the host, so it can be captured in a
-CUDA graph with the update that follows it. The counters ``n_episodes`` and
-``idx`` are host integers, fixed in a captured program: the trainer captures
-anew when the buffer has grown.
+device. ``sample`` reads no value on the host and nothing that depends on
+the fill level: episodes are drawn over all ``max_episodes`` slots, where an
+empty slot has length 0 and is never drawn. So a CUDA graph captured with
+the update that follows it keeps serving while episodes are committed
+(``add_trajectory`` writes a batch of them on the device, in place). The
+counters ``n_episodes`` and ``idx`` are host integers kept for bookkeeping.
 
 The reward functions and goal functions that ``relabel``, ``set_goals`` and
 ``sample(custom_reward=...)`` take map a tensor of physics rows on the
@@ -91,6 +93,35 @@ def add_episode(state: ReplayState, episode: tp.Dict[str, Tensor],
     state.idx = (state.idx + 1) % state.max_episodes
 
 
+def add_trajectory(state: ReplayState, traj: tp.Mapping[str, Tensor],
+                   lengths: int) -> None:
+    """Commit ``E`` episodes that live on the storage's device, each
+    ``traj[name][:, e]`` ([T+1, E, ...]), into the next ``E`` ring slots in
+    place: one gather-free ``index_copy_`` per storage array, no host round
+    trip. Every episode has ``lengths`` real transitions; steps past
+    ``T+1`` are zeroed."""
+    steps, num = next(iter(traj.values())).shape[:2]
+    if num > state.max_episodes:
+        raise ValueError(f"{num} episodes do not fit a ring of {state.max_episodes}")
+    if steps > state.max_episode_length + 1:
+        raise ValueError(f"episodes of {steps - 1} steps but the buffer was sized for "
+                         f"{state.max_episode_length} (max_episode_length)")
+    if set(traj) != set(state.storage):
+        raise ValueError(f"trajectory columns {sorted(traj)} differ from the buffer's "
+                         f"{sorted(state.storage)}")
+    dev = state.ep_lengths.device
+    slots = torch.arange(state.idx, state.idx + num, device=dev) % state.max_episodes
+    for name, values in traj.items():
+        dst = state.storage[name]
+        rows = values.transpose(0, 1).to(dst.dtype)
+        if steps < dst.shape[1]:
+            rows = torch.cat([rows, rows.new_zeros((num, dst.shape[1] - steps) + rows.shape[2:])], 1)
+        dst.index_copy_(0, slots, rows)
+    state.ep_lengths.index_fill_(0, slots, lengths)
+    state.n_episodes = min(state.n_episodes + num, state.max_episodes)
+    state.idx = (state.idx + num) % state.max_episodes
+
+
 def _sample_indices(state: ReplayState, generator: torch.Generator,
                     batch_size: int, future: float, nstep: int = 1
                     ) -> tp.Tuple[Tensor, Tensor, Tensor]:
@@ -98,12 +129,14 @@ def _sample_indices(state: ReplayState, generator: torch.Generator,
     proportional to length, steps uniform in [1, len - nstep + 1], future
     step = step + Geom(1 - future), clipped to the episode end."""
     dev = state.ep_lengths.device
-    # inverse CDF over the cumulative lengths: one uniform in float64 (a
-    # buffer holds millions of steps, more than float32 resolves)
-    ends = torch.cumsum(state.ep_lengths[:state.n_episodes], 0)
+    # inverse CDF over the cumulative lengths of every slot: one uniform in
+    # float64 (a buffer holds millions of steps, more than float32 resolves).
+    # An empty slot adds 0, so searchsorted(right=True) returns the first slot
+    # whose end passes the draw, never an empty one, whatever the fill level.
+    ends = torch.cumsum(state.ep_lengths, 0)
     pick = torch.rand(batch_size, dtype=torch.float64, device=dev, generator=generator)
     ep_idx = torch.searchsorted(ends, (pick * ends[-1]).long(), right=True)
-    ep_idx = ep_idx.clamp_max(state.n_episodes - 1)
+    ep_idx = ep_idx.clamp_max(state.max_episodes - 1)
     lengths = state.ep_lengths[ep_idx]
     u = torch.rand(batch_size, device=dev, generator=generator)
     n_starts = (lengths - (nstep - 1)).clamp_min(1)
@@ -209,6 +242,18 @@ class ReplayBuffer:
         length = next(iter(episode.values())).shape[0] - 1
         add_episode(self.state, {k: torch.from_numpy(np.asarray(v))
                                  for k, v in episode.items()}, length)
+
+    def add_trajectory(self, traj: tp.Mapping[str, Tensor], lengths: int) -> None:
+        """Commit the ``E`` episodes of a ``[T+1, E, ...]`` trajectory on the
+        buffer's device (``add_trajectory``); the first commit allocates the
+        storage, ``max_episode_length`` long (``T`` when it was not given)."""
+        if self.state is None:
+            length = self._max_episode_length
+            if length is None:
+                length = next(iter(traj.values())).shape[0] - 1
+            specs = {name: (tuple(v.shape[2:]), v.dtype) for name, v in traj.items()}
+            self.state = init_replay_state(specs, self._max_episodes, length, self.device)
+        add_trajectory(self.state, traj, lengths)
 
     def sample(self, generator: torch.Generator, batch_size: int,
                custom_reward: tp.Optional[RewardFn] = None,

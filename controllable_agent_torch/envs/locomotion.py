@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..ops.tolerance import tolerance
+from ..utils.graphs import CapturedProgram
 from . import physics2d as p2d
 from .base import Environment, EnvSpec, StepType, TimeStep
 
@@ -269,6 +270,8 @@ class LocomotionEnv(Environment):
         self.spec = EnvSpec(obs_dim=obs_dim, action_dim=ndof - 3,
                             physics_dim=2 * ndof, goal_dim=0,
                             episode_length=episode_length)
+        # captured settling steps by (device, dtype, shape): see ``settle``
+        self._settlers: tp.Dict[tp.Tuple, tp.Tuple[tp.Any, Tensor, Tensor]] = {}
 
     # -- observables -----------------------------------------------------
     def _obs(self, q: Tensor, qd: Tensor, touch: tp.Optional[Tensor]) -> Tensor:
@@ -365,10 +368,7 @@ class LocomotionEnv(Environment):
         q = torch.cat([root.expand(u.shape[0], 3), qj], -1)
         qd = torch.zeros_like(q)
         if self.domain == "cheetah":
-            # stabilize for 2 s of simulated time before the episode starts
-            rest = torch.zeros_like(qj)
-            for _ in range(int(round(2.0 / self.control_dt))):
-                q, qd, _ = p2d.step(self.model, q, qd, rest, self.control_dt, self.n_substeps)
+            q, qd = self.settle(q, qd)
         state = LocoState(q=q, qd=qd, touch=torch.zeros_like(c.contact_radius.expand(u.shape[0], -1)),
                           t=torch.zeros(u.shape[0], dtype=torch.int32, device=u.device))
         physics = torch.cat([q, qd], -1)
@@ -378,6 +378,38 @@ class LocomotionEnv(Environment):
             observation=self._obs(q, qd, state.touch), action=torch.zeros_like(qj),
             physics=physics)
         return state, ts
+
+    def settle(self, q: Tensor, qd: Tensor, capture: tp.Optional[bool] = None
+               ) -> tp.Tuple[Tensor, Tensor]:
+        """2 s of simulated time at rest (zero action), the cheetah's start
+        before an episode. ``capture`` (default: whether ``q`` is on a CUDA
+        device) runs it as replays of one captured control step, kept per
+        batch shape, instead of as launches from the host: the same kernels
+        in the same order, so the same states to the bit."""
+        steps = int(round(2.0 / self.control_dt))
+        capture = q.device.type == "cuda" if capture is None else capture
+        if not capture:
+            rest = torch.zeros_like(q[:, 3:])
+            for _ in range(steps):
+                q, qd, _ = p2d.step(self.model, q, qd, rest, self.control_dt, self.n_substeps)
+            return q, qd
+        key = (q.device, q.dtype, tuple(q.shape))
+        if key not in self._settlers:
+            held_q, held_qd, rest = q.clone(), qd.clone(), torch.zeros_like(q[:, 3:])
+
+            def one_step() -> None:
+                new_q, new_qd, _ = p2d.step(self.model, held_q, held_qd, rest,
+                                            self.control_dt, self.n_substeps)
+                held_q.copy_(new_q)
+                held_qd.copy_(new_qd)
+
+            self._settlers[key] = (CapturedProgram(one_step, q.device, [held_q, held_qd]),
+                                   held_q, held_qd)
+        program, held_q, held_qd = self._settlers[key]
+        held_q.copy_(q)
+        held_qd.copy_(qd)
+        program.replay(steps)
+        return held_q.clone(), held_qd.clone()
 
     def step(self, state: LocoState, action: Tensor) -> tp.Tuple[LocoState, TimeStep]:
         action = action.float().clamp(-1.0, 1.0)

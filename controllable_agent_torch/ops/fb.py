@@ -55,7 +55,9 @@ def fb_loss_terms(f1: torch.Tensor, f2: torch.Tensor, b: torch.Tensor,
     resid1 = torch.where(off, m1 - discount * target_m, 0.0)
     resid2 = torch.where(off, m2 - discount * target_m, 0.0)
     fb_offdiag = 0.5 * (resid1.square().sum() + resid2.square().sum()) / denom
-    fb_diag = -(torch.trace(m1) + torch.trace(m2)) / n
+    # diagonal().sum(), not trace: trace's backward reads its gradient on the
+    # host (index_fill_ with a tensor value), which a CUDA graph capture refuses
+    fb_diag = -(m1.diagonal().sum() + m2.diagonal().sum()) / n
     return fb_offdiag + fb_diag, fb_diag, fb_offdiag
 
 
@@ -67,6 +69,6 @@ def orthonormality_loss(b: torch.Tensor
     n = b.shape[0]
     cov = b @ b.T
     off = off_diagonal_mask(n, b.device)
-    diag_term = -2.0 * torch.trace(cov) / n
+    diag_term = -2.0 * cov.diagonal().sum() / n
     offdiag_term = torch.where(off, cov.square(), 0.0).sum() / (n * (n - 1))
     return offdiag_term + diag_term, diag_term, offdiag_term

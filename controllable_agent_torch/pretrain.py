@@ -1,10 +1,20 @@
-"""Command-line plumbing shared by the port's entry points (mirror of
-``controllable_agent_tpu/pretrain.py``).
+"""CLI: online reward-free pretraining (mirror of
+``controllable_agent_tpu/pretrain.py``), and the command-line plumbing that
+the port's other entry points share.
 
-``agent=NAME`` selects the agent; ``agent.*`` keys override the agent
-config; every other ``key=value`` overrides the workspace config. The
-online pretraining loop itself is not ported yet (ROADMAP Queue A item 10),
-so running this module raises.
+    python -m controllable_agent_torch.pretrain agent=fb_ddpg task=walker_walk \
+        agent.use_pallas_loss=true agent.compute_dtype=bfloat16 num_train_frames=100000
+
+``agent=NAME`` selects the agent (fb_ddpg, ddpg, rnd); ``agent.*`` keys
+override the agent config; every other ``key=value`` overrides the workspace
+config; ``--help`` lists them all. The run (``OnlineWorkspace``) collects
+``num_envs`` episodes at a time and trains on them as it goes, writing
+``train.csv``, ``eval.csv``, ``eval_video/``, ``models/latest`` and, at the
+end, ``test_rewards.json`` into ``folder``; the same command again resumes
+from that checkpoint. ``device=cpu`` runs on the CPU; the default is the
+card. Still raising ``NotImplementedError`` with their ROADMAP item: pixels
+and the quadruped, jaco, grid and d4rl tasks (12), the agents other than
+fb_ddpg, ddpg and rnd (13), ``use_tb``, ``use_wandb`` and ``profile_dir`` (15).
 """
 
 from __future__ import annotations
@@ -16,7 +26,7 @@ import typing as tp
 from pathlib import Path
 
 from .config import apply_overrides
-from .train.workspace import OfflineWorkspace, WorkspaceConfig
+from .train.workspace import OnlineWorkspace, WorkspaceConfig
 
 AgentConfigBase = tp.Optional[tp.Dict[str, tp.Any]]
 
@@ -70,17 +80,44 @@ def build_config(argv: tp.Sequence[str]
     return apply_overrides(base, ws_overrides), agent_overrides, agent_cfg_base
 
 
+def print_help(doc: tp.Optional[str]) -> None:
+    """``--help``: the entry point's usage, then every workspace field and
+    every ported agent's fields, with their defaults."""
+    from .agents import AGENTS
+    print(doc or "")
+    print("workspace config (key=value):")
+    for f in dataclasses.fields(WorkspaceConfig):
+        print(f"  {f.name}={f.default!r}")
+    print("\nagents (agent=NAME; fields via agent.KEY=value):")
+    for name, (cfg_cls, _) in sorted(AGENTS.items()):
+        fields = ", ".join(f.name for f in dataclasses.fields(cfg_cls) if f.name != "name")
+        print(f"  {name}: {fields}")
+
+
+def wants_help(argv: tp.Sequence[str], doc: tp.Optional[str]) -> bool:
+    """Print the help and return True when ``argv`` asks for it."""
+    if "--help" in argv or "-h" in argv:
+        print_help(doc)
+        return True
+    return False
+
+
 def build_workspace(argv: tp.Sequence[str],
-                    workspace_cls: type = OfflineWorkspace) -> tp.Any:
+                    workspace_cls: type = OnlineWorkspace) -> tp.Any:
     cfg, agent_overrides, agent_cfg_base = build_config(argv)
     return workspace_cls(cfg, agent_cfg_overrides=agent_overrides,
                          agent_cfg_base=agent_cfg_base)
 
 
-def main(argv: tp.Optional[tp.Sequence[str]] = None) -> None:
-    raise NotImplementedError(
-        "online pretraining is not ported to controllable_agent_torch yet "
-        "(ROADMAP Queue A item 10); use controllable_agent_torch.train_offline")
+def main(argv: tp.Optional[tp.Sequence[str]] = None) -> tp.Any:
+    """Runs the CLI; returns the trained workspace for callers that drive
+    it from Python (None after ``--help``)."""
+    args = list(argv if argv is not None else sys.argv[1:])
+    if wants_help(args, __doc__):
+        return None
+    ws = build_workspace(args)
+    ws.train()
+    return ws
 
 
 if __name__ == "__main__":

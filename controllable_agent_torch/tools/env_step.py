@@ -19,7 +19,7 @@ import time
 import torch
 
 from controllable_agent_torch.envs import locomotion
-from controllable_agent_torch.train.loops import CapturedProgram
+from controllable_agent_torch.utils.graphs import CapturedProgram
 from controllable_agent_torch.utils.device import card_name_and_power_limit
 
 ENVS, REPLAYS = 16, 100

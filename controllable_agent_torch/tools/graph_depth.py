@@ -25,7 +25,7 @@ from controllable_agent_torch.agents import FBDDPGAgent, FBDDPGConfig
 from controllable_agent_torch.data import ReplayBuffer
 from controllable_agent_torch.data import replay as replay_lib
 from controllable_agent_torch.data.exorl import synthetic_episodes
-from controllable_agent_torch.train.loops import CapturedProgram
+from controllable_agent_torch.utils.graphs import CapturedProgram
 from controllable_agent_torch.utils.device import card_name_and_power_limit
 
 DEPTHS, UPDATES = (1, 5, 20), 200

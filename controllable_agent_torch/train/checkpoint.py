@@ -8,9 +8,10 @@ checkpoint. The format is the port's own, a directory of
     ``train_state()`` (parameters, targets, Adam moments and counts, the
     step) and, under ``generator``, the state of the workspace's
     ``torch.Generator``;
-  * ``replay.pt``: the ReplayState's tensors and counters; with the static
-    geometry in ``meta.json`` it restores without a pre-built template (a
-    fresh workspace has no buffer yet);
+  * ``replay.pt``: the ReplayState's tensors and counters, only the filled
+    slots of a ring that has not wrapped; with the static geometry in
+    ``meta.json`` it restores without a pre-built template (a fresh
+    workspace has no buffer yet);
   * ``meta.json``: the keys saved, the counters, the replay's geometry.
 
 Files are read with ``weights_only=True``: a checkpoint holds tensors and
@@ -64,8 +65,11 @@ def save_checkpoint(path: tp.Union[str, Path], payload: tp.Dict[str, tp.Any],
             "max_episodes": int(replay.max_episodes),
             "max_episode_length": int(replay.max_episode_length),
             "n_episodes": int(replay.n_episodes), "idx": int(replay.idx)}
-        torch.save({"storage": _cpu(replay.storage),
-                    "ep_lengths": replay.ep_lengths.cpu()}, tmp / "replay.pt")
+        # a ring that has not wrapped holds its episodes in the first
+        # n_episodes slots: only those are written, the rest is zeros
+        rows = replay.max_episodes if replay.idx != replay.n_episodes else replay.n_episodes
+        torch.save({"storage": _cpu({k: v[:rows] for k, v in replay.storage.items()}),
+                    "ep_lengths": replay.ep_lengths[:rows].cpu()}, tmp / "replay.pt")
     (tmp / "meta.json").write_text(json.dumps(meta))
     if path.exists():
         shutil.rmtree(path)
@@ -108,9 +112,17 @@ def load_checkpoint(path: tp.Union[str, Path],
             raw = torch.load(path / "replay.pt", map_location="cpu",
                              weights_only=True)
             statics = meta["replay_statics"]
+            slots = statics["max_episodes"]
+
+            def full(v: torch.Tensor) -> torch.Tensor:
+                """The saved rows, zero-padded to the ring's slots, on ``device``."""
+                out_v = torch.zeros((slots,) + tuple(v.shape[1:]), dtype=v.dtype, device=device)
+                out_v[:v.shape[0]].copy_(v)
+                return out_v
+
             out[k] = ReplayState(
-                storage={name: v.to(device) for name, v in raw["storage"].items()},
-                ep_lengths=raw["ep_lengths"].to(device),
+                storage={name: full(v) for name, v in raw["storage"].items()},
+                ep_lengths=full(raw["ep_lengths"]),
                 n_episodes=statics["n_episodes"], idx=statics["idx"],
                 max_episodes=statics["max_episodes"],
                 max_episode_length=statics["max_episode_length"])

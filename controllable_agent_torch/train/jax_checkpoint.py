@@ -13,7 +13,7 @@ bytes)``), and flax's chunked form of arrays above 2**30 bytes (a map with
 Every array comes back as a ``torch.Tensor``: Adam's first moment is
 bfloat16, which numpy lacks. The decoded tree is a nested dict named as
 ``flax.serialization.to_state_dict`` names it (dataclass fields by name,
-tuples by position); ``convert.load_fb_train_state`` takes it from there.
+tuples by position); ``convert.load_train_state`` takes it from there.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ from pathlib import Path
 
 import torch
 
-from ..convert import load_fb_train_state
+from ..convert import load_train_state
 
 EXT_NDARRAY, EXT_NPSCALAR = 1, 3
 _DTYPES = {name: getattr(torch, name) for name in (
@@ -134,12 +134,13 @@ def restore(data: bytes) -> tp.Any:
 
 
 def load_agent(path: tp.Union[str, Path], agent: tp.Any) -> tp.Dict[str, int]:
-    """Load ``path/agent.msgpack`` (an ``FBTrainState``) into ``agent`` in
-    place; returns the counters of ``meta.json``."""
+    """Load ``path/agent.msgpack`` (the train state of the agent's kind:
+    ``FBTrainState``, ``DDPGTrainState`` or ``IntrinsicTrainState``) into
+    ``agent`` in place; returns the counters of ``meta.json``."""
     path = Path(path)
     meta = json.loads((path / "meta.json").read_text())
     if "agent" not in meta["keys"]:
         raise ValueError(f"checkpoint {path} holds no agent")
-    load_fb_train_state(agent, restore((path / "agent.msgpack").read_bytes()))
+    load_train_state(agent, restore((path / "agent.msgpack").read_bytes()))
     return {"global_step": int(meta["global_step"]),
             "global_episode": int(meta["global_episode"])}

@@ -222,6 +222,11 @@ class Logger:
             self.hiplog.write()
         return row
 
+    def log_video(self, key: str, frames: tp.Sequence[tp.Any], step: int) -> None:
+        """A no-op: videos go to the TensorBoard sink, which is not ported
+        (ROADMAP Queue A item 15); the file ``VideoRecorder`` saved is the
+        record."""
+
     class _LogAndDumpCtx:
         def __init__(self, logger: "Logger", step: int, ty: str) -> None:
             self._logger, self._step, self._ty = logger, step, ty

@@ -1,136 +1,95 @@
 """Training loops (mirror of ``controllable_agent_tpu/train/loops.py``).
 
-The offline trainer and the evaluation rollout are ported: the episode
-collector and the online trainer come with the online path (ROADMAP Queue A
-item 10).
+All of it is ported: the offline trainer, the evaluation rollout, the
+episode collector and the online trainer.
 
 The JAX trainer is one compiled program of ``steps_per_call`` updates with
 the replay sampling inside it (``jit`` over ``lax.scan``). Its counterpart
-on a CUDA device is a CUDA graph: sample -> ``agent.update`` -> metric sums
-are captured once and replayed, so an update costs the host one graph launch
-instead of a thousand kernel launches. On the CPU the same function runs
-eagerly.
+on a CUDA device is a CUDA graph (``utils.graphs.CapturedProgram``): sample
+-> ``agent.update`` -> metric sums are captured once and replayed, so an
+update costs the host one graph launch instead of a thousand kernel
+launches. The rollout and the collector capture one control step the same
+way. On the CPU the same functions run eagerly.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 import typing as tp
 
 import torch
 
+from ..agents.base import MetaDict, StepNoise
 from ..data import replay as replay_lib
 from ..data.replay import ReplayState, SampleConfig
-from ..ops import fused_fb
+from ..utils.graphs import WARMUP_RUNS, CapturedProgram
 
-# eager runs before a capture: they build the kernels, opt into their shared
-# memory and let cuBLAS and the allocator reach their steady state
-WARMUP_RUNS = 2
-
-
-class CapturedProgram:
-    """``fn()`` captured in a CUDA graph on ``device``.
-
-    ``fn`` is warmed up eagerly on a side stream, then everything the
-    warm-up changed is put back: ``state``, the tensors that ``fn`` changes
-    in place (an agent's ``train_state()`` for an update, a rollout's
-    environment state and buffers), and the state of every generator in
-    ``generators``. So building the program leaves no trace but the kernels'
-    launch counts. Every generator that ``fn`` draws from must be listed: it
-    is registered with the graph, which makes each replay draw fresh numbers
-    and advances the generator as eager draws would. Whatever ``fn`` returns
-    is kept in ``out``; its tensors are overwritten by each replay.
-    ``warmup_runs`` is at least 1. A failure to capture raises.
-    """
-
-    def __init__(self, fn: tp.Callable[[], tp.Any], device: torch.device,
-                 state: tp.Iterable[torch.Tensor] = (),
-                 generators: tp.Sequence[torch.Generator] = (),
-                 warmup_runs: int = WARMUP_RUNS) -> None:
-        state = list(state)
-        saved = [t.clone() for t in state]
-        gen_states = [g.get_state() for g in generators]
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            for _ in range(warmup_runs):
-                fn()
-        torch.cuda.current_stream(device).wait_stream(side)
-        with torch.no_grad():
-            for t, before in zip(state, saved):
-                t.copy_(before)
-        for g, before in zip(generators, gen_states):
-            g.set_state(before)
-        self.graph = torch.cuda.CUDAGraph()
-        for g in generators:
-            self.graph.register_generator_state(g)
-        with fused_fb.held_by_capture() as self.held, torch.cuda.graph(self.graph):
-            self.out = fn()
-
-    def replay(self, times: int = 1) -> None:
-        for _ in range(times):
-            self.graph.replay()
-        fused_fb.count_replay(self.held, times)
-
-
-def make_offline_trainer(agent: tp.Any, sample_cfg: SampleConfig,
-                         batch_size: int, steps_per_call: int,
-                         with_future: bool = True,
-                         capture: tp.Optional[bool] = None) -> tp.Callable:
-    """Returns ``train_n(replay_state, generator) -> metrics`` running
-    ``steps_per_call`` updates of ``agent`` in place, each sampling its batch
-    on the replay's device. Metrics are the mean over the call, left on the
-    device (no host sync inside the call).
+class OfflineTrainer:
+    """``trainer(replay_state, generator, steps=None) -> metrics`` runs
+    ``steps`` (default ``steps_per_call``) updates of ``agent`` in place, each
+    sampling its batch on the replay's device. Metrics are the mean over the
+    call, left on the device (no host sync inside the call).
 
     ``capture`` (default: whether the agent is on a CUDA device) runs the
     updates as replays of a CUDA graph of one update, sampling included
-    (deeper graphs measured no faster). The graph is bound to the replay storage
-    and the generator it was captured with; ``train_n`` captures anew when
-    it is handed another generator or a buffer that has grown or moved.
-    ``capture=False`` on a CUDA device is the eager loop, kept to be
-    measured beside the captured one.
+    (deeper graphs measured no faster). The graph is bound to the replay's
+    tensors and the generator it was captured with, not to its fill level
+    (the sampler reads none): episodes committed in place keep it serving,
+    and it is captured anew only for another generator or another storage
+    (``captures`` counts the captures). ``capture=False`` on a CUDA device is
+    the eager loop, kept to be measured beside the captured one.
     """
-    on_cuda = agent.device.type == "cuda"
-    capture = on_cuda if capture is None else capture
-    if capture and not on_cuda:
-        raise ValueError("a CUDA graph needs the agent on a CUDA device")
-    sums: tp.Dict[str, torch.Tensor] = {}  # fixed buffers, summed into in place
 
-    def run_updates(replay_state: ReplayState, generator: torch.Generator,
-                    count: int) -> None:
+    def __init__(self, agent: tp.Any, sample_cfg: SampleConfig, batch_size: int,
+                 steps_per_call: int, with_future: bool = True,
+                 capture: tp.Optional[bool] = None) -> None:
+        on_cuda = agent.device.type == "cuda"
+        self.capture = on_cuda if capture is None else capture
+        if self.capture and not on_cuda:
+            raise ValueError("a CUDA graph needs the agent on a CUDA device")
+        self.agent, self.sample_cfg, self.batch_size = agent, sample_cfg, batch_size
+        self.steps_per_call, self.with_future = steps_per_call, with_future
+        self.captures = 0
+        self._sums: tp.Dict[str, torch.Tensor] = {}  # fixed buffers, summed into in place
+        self._program: tp.Optional[CapturedProgram] = None
+        self._bound_to: tp.Optional[tp.Tuple] = None
+
+    def _run_updates(self, replay_state: ReplayState, generator: torch.Generator,
+                     count: int) -> None:
         for _ in range(count):
-            batch = replay_lib.sample(replay_state, generator, batch_size,
-                                      sample_cfg, with_future=with_future)
-            for k, v in agent.update(batch, generator).items():
-                if k in sums:
-                    sums[k] += v.float()
+            batch = replay_lib.sample(replay_state, generator, self.batch_size,
+                                      self.sample_cfg, with_future=self.with_future)
+            for k, v in self.agent.update(batch, generator).items():
+                if k in self._sums:
+                    self._sums[k] += v.float()
                 else:
-                    sums[k] = v.float().clone()
+                    self._sums[k] = v.float().clone()
 
-    program: tp.Optional[CapturedProgram] = None
-    bound_to: tp.Optional[tp.Tuple] = None
-
-    def train_n(replay_state: ReplayState,
-                generator: torch.Generator) -> tp.Dict[str, torch.Tensor]:
-        nonlocal program, bound_to
-        if capture:
-            binding = (generator, replay_state.n_episodes,
+    def __call__(self, replay_state: ReplayState, generator: torch.Generator,
+                 steps: tp.Optional[int] = None) -> tp.Dict[str, torch.Tensor]:
+        steps = self.steps_per_call if steps is None else steps
+        if self.capture:
+            binding = (generator, replay_state.ep_lengths.data_ptr(),
                        tuple(v.data_ptr() for v in replay_state.storage.values()))
-            if bound_to is None or bound_to[0] is not generator or bound_to[1:] != binding[1:]:
-                program = CapturedProgram(
-                    lambda: run_updates(replay_state, generator, 1), agent.device,
-                    agent.train_state().values(), [generator])
-                bound_to = binding
-        if sums:
-            torch._foreach_zero_(list(sums.values()))
-        if capture:
-            assert program is not None
-            program.replay(steps_per_call)
+            if self._bound_to is None or self._bound_to[0] is not generator \
+                    or self._bound_to[1:] != binding[1:]:
+                self._program = CapturedProgram(
+                    lambda: self._run_updates(replay_state, generator, 1),
+                    self.agent.device, self.agent.train_state().values(), [generator])
+                self._bound_to = binding
+                self.captures += 1
+        if self._sums:
+            torch._foreach_zero_(list(self._sums.values()))
+        if self._program is not None:
+            self._program.replay(steps)
         else:
-            run_updates(replay_state, generator, steps_per_call)
-        return {k: v / steps_per_call for k, v in sums.items()}
+            self._run_updates(replay_state, generator, steps)
+        return {k: v / steps for k, v in self._sums.items()}
 
-    return train_n
+
+# the JAX package's name for the trainer
+make_offline_trainer = OfflineTrainer
 
 
 def _tensors_of(tree: tp.Any) -> tp.List[torch.Tensor]:
@@ -152,6 +111,11 @@ def _cloned(tree: tp.Any) -> tp.Any:
     return tree
 
 
+def _meta_key(agent: tp.Any) -> tp.Optional[str]:
+    """The meta key of an agent that takes a task vector, else None."""
+    return getattr(agent, "meta_key", None)
+
+
 class Rollout:
     """``num_envs`` evaluation episodes of ``env`` under ``agent``'s policy in
     ``eval_mode``, advanced together one control step at a time.
@@ -166,10 +130,11 @@ class Rollout:
     ``capture=False``, the same function runs eagerly.
 
     ``rollout(z, state, timestep)`` takes z as [z_dim] or, for a task per
-    episode, [E, z_dim], and the state and first timestep of a ``reset`` of
-    ``num_envs`` instances. It returns (totals [E], physics [E, T, P],
-    observations [E, T, O]): the trajectories after each step, in buffers
-    that the next run overwrites.
+    episode, [E, z_dim] (None for an agent without a task vector, such as
+    DDPG), and the state and first timestep of a ``reset`` of ``num_envs``
+    instances. It returns (totals [E], physics [E, T, P], observations
+    [E, T, O]): the trajectories after each step, in buffers that the next
+    run overwrites.
     """
 
     def __init__(self, env: tp.Any, agent: tp.Any, num_envs: int,
@@ -181,7 +146,9 @@ class Rollout:
         self.env, self.agent, self.num_envs = env, agent, num_envs
         spec, device = env.spec, agent.device
         self.horizon = spec.episode_length
-        self.z = torch.zeros((num_envs, agent.cfg.z_dim), device=device)
+        key = _meta_key(agent)
+        self.meta = ({} if key is None else
+                     {key: torch.zeros((num_envs, agent.cfg.z_dim), device=device)})
         self.totals = torch.zeros(num_envs, device=device)
         self.physics = torch.zeros((num_envs, self.horizon, spec.physics_dim), device=device)
         self.observations = torch.zeros((num_envs, self.horizon, spec.obs_dim), device=device)
@@ -192,7 +159,7 @@ class Rollout:
 
     @torch.no_grad()
     def _step(self) -> None:
-        action = self.agent.act(self._obs, self.z, 10 ** 9, eval_mode=True)
+        action = self.agent.policy_act(self._obs, self.meta, 10 ** 9, eval_mode=True)
         state, ts = self.env.step(self._state, action.float())
         for held, new in zip(_tensors_of(self._state), _tensors_of(state)):
             held.copy_(new)
@@ -202,15 +169,17 @@ class Rollout:
         self.observations.index_copy_(1, self._index, ts.observation.unsqueeze(1))
         self._index += 1
 
-    def _set_inputs(self, z: torch.Tensor, state: tp.Any, ts: tp.Any) -> None:
+    def _set_inputs(self, z: tp.Optional[torch.Tensor], state: tp.Any, ts: tp.Any) -> None:
         for held, new in zip(_tensors_of(self._state), _tensors_of(state)):
             held.copy_(new)
         self._obs.copy_(ts.observation)
-        self.z.copy_(z.expand_as(self.z))
+        for held_z in self.meta.values():
+            assert z is not None, "this agent's policy takes a task vector"
+            held_z.copy_(z.expand_as(held_z))
         self.totals.zero_()
         self._index.zero_()
 
-    def __call__(self, z: torch.Tensor, state: tp.Any, ts: tp.Any
+    def __call__(self, z: tp.Optional[torch.Tensor], state: tp.Any, ts: tp.Any
                  ) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         if ts.observation.shape != self._obs.shape:
             raise ValueError(f"the rollout was built for observations {tuple(self._obs.shape)}, "
@@ -231,3 +200,225 @@ class Rollout:
             for _ in range(self.horizon):
                 self._step()
         return self.totals, self.physics, self.observations
+
+
+def init_meta_batched(agent: tp.Any, generator: torch.Generator,
+                      n: int) -> MetaDict:
+    """Per-environment meta dict [n, ...]: ``init_meta`` drawn ``n`` times."""
+    metas = [agent.init_meta(generator) for _ in range(n)]
+    return {k: torch.stack([m[k] for m in metas]) for k in metas[0]} if metas else {}
+
+
+class EpisodeCollector:
+    """``num_envs`` training episodes of ``env`` under ``agent``'s exploring
+    policy (``eval_mode=False``), the counterpart of the JAX
+    ``make_episode_collector``.
+
+    One control step is: ``rollout_update_meta`` (the in-episode z
+    resampling; skipped under ``hold_meta``, so the caller's meta drives the
+    whole episode) -> ``policy_act`` with its noise -> ``env.step`` -> writes
+    into the collector's own ``[T+1, E, .]`` buffers at the step index, which
+    lives on the device. Everything the step reads is a fixed tensor: the
+    environments' state, the meta, the index inside the episode and the
+    global step that the exploration schedules take. So on a CUDA device the
+    step is captured once (``CapturedProgram``, its draws from ``generator``,
+    which is registered with the graph) and replayed ``T`` times; on the CPU
+    the same function runs eagerly.
+
+    ``collector(meta, state, timestep, step)`` takes the initial meta
+    ([E, ...] per key), the state and first timestep of a ``reset`` of
+    ``num_envs`` instances and the global step. It returns the trajectory as
+    the JAX collector lays it out: observation, action, reward [.., 1],
+    discount [.., 1], physics, the meta columns and, with ``goal_fn``, goal,
+    each [T+1, E, ...] with the episode's first dummy transition and the
+    initial meta at index 0. The tensors are the collector's buffers (the
+    goal excepted): the next run overwrites them. ``noise`` (a sequence of
+    ``T`` ``StepNoise``) replaces the generator's draws, eagerly; the parity
+    tests hand in the JAX collector's draws through it.
+    """
+
+    def __init__(self, env: tp.Any, agent: tp.Any, num_envs: int,
+                 generator: torch.Generator,
+                 goal_fn: tp.Optional[tp.Callable[[torch.Tensor], torch.Tensor]] = None,
+                 hold_meta: bool = False, capture: tp.Optional[bool] = None) -> None:
+        on_cuda = agent.device.type == "cuda"
+        self.capture = on_cuda if capture is None else capture
+        if self.capture and not on_cuda:
+            raise ValueError("a CUDA graph needs the agent on a CUDA device")
+        self.env, self.agent, self.num_envs = env, agent, num_envs
+        self.generator, self.goal_fn, self.hold_meta = generator, goal_fn, hold_meta
+        spec, device = env.spec, agent.device
+        self.horizon = horizon = spec.episode_length
+
+        def buffer(*shape: int) -> torch.Tensor:
+            return torch.zeros((horizon + 1, num_envs) + shape, device=device)
+
+        self.buffers = {"observation": buffer(spec.obs_dim),
+                        "action": buffer(spec.action_dim), "reward": buffer(1),
+                        "discount": buffer(1), "physics": buffer(spec.physics_dim)}
+        self.meta: MetaDict = {}  # the meta of the current step, [E, ...] per key
+        self._t = torch.zeros((), dtype=torch.int64, device=device)
+        self._step_t = torch.zeros((), dtype=torch.int64, device=device)
+        self._obs = torch.zeros((num_envs, spec.obs_dim), device=device)
+        self._state: tp.Any = None
+        self._noise: tp.Optional[tp.Sequence[StepNoise]] = None
+        self._program: tp.Optional[CapturedProgram] = None
+
+    def _write(self, name: str, value: torch.Tensor) -> None:
+        self.buffers[name].index_copy_(0, (self._t + 1).reshape(1), value.unsqueeze(0))
+
+    @torch.no_grad()
+    def _step(self) -> None:
+        agent = self.agent
+        if self._noise is not None:
+            noise = self._noise[int(self._t)]
+        else:
+            noise = agent.step_noise(self.num_envs, self.generator)
+        meta = self.meta if self.hold_meta else agent.rollout_update_meta(
+            self.meta, self._t, noise)
+        action = agent.policy_act(self._obs, meta, self._step_t, eval_mode=False,
+                                  noise=noise)
+        state, ts = self.env.step(self._state, action.float())
+        for held, new in zip(_tensors_of(self._state), _tensors_of(state)):
+            held.copy_(new)
+        self._obs.copy_(ts.observation)
+        for name, value in meta.items():
+            self.meta[name].copy_(value)
+            self._write(name, value)
+        for name, value in ts.to_buffer_dict().items():
+            if name in self.buffers:
+                self._write(name, value.float())
+        self._t += 1
+
+    def _set_inputs(self, meta: MetaDict, state: tp.Any, ts: tp.Any, step: int) -> None:
+        for held, new in zip(_tensors_of(self._state), _tensors_of(state)):
+            held.copy_(new)
+        self._obs.copy_(ts.observation)
+        first = ts.to_buffer_dict()
+        for name in ("observation", "action", "reward", "discount", "physics"):
+            self.buffers[name][0].copy_(first[name])
+        for name, value in meta.items():
+            self.meta[name].copy_(value)
+            self.buffers[name][0].copy_(value)
+        self._t.zero_()
+        self._step_t.fill_(step)
+
+    def _held(self) -> tp.List[torch.Tensor]:
+        """What a step changes in place, buffers aside."""
+        return [*_tensors_of(self._state), self._obs, *self.meta.values(), self._t]
+
+    def __call__(self, meta: MetaDict, state: tp.Any, ts: tp.Any, step: int,
+                 noise: tp.Optional[tp.Sequence[StepNoise]] = None
+                 ) -> tp.Dict[str, torch.Tensor]:
+        if ts.observation.shape != self._obs.shape:
+            raise ValueError(f"the collector was built for observations "
+                             f"{tuple(self._obs.shape)}, the reset gave "
+                             f"{tuple(ts.observation.shape)}")
+        if self._state is None:
+            self._state = _cloned(state)
+            for name, value in meta.items():
+                self.meta[name] = value.clone()
+                self.buffers[name] = torch.zeros((self.horizon + 1,) + tuple(value.shape),
+                                                 device=value.device)
+        if set(meta) != set(self.meta):
+            raise ValueError(f"meta keys {sorted(meta)}, the collector holds {sorted(self.meta)}")
+        self._set_inputs(meta, state, ts, step)
+        if noise is not None:
+            if self.capture:
+                raise ValueError("noise is handed in only to the eager collector")
+            if len(noise) != self.horizon:
+                raise ValueError(f"{len(noise)} steps of noise for {self.horizon} steps")
+            self._noise = noise
+            try:
+                for _ in range(self.horizon):
+                    self._step()
+            finally:
+                self._noise = None
+        elif self.capture:
+            if self._program is None:
+                # the warm-up steps change the held tensors and the generator;
+                # the capture puts both back
+                self._program = CapturedProgram(self._step, self.agent.device, self._held(),
+                                                [self.generator],
+                                                warmup_runs=min(WARMUP_RUNS, self.horizon))
+            self._program.replay(self.horizon)
+        else:
+            for _ in range(self.horizon):
+                self._step()
+        traj = dict(self.buffers)
+        if self.goal_fn is not None:
+            traj["goal"] = self.goal_fn(traj["physics"]).float()
+        return traj
+
+
+class OnlineTrainer:
+    """Episode-granular online cycles, vectorised over environments (the
+    counterpart of the JAX ``OnlineTrainer``).
+
+    Each cycle collects ``num_envs`` episodes (``EpisodeCollector``), commits
+    them to the replay on the device (``ReplayBuffer.add_trajectory``; the
+    JAX trainer goes through numpy and one ``add_episode`` per environment),
+    then runs ``int(T * num_envs * updates_per_step)`` updates through one
+    ``OfflineTrainer``, in calls of at most ``max_steps_per_call``. The
+    collector draws from ``collect_generator``, the updates from
+    ``generator``: each is registered with its own graph. ``timings`` holds
+    the last cycle's seconds of collection (reset included) and of commit
+    and updates.
+    """
+
+    def __init__(self, env: tp.Any, agent: tp.Any, buffer: tp.Any, num_envs: int = 1,
+                 goal_fn: tp.Optional[tp.Callable[[torch.Tensor], torch.Tensor]] = None,
+                 updates_per_step: float = 0.5, max_steps_per_call: int = 200,
+                 hold_meta: bool = False) -> None:
+        self.env, self.agent, self.buffer, self.num_envs = env, agent, buffer, num_envs
+        self.goal_fn, self.hold_meta = goal_fn, hold_meta
+        self.updates_per_step = updates_per_step
+        self.max_steps_per_call = max_steps_per_call
+        self.trainer = OfflineTrainer(agent, buffer.cfg, agent.cfg.batch_size,
+                                      steps_per_call=max_steps_per_call)
+        self.collector: tp.Optional[EpisodeCollector] = None
+        self.global_step = 0
+        self.global_episode = 0
+        self.timings: tp.Dict[str, float] = {}
+
+    def _sync(self) -> None:
+        if self.agent.device.type == "cuda":
+            torch.cuda.synchronize(self.agent.device)
+
+    def run_cycle(self, generator: torch.Generator, collect_generator: torch.Generator,
+                  meta: tp.Optional[MetaDict] = None) -> tp.Dict[str, float]:
+        """One collect + commit + update cycle. ``meta`` overrides the
+        per-environment rollout meta ([num_envs, ...] per key, e.g. task z's
+        for a directed-rollout mix); the default is ``init_meta`` drawn per
+        environment."""
+        if self.collector is None or self.collector.generator is not collect_generator:
+            self.collector = EpisodeCollector(self.env, self.agent, self.num_envs,
+                                              collect_generator, self.goal_fn,
+                                              self.hold_meta)
+        started = time.perf_counter()
+        if meta is None:
+            meta = init_meta_batched(self.agent, collect_generator, self.num_envs)
+        state, ts = self.env.reset(collect_generator, self.num_envs)
+        traj = self.collector(meta, state, ts, self.global_step)
+        episode_reward = traj["reward"][1:].sum(0).mean()
+        self._sync()
+        collected = time.perf_counter()
+        horizon = self.collector.horizon
+        self.buffer.add_trajectory(traj, horizon)
+        self.global_step += horizon * self.num_envs
+        self.global_episode += self.num_envs
+
+        n_updates = int(horizon * self.num_envs * self.updates_per_step)
+        metrics: tp.Dict[str, float] = {}
+        if n_updates > 0 and len(self.buffer) > 0:
+            done = 0
+            while done < n_updates:
+                chunk = min(self.max_steps_per_call, n_updates - done)
+                last = self.trainer(self.buffer.state, generator, steps=chunk)
+                done += chunk
+            metrics = {k: float(v) for k, v in last.items()}
+        metrics["episode_reward"] = float(episode_reward)
+        self._sync()
+        self.timings = {"collect": collected - started,
+                        "update": time.perf_counter() - collected, "updates": n_updates}
+        return metrics

@@ -1,17 +1,22 @@
 """Workspace: environment + agent + replay + logger + checkpoints, zero-shot
-task inference, evaluation rollouts, the final test battery and the offline
-training loop (sliced mirror of ``controllable_agent_tpu/train/workspace.py``).
+task inference, evaluation rollouts, the final test battery, and the
+offline and online training loops (mirror of
+``controllable_agent_tpu/train/workspace.py``).
 
 Evaluation advances all its episodes at once (``loops.Rollout``): on a CUDA
 device the per-step program (policy -> ``env.step`` -> reward sum ->
 trajectory writes) is one captured CUDA graph replayed ``episode_length``
 times; on the CPU the same function runs eagerly. z may differ per episode,
-so ``finalize`` rolls every task's episodes out in one batch.
+so ``finalize`` rolls every task's episodes out in one batch. The online
+loops (``OnlineWorkspace``, ``TrainOnlineWorkspace``) collect their episodes
+the same way (``loops.EpisodeCollector``) and commit them to the replay on
+the device; the collector draws from a generator of its own
+(``collect_generator``), saved in checkpoints beside the workspace's.
 
 Parts of the JAX workspace that are not ported raise ``NotImplementedError``
 naming the ROADMAP item that ports them, whenever a config would make them
-fire: videos, TensorBoard/wandb and profiles (item 15), the other agents
-(13), pixels, d4rl and the other environments (12).
+fire: TensorBoard/wandb and profiles (item 15), the agents other than
+fb_ddpg, ddpg and rnd (13), pixels, d4rl and the other environments (12).
 """
 
 from __future__ import annotations
@@ -23,21 +28,25 @@ from pathlib import Path
 
 import torch
 
-from ..agents import AGENTS
+from ..agents import agent_classes
 from ..config import apply_overrides, to_flat_dict
 from ..data import ReplayBuffer
 from ..envs.base import Environment, EnvSpec
 from ..envs.pointmass import TASKS as _PMM_TASKS
 from ..envs.pointmass import PointMassMaze
 from ..goals import get_goal_space_dim, get_reward_function, goal_spaces, goals
-from ..utils import Stopwatch, crossed, resolve_device
+from ..utils import Stopwatch, crossed, frames_remaining, resolve_device
 from . import checkpoint as ckpt_lib
 from . import jax_checkpoint
 from .logger import Logger
-from .loops import Rollout, make_offline_trainer
+from .loops import OnlineTrainer, Rollout, make_offline_trainer
 from .physics_stats import PhysicsAggregator
 
 Tensor = torch.Tensor
+MetaDict = tp.Dict[str, Tensor]
+# the collector's generator is seeded this far from the workspace's, so that
+# the two streams differ
+COLLECT_SEED_OFFSET = 1_000_003
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,20 +130,20 @@ class Workspace:
                  agent_cfg_overrides: tp.Sequence[str] = (),
                  agent_cfg_base: tp.Optional[tp.Dict[str, tp.Any]] = None) -> None:
         unported = [
-            (cfg.agent_name != "fb_ddpg", f"agent {cfg.agent_name!r}", 13),
             (cfg.obs_type != "states", "obs_type=pixels", 12),
             (cfg.d4rl_dataset is not None, "d4rl_dataset", 12),
             (cfg.use_tb or cfg.use_wandb or cfg.profile_dir is not None,
              "use_tb/use_wandb/profile_dir", 15),
-            (cfg.save_eval_video and cfg.eval_every_steps > 0,
-             "save_eval_video (videos of evaluation rollouts; set it to false)", 15),
         ]
         for fires, what, item in unported:
             if fires:
                 raise _not_ported(what, item)
+        agent_cfg_cls, agent_cls = agent_classes(cfg.agent_name)
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        self.collect_generator = torch.Generator(device=self.device).manual_seed(
+            cfg.seed + COLLECT_SEED_OFFSET)
         self.work_dir = Path(cfg.folder)
         self.work_dir.mkdir(parents=True, exist_ok=True)
         self.domain = cfg.task.split("_", 1)[0]
@@ -161,9 +170,9 @@ class Workspace:
         self.spec: EnvSpec = self.env.spec
         spec = self.spec
 
-        agent_cfg_cls, agent_cls = AGENTS[cfg.agent_name]
         field_names = {f.name for f in dataclasses.fields(agent_cfg_cls)}
-        base_agent_cfg = agent_cfg_cls(goal_space=cfg.goal_space)
+        base_agent_cfg = agent_cfg_cls(**({"goal_space": cfg.goal_space}
+                                          if "goal_space" in field_names else {}))
         if agent_cfg_base:
             # resumed folder: the saved run's resolved agent config is the
             # base (a run trained with e.g. agent.z_dim=100 must rebuild the
@@ -180,6 +189,10 @@ class Workspace:
         self.buffer = ReplayBuffer(
             max_episodes=cfg.replay_buffer_episodes, discount=cfg.discount,
             future=cfg.future, device=self.device)
+        # the DDPG family's n-step returns reach the sampler
+        nstep = int(getattr(self.agent.cfg, "nstep", 1) or 1)
+        if nstep > 1:
+            self.buffer.cfg = dataclasses.replace(self.buffer.cfg, nstep=nstep)
         self.logger = Logger(self.work_dir, use_console=cfg.use_console)
         self.timer = Stopwatch()
         self.global_step = 0
@@ -187,6 +200,7 @@ class Workspace:
         self.last_row: tp.Dict[str, float] = {}
         self.inferred_z: tp.Optional[Tensor] = None
         self._rollouts: tp.Dict[int, Rollout] = {}
+        self._video_recorder: tp.Optional[tp.Any] = None
         self.eval_rewards_history: tp.List[float] = []
 
         # the RESOLVED agent config is saved beside the workspace fields
@@ -201,34 +215,37 @@ class Workspace:
             self.load_checkpoint(Path(cfg.load_model), exclude=["replay"])
 
     # -- zero-shot task inference ---------------------------------------
-    def _init_eval_meta(self) -> tp.Dict[str, Tensor]:
+    def _init_eval_meta(self) -> MetaDict:
         """Eval-time meta selection: every path of the JAX
         ``_init_eval_meta`` that needs no live environment. Returns an
-        (unbatched) meta dict {meta_key: z}."""
+        (unbatched) meta dict: {meta_key: z} for an agent with a task
+        vector, ``init_meta``'s (empty for DDPG) otherwise."""
         agent = self.agent
-        meta_key = agent.meta_key
+        meta_key = getattr(agent, "meta_key", None)
+        can_goal = meta_key is not None and hasattr(agent, "get_goal_meta")
+        can_infer = meta_key is not None and hasattr(agent, "infer_meta_from_obs_and_rewards")
 
-        def goal_meta(goal: tp.Any) -> tp.Dict[str, Tensor]:
+        def goal_meta(goal: tp.Any) -> MetaDict:
             g = torch.as_tensor(goal, dtype=torch.float32, device=self.device)
             return {meta_key: agent.get_goal_meta(g)}
 
         # custom reward with a registered goal
         if self.cfg.custom_reward is not None:
             reward = get_reward_function(self.cfg.custom_reward, self.cfg.seed)
-            if self.cfg.goal_space is not None:
+            if self.cfg.goal_space is not None and can_goal:
                 try:
                     return goal_meta(reward.get_goal(self.cfg.goal_space))
                 except (NotImplementedError, ValueError):
                     pass
-            if len(self.buffer) > 0:
+            if len(self.buffer) > 0 and can_infer:
                 return {meta_key: self._infer_meta_from_replay(reward)}
         # registered goal for (goal_space, task)
-        if self.cfg.goal_space is not None:
+        if self.cfg.goal_space is not None and can_goal:
             space_goals = goals.funcs.get(self.cfg.goal_space, {})
             if self.cfg.task in space_goals:
                 return goal_meta(space_goals[self.cfg.task]())
         # fallback: reward regression over replay samples
-        if len(self.buffer) > 0:
+        if len(self.buffer) > 0 and can_infer:
             return {meta_key: self._infer_meta_from_replay(None)}
         return dict(agent.init_meta(self.generator))
 
@@ -269,10 +286,12 @@ class Workspace:
                     f"the loaded episodes have {storage[name].shape[-1]} {name} columns, "
                     f"the environment of task {self.cfg.task!r} has {size}")
 
-    def _eval_rollout(self, z: Tensor, num_envs: int) -> tp.Tuple[Tensor, Tensor, Tensor]:
+    def _eval_rollout(self, z: tp.Optional[Tensor], num_envs: int
+                      ) -> tp.Tuple[Tensor, Tensor, Tensor]:
         """Fresh initial states from the workspace's generator, rolled out
-        under ``z`` ([z_dim], or [E, z_dim] for a z per episode). The result
-        lives in the rollout's buffers until its next run."""
+        under ``z`` ([z_dim], or [E, z_dim] for a z per episode; None for an
+        agent without a task vector). The result lives in the rollout's
+        buffers until its next run."""
         if num_envs not in self._rollouts:
             self._rollouts[num_envs] = Rollout(self.env, self.agent, num_envs)
         state, ts = self.env.reset(self.generator, num_envs)
@@ -287,13 +306,24 @@ class Workspace:
             env = env.env
         return env
 
+    def _record_eval_video(self, physics: Tensor) -> None:
+        """Save the first evaluation episode as a video, strided to at most
+        about 250 frames (``eval_video/<step>.png``)."""
+        from .video import Renderer, VideoRecorder
+        if self._video_recorder is None:
+            self._video_recorder = VideoRecorder(
+                self.work_dir, Renderer(self.domain, self._base_env()))
+        stride = max(1, physics.shape[0] // 250)
+        self._video_recorder.frames = []
+        self._video_recorder.record_trajectory(physics[::stride].cpu().numpy())
+        self._video_recorder.save(f"{self.global_step}.mp4")
+        self.logger.log_video("eval/video", self._video_recorder.frames, self.global_step)
+
     def evaluate(self) -> tp.Dict[str, float]:
-        if self.cfg.save_eval_video:
-            raise _not_ported("save_eval_video (videos of evaluation rollouts; "
-                              "set it to false)", 15)
         meta = self._init_eval_meta()
-        meta_key = self.agent.meta_key
-        totals, phys, obs = self._eval_rollout(meta[meta_key], self.cfg.num_eval_episodes)
+        meta_key = getattr(self.agent, "meta_key", None)
+        z = meta.get(meta_key) if meta_key is not None else None
+        totals, phys, obs = self._eval_rollout(z, self.cfg.num_eval_episodes)
         if self.cfg.custom_reward is not None:
             reward = get_reward_function(self.cfg.custom_reward, self.cfg.seed)
             totals = reward.from_physics(phys).sum(1)
@@ -305,13 +335,16 @@ class Workspace:
         }
         if totals.numel() > 1:
             metrics["episode_reward#std"] = float(totals.std(unbiased=False))
-        metrics["z_norm"] = float(torch.linalg.vector_norm(meta[meta_key]))
+        if z is not None:
+            metrics["z_norm"] = float(torch.linalg.vector_norm(z))
         metrics.update(self._eval_diagnostics(meta, phys, obs))
         # physics stats in every eval dump
         agg = PhysicsAggregator(self.domain,
                                 features_fn=getattr(self._base_env(), "goal_features", None))
         agg.add_batch(phys.flatten(0, 1))
         metrics.update(dict(agg.dump()))
+        if self.cfg.save_eval_video:
+            self._record_eval_video(phys[0])
         self.eval_rewards_history.append(metrics["episode_reward"])
         with self.logger.log_and_dump_ctx(self.global_step, ty="eval") as log:
             for k, v in metrics.items():
@@ -323,7 +356,8 @@ class Workspace:
         """FB health diagnostics over the whole eval rollout set (z_correl,
         actor_success; gated by agent.cfg.additional_metric)."""
         agent = self.agent
-        if not (agent.cfg.additional_metric and "z" in meta):
+        if not (getattr(agent.cfg, "additional_metric", False)
+                and hasattr(agent, "compute_z_correl") and "z" in meta):
             return {}
         horizon = phys.shape[1]
         obs_flat = obs.flatten(0, 1)
@@ -364,7 +398,8 @@ class Workspace:
             return rewards
         if self.domain not in _FINAL_TASKS:
             return {}
-        if len(self.buffer) == 0 or "physics" not in self.buffer.state.storage:
+        if not (hasattr(self.agent, "infer_meta_from_obs_and_rewards")
+                and len(self.buffer) > 0 and "physics" in self.buffer.state.storage):
             return {}
         names = [name for name in _FINAL_TASKS[self.domain]
                  if name in locomotion.TASKS[self.domain]]
@@ -392,6 +427,7 @@ class Workspace:
         path.parent.mkdir(parents=True, exist_ok=True)
         agent_state = dict(self.agent.train_state())
         agent_state["generator"] = self.generator.get_state()
+        agent_state["collect_generator"] = self.collect_generator.get_state()
         ckpt_lib.save_checkpoint(path, {
             "agent": agent_state,
             "replay": self.buffer.state,
@@ -420,6 +456,8 @@ class Workspace:
         if "agent" in out:
             agent_state = dict(out["agent"])
             generator_state = agent_state.pop("generator")
+            # a checkpoint of an offline run written before the online loops has none
+            collect_state = agent_state.pop("collect_generator", None)
             self.agent.load_train_state(agent_state)
             if generator_state.numel() != self.generator.get_state().numel():
                 # a CPU generator's state and a CUDA generator's differ in
@@ -429,6 +467,8 @@ class Workspace:
                     f"another device type than {self.device.type}; load it with "
                     f"device= set to the type it was saved on")
             self.generator.set_state(generator_state)
+            if collect_state is not None:
+                self.collect_generator.set_state(collect_state)
         if "replay" in out:
             self.buffer.state = out["replay"]
         if only is None or "global_step" in (only or ()):
@@ -436,21 +476,32 @@ class Workspace:
             self.global_episode = out["global_episode"]
 
 
-class OfflineWorkspace(Workspace):
-    """Pure gradient-step training over a loaded buffer."""
-
-    def _log_train(self, steps: int, metrics: tp.Dict[str, Tensor]) -> None:
-        """One train row; converting the metrics waits for the device, so
-        the lap before it is taken after them."""
+    def _log_train(self, steps: int, metrics: tp.Mapping[str, tp.Any],
+                   **counters: float) -> None:
+        """One train row: fps over ``steps``, the time, the step, then
+        ``counters`` and ``metrics``. Converting device metrics waits for the
+        device, so the lap is taken after them."""
         values = {k: float(v) for k, v in metrics.items()}
         elapsed, total = self.timer.lap()
         with self.logger.log_and_dump_ctx(self.global_step, "train") as log:
             log("fps", steps / max(elapsed, 1e-9))
             log("total_time", total)
             log("step", self.global_step)
-            for k, v in values.items():
+            for k, v in {**counters, **values}.items():
                 log(k, v)
         self.last_row = log.row
+
+    def _evaluate_and_save(self, stride: int) -> None:
+        """Evaluation and checkpoint when their period was crossed by a loop
+        that advances ``stride`` steps at a time."""
+        if crossed(self.global_step, self.cfg.eval_every_steps, stride):
+            self.evaluate()
+        if crossed(self.global_step, self.cfg.checkpoint_every, stride):
+            self.save_checkpoint()
+
+
+class OfflineWorkspace(Workspace):
+    """Pure gradient-step training over a loaded buffer."""
 
     def train(self) -> tp.Dict[str, float]:
         """Runs updates up to ``num_grad_steps``, with train rows, snapshots,
@@ -476,12 +527,117 @@ class OfflineWorkspace(Workspace):
                 # queue up; this is the only host sync
                 self._log_train(steps_since_log, metrics)
                 steps_since_log = 0
-            if crossed(self.global_step, cfg.eval_every_steps, cfg.steps_per_call):
-                self.evaluate()
-            if crossed(self.global_step, cfg.checkpoint_every, cfg.steps_per_call):
-                self.save_checkpoint()
+            self._evaluate_and_save(cfg.steps_per_call)
         if steps_since_log:
             self._log_train(steps_since_log, metrics)
+        self.save_checkpoint()
+        self.finalize()
+        return self.last_row
+
+
+class OnlineWorkspace(Workspace):
+    """Online pretraining in episode-granular cycles (anytrain), vectorised
+    over ``num_envs`` environments: collect one episode per environment,
+    commit them, then run updates matched to the environment steps
+    (``1 / update_every_steps`` per step; none before ``num_seed_frames``).
+    One train row per cycle; evaluation, checkpoints and snapshots on the
+    steps each cycle crosses; a final checkpoint and ``finalize()``.
+    ``online_trainer.timings`` and ``cycle_timings`` hold the cycles' times
+    of collection and of commit and updates."""
+
+    def train(self) -> tp.Dict[str, float]:
+        cfg = self.cfg
+        updates_per_step = 1.0 / max(1, getattr(self.agent.cfg, "update_every_steps", 2))
+        trainer = OnlineTrainer(self.env, self.agent, self.buffer, num_envs=cfg.num_envs,
+                                goal_fn=self.goal_fn, updates_per_step=updates_per_step)
+        self.online_trainer = trainer
+        self.cycle_timings: tp.List[tp.Dict[str, float]] = []
+        trainer.global_step, trainer.global_episode = self.global_step, self.global_episode
+        steps_per_cycle = self.spec.episode_length * cfg.num_envs
+        self.timer.lap()
+        while frames_remaining(self.global_step, cfg.num_train_frames) > 0:
+            warmup = self.global_step < cfg.num_seed_frames
+            trainer.updates_per_step = 0.0 if warmup else updates_per_step
+            metrics = trainer.run_cycle(self.generator, self.collect_generator)
+            self.cycle_timings.append(dict(trainer.timings))
+            prev_step, self.global_step = self.global_step, trainer.global_step
+            self.global_episode = trainer.global_episode
+            self._maybe_snapshot(prev_step)
+            self._log_train(steps_per_cycle, metrics, episode=self.global_episode,
+                            buffer_size=len(self.buffer))
+            self._evaluate_and_save(steps_per_cycle)
+        self.save_checkpoint()
+        self.finalize()
+        return self.last_row
+
+
+class TrainOnlineWorkspace(Workspace):
+    """Online training in cycles of ``num_rollout_episodes`` episodes, then
+    ``num_agent_updates`` updates. ``rollout_task_z_ratio`` of each cycle's
+    episodes are directed: they hold a task z inferred from the replay
+    (refreshed every ``task_z_refresh_frames``; held random z's before the
+    seed frames) for the whole episode. ``update_replay_buffer=False``
+    trains on a frozen loaded buffer."""
+
+    def _collector(self, num_envs: int, hold_meta: bool) -> OnlineTrainer:
+        return OnlineTrainer(self.env, self.agent, self.buffer, num_envs=num_envs,
+                             goal_fn=self.goal_fn, updates_per_step=0.0, hold_meta=hold_meta)
+
+    def train(self) -> tp.Dict[str, float]:
+        cfg = self.cfg
+        horizon = self.spec.episode_length
+        n_task = int(round(cfg.rollout_task_z_ratio * cfg.num_rollout_episodes))
+        n_task = min(max(n_task, 0), cfg.num_rollout_episodes)
+        n_rand = cfg.num_rollout_episodes - n_task
+        collector = self._collector(n_rand, False) if n_rand else None
+        task_collector = self._collector(n_task, True) if n_task else None
+        task_names = ([t.strip() for t in cfg.rollout_task_z_tasks.split(",") if t.strip()]
+                      if cfg.rollout_task_z_tasks else [cfg.task])
+        task_zs: tp.Optional[Tensor] = None  # [len(task_names), z_dim]
+        last_refresh = -(10 ** 12)
+        meta_key = getattr(self.agent, "meta_key", "z")
+        trainer = make_offline_trainer(self.agent, self.buffer.cfg, self.agent.cfg.batch_size,
+                                       steps_per_call=cfg.num_agent_updates)
+        steps_per_cycle = horizon * cfg.num_rollout_episodes
+        self.timer.lap()
+        while frames_remaining(self.global_step, cfg.num_train_frames) > 0:
+            prev_step = self.global_step
+            metrics: tp.Dict[str, tp.Any] = {}
+            if cfg.update_replay_buffer:
+                if collector is not None:
+                    collector.global_step = self.global_step
+                    metrics.update(collector.run_cycle(self.generator, self.collect_generator))
+                    self.global_step += horizon * n_rand
+                    self.global_episode += n_rand
+                if task_collector is not None:
+                    can_infer = len(self.buffer) > 0 and self.global_step >= cfg.num_seed_frames
+                    task_meta = None
+                    if can_infer:
+                        if task_zs is None or \
+                                self.global_step - last_refresh >= cfg.task_z_refresh_frames:
+                            task_zs = torch.stack([
+                                self._infer_meta_from_replay(get_reward_function(t, cfg.seed))
+                                for t in task_names])
+                            last_refresh = self.global_step
+                        # as the JAX workspace: slot i always takes task i mod the
+                        # number of tasks, so a slot keeps its task every cycle
+                        task_meta = {meta_key: task_zs[[i % len(task_names)
+                                                        for i in range(n_task)]]}
+                    task_collector.global_step = self.global_step
+                    directed = task_collector.run_cycle(self.generator, self.collect_generator,
+                                                        meta=task_meta)
+                    if can_infer:
+                        metrics["task_episode_reward"] = directed["episode_reward"]
+                    metrics.setdefault("episode_reward", directed["episode_reward"])
+                    self.global_step += horizon * n_task
+                    self.global_episode += n_task
+            else:
+                self.global_step += steps_per_cycle
+            self._maybe_snapshot(prev_step)
+            if len(self.buffer) > 0:
+                metrics.update(trainer(self.buffer.state, self.generator))
+            self._log_train(steps_per_cycle, metrics, episode=self.global_episode)
+            self._evaluate_and_save(steps_per_cycle)
         self.save_checkpoint()
         self.finalize()
         return self.last_row

@@ -9,12 +9,11 @@ relabel their rewards for ``task`` from the stored physics
     python -m controllable_agent_torch.train_offline agent=fb_ddpg \\
         task=walker_walk replay_dir=/path/to/episodes \\
         agent.use_pallas_loss=true agent.compute_dtype=bfloat16 \\
-        num_grad_steps=100000 eval_every_steps=10000 final_tests=10 \\
-        save_eval_video=false
+        num_grad_steps=100000 eval_every_steps=10000 final_tests=10
 
     python -m controllable_agent_torch.train_offline agent=fb_ddpg \\
         task=walker_walk goal_space=walker_pos_speed_z \\
-        load_replay=exp_rnd/models/latest relabel=true save_eval_video=false
+        load_replay=exp_rnd/models/latest relabel=true
 
 ``physics_format=mujoco_walker`` (``_cheetah``, ``_hopper``) converts
 dm_control physics to the native layout and recomputes the observations
@@ -29,7 +28,9 @@ prints the task z chosen as evaluation chooses it (a registered goal, else
 z = rᵀB/N over the replay, spherical mean of ``z_inference_draws`` draws).
 ``load_model=`` warm-starts from a checkpoint of the port or of the JAX
 package (a folder with ``agent.msgpack``). ``device=cpu`` runs on the CPU;
-the default is the card. Videos are not ported: ``save_eval_video=false``.
+the default is the card. ``save_eval_video`` (on by default) writes the
+first episode of each evaluation to ``eval_video/<step>.png``; ``--help``
+lists every key.
 """
 
 from __future__ import annotations
@@ -43,7 +44,7 @@ import numpy as np
 
 from .data.exorl import load_exorl_episodes
 from .goals import get_reward_function
-from .pretrain import build_config
+from .pretrain import build_config, wants_help
 from .train import checkpoint as ckpt_lib
 from .train.workspace import OfflineWorkspace, make_env
 from .utils import resolve_device
@@ -51,10 +52,13 @@ from .utils import resolve_device
 Episode = tp.Dict[str, np.ndarray]
 
 
-def main(argv: tp.Optional[tp.Sequence[str]] = None) -> OfflineWorkspace:
+def main(argv: tp.Optional[tp.Sequence[str]] = None) -> tp.Optional[OfflineWorkspace]:
     """Runs the CLI; returns the trained workspace (with ``last_row`` and
-    ``inferred_z`` set) for callers that drive it from Python."""
+    ``inferred_z`` set) for callers that drive it from Python, None after
+    ``--help``."""
     argv = list(argv if argv is not None else sys.argv[1:])
+    if wants_help(argv, __doc__):
+        return None
     replay_dir: tp.Optional[str] = None
     load_replay: tp.Optional[str] = None
     relabel = True

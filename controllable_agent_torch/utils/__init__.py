@@ -1,4 +1,4 @@
 from .device import resolve_device
-from .steps import Stopwatch, crossed
+from .steps import Stopwatch, crossed, frames_remaining
 
-__all__ = ["Stopwatch", "crossed", "resolve_device"]
+__all__ = ["Stopwatch", "crossed", "frames_remaining", "resolve_device"]

@@ -21,6 +21,15 @@ def crossed(step: int, every: tp.Optional[int], stride: int = 1) -> bool:
     return step % every < stride
 
 
+def frames_remaining(step: int, budget: tp.Optional[int],
+                     action_repeat: int = 1) -> int:
+    """Agent steps still owed under a frame budget; ``budget=None`` is
+    unbounded (a large sentinel)."""
+    if budget is None:
+        return 1 << 62
+    return budget // action_repeat - step
+
+
 class Stopwatch:
     """Lap + total wall-clock timer (monotonic clock)."""
 

@@ -10,7 +10,9 @@ import numpy as np
 import pytest
 import torch
 
-from controllable_agent_torch.agents import FBDDPGAgent, FBDDPGConfig, UpdateNoise
+from controllable_agent_torch import pretrain
+from controllable_agent_torch.agents import (DDPGAgent, DDPGConfig, DDPGNoise, FBDDPGAgent,
+                                             FBDDPGConfig, RNDAgent, RNDConfig, UpdateNoise)
 from controllable_agent_torch.data import ReplayBuffer
 from controllable_agent_torch.data import replay as replay_lib
 from controllable_agent_torch.data.exorl import synthetic_episodes
@@ -20,8 +22,9 @@ from controllable_agent_torch.envs.wrappers import (ActionRepeatWrapper, FrameSt
 from controllable_agent_torch.goals import get_reward_function
 from controllable_agent_torch.ops import fused_fb as ff
 from controllable_agent_torch.tools import dynamics_check
-from controllable_agent_torch.train.loops import (WARMUP_RUNS, CapturedProgram, Rollout,
-                                                  make_offline_trainer)
+from controllable_agent_torch.train.loops import (WARMUP_RUNS, CapturedProgram,
+                                                  EpisodeCollector, OnlineTrainer, Rollout,
+                                                  init_meta_batched, make_offline_trainer)
 
 
 @pytest.fixture
@@ -355,3 +358,168 @@ def test_wrappers_on_the_card(cuda_device) -> None:
     assert torch.equal(ts.observation[:, :2 * inner.spec.obs_dim],
                        first.observation[:, inner.spec.obs_dim:])
     assert bool(torch.isfinite(ts.observation).all())
+
+
+ONLINE_SMALL = dict(hidden_dim=64, backward_hidden_dim=64, feature_dim=32, z_dim=16,
+                    batch_size=128)
+
+
+@pytest.mark.cuda
+def test_captured_collector_step_equals_the_eager_one(cuda_device) -> None:
+    """The collector as replays of one captured control step against the same
+    steps run eagerly, from the same states, meta and generator state, for
+    two cycles on either side of num_expl_steps and along a stddev schedule
+    that changes with the global step: equal to the bit. The meta is
+    resampled inside the episode (every 7 steps)."""
+    env = locomotion.make("walker_walk", 20)
+    cfg = FBDDPGConfig(**ONLINE_SMALL, compute_dtype="bfloat16", num_expl_steps=30,
+                       stddev_schedule="linear(1.0,0.1,100)", update_z_every_step=7)
+    agent = FBDDPGAgent(cfg, env.spec.obs_dim, env.spec.action_dim, device=cuda_device, seed=3)
+    gens = [torch.Generator(device=cuda_device).manual_seed(9) for _ in range(2)]
+    captured = EpisodeCollector(env, agent, 4, gens[0], goal_fn=lambda p: p[..., :2])
+    eager = EpisodeCollector(env, agent, 4, gens[1], goal_fn=lambda p: p[..., :2],
+                             capture=False)
+    for step in (0, 80):  # uniform exploration, then the policy at stddev 0.28
+        runs = []
+        for collector, gen in ((captured, gens[0]), (eager, gens[1])):
+            meta = init_meta_batched(agent, gen, 4)
+            state, ts = env.reset(gen, 4)
+            runs.append({k: v.clone() for k, v in collector(meta, state, ts, step).items()})
+        for name, want in runs[1].items():
+            assert torch.equal(runs[0][name], want), (step, name)
+        assert runs[0]["observation"].shape == (21, 4, env.spec.obs_dim)
+        assert not torch.equal(runs[0]["z"][1], runs[0]["z"][20])  # resampled at t=7, 14
+    assert torch.equal(gens[0].get_state(), gens[1].get_state())
+
+
+@pytest.mark.cuda
+def test_update_program_is_captured_once_across_commits(cuda_device) -> None:
+    """Three online cycles on the card: each commits its episodes into the
+    same storage on the device and the update program, captured at the
+    first update, serves them all; the fused kernels run once per update
+    plus the capture's warm-up runs."""
+    env = locomotion.make("walker_walk", 25)
+    cfg = FBDDPGConfig(**ONLINE_SMALL, use_pallas_loss=True)
+    agent = FBDDPGAgent(cfg, env.spec.obs_dim, env.spec.action_dim, device=cuda_device, seed=4)
+    buf = ReplayBuffer(16, discount=0.98, future=0.99, device=cuda_device)
+    trainer = OnlineTrainer(env, agent, buf, num_envs=4, updates_per_step=0.1,
+                            max_steps_per_call=4)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    collect_gen = torch.Generator(device=cuda_device).manual_seed(2)
+    ff.reset_launches()
+    storage = None
+    for cycle in range(3):
+        metrics = trainer.run_cycle(gen, collect_gen)
+        storage = storage or buf.state.storage["observation"].data_ptr()
+        assert buf.state.storage["observation"].data_ptr() == storage
+        assert len(buf) == 4 * (cycle + 1) and trainer.global_step == 100 * (cycle + 1)
+        assert np.isfinite(list(metrics.values())).all()
+    assert trainer.trainer.captures == 1 and agent.step == 30
+    assert ff.launches == {"fwd": 30 + WARMUP_RUNS, "bwd": 30 + WARMUP_RUNS}
+    assert ff.device_runs() == ff.launches
+
+
+@pytest.mark.cuda
+def test_two_graphs_on_one_generator_draw_as_eager_draws(cuda_device) -> None:
+    """Two captured programs registered with one generator (the two
+    collectors of a directed-rollout mix), replayed in turns: the numbers
+    equal eager draws in the same order, so no replay repeats another's."""
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    programs = [CapturedProgram(lambda n=n: torch.randn(n, 5, generator=gen, device=cuda_device),
+                                cuda_device, generators=[gen]) for n in (3, 7)]
+    got = []
+    for i in (0, 1, 1, 0, 1):
+        programs[i].replay()
+        got.append(programs[i].out.clone())
+    gen.manual_seed(6)
+    want = [torch.randn(n, 5, generator=gen, device=cuda_device) for n in (3, 7, 7, 3, 7)]
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert not torch.equal(got[1], got[2])
+
+
+@pytest.mark.cuda
+def test_a_captured_program_keeps_what_its_function_holds(cuda_device) -> None:
+    """A tensor that only the captured function's closure holds (as the
+    cheetah's zero action in ``settle``) lives as long as the program, so
+    tensors of its size allocated after the capture do not take its memory
+    and change what the replays read."""
+    held = torch.zeros(16, 6, device=cuda_device)
+
+    def build() -> CapturedProgram:
+        step = torch.full((16, 6), 2.0, device=cuda_device)
+        return CapturedProgram(lambda: held.add_(step), cuda_device, [held])
+
+    program = build()
+    for _ in range(10):
+        torch.full((16, 6), 7.0, device=cuda_device)  # freed at once, its block reused
+    program.replay(3)
+    torch.cuda.synchronize()
+    assert torch.equal(held, torch.full((16, 6), 6.0, device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_captured_cheetah_settle_equals_the_eager_one(cuda_device) -> None:
+    """The cheetah's 200 settling steps as replays of one captured step
+    against the same steps launched from the host: equal to the bit."""
+    env = locomotion.make("cheetah_run", 10)
+    u = torch.rand(16, env.spec.action_dim, device=cuda_device,
+                   generator=torch.Generator(device=cuda_device).manual_seed(0))
+    q = torch.cat([torch.tensor([0.0, env.init_z, 0.0], device=cuda_device).expand(16, 3),
+                   u * 0.5], -1)
+    qd = torch.zeros_like(q)
+    got = env.settle(q, qd)
+    want = env.settle(q, qd, capture=False)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert float((got[0] - q).abs().max()) > 1e-3  # it moved
+    again = env.settle(q, qd)  # the held program, replayed
+    assert all(torch.equal(a, b) for a, b in zip(again, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ddpg", "rnd"])
+def test_captured_ddpg_and_rnd_updates_equal_eager(cuda_device, name) -> None:
+    """Updates of DDPG (n-step batch) and of RND (its running statistics in
+    the train state) through a captured program and eagerly, from the same
+    state, batch and noise: equal to the bit."""
+    cfg_cls, agent_cls = {"ddpg": (DDPGConfig, DDPGAgent), "rnd": (RNDConfig, RNDAgent)}[name]
+    cfg = cfg_cls(hidden_dim=64, batch_size=128, compute_dtype="bfloat16",
+                  **({"rnd_rep_dim": 32} if name == "rnd" else {}))
+    agents = [agent_cls(cfg, 24, 6, device=cuda_device, seed=0) for _ in range(2)]
+    buf = ReplayBuffer(8, discount=0.98, future=0.99, device=cuda_device)
+    buf.load_episodes(synthetic_episodes(8, 50, 24, 6, seed=0))
+    buf.cfg = replay_lib.SampleConfig(discount=0.98, future=0.99, nstep=3)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    batch = buf.sample(gen, 128)
+    noise = DDPGNoise.draw(128, 6, gen, cuda_device)
+    program = CapturedProgram(lambda: agents[0]._update(batch, noise), cuda_device,
+                              agents[0].train_state().values())
+    program.replay(3)
+    for _ in range(3):
+        agents[1]._update(batch, noise)
+    torch.cuda.synchronize()
+    assert agents[0].step == agents[1].step == 3
+    for k, v in agents[1].train_state().items():
+        assert torch.equal(agents[0].train_state()[k], v), k
+
+
+@pytest.mark.cuda
+def test_a_resumed_online_run_equals_an_uninterrupted_one(cuda_device, tmp_path) -> None:
+    """Two cycles of online pretraining in one run, and one cycle, a
+    checkpoint and a second cycle in a fresh workspace on the folder: the
+    replay, both generators, the counters and the agent come back, so the
+    second cycle gives the same state to the bit."""
+    common = ["task=walker_walk", "episode_length=25", "num_envs=4", "num_seed_frames=100",
+              "eval_every_steps=0", "final_tests=0", "save_eval_video=false",
+              "use_console=false", "replay_buffer_episodes=16", "checkpoint_every=0",
+              *[f"agent.{k}={v}" for k, v in ONLINE_SMALL.items()]]
+    whole = pretrain.main([*common, "num_train_frames=200", f"folder={tmp_path}/a"])
+    pretrain.main([*common, "num_train_frames=100", f"folder={tmp_path}/b"])
+    resumed = pretrain.main([*common, "num_train_frames=200", f"folder={tmp_path}/b"])
+    assert resumed.global_step == whole.global_step == 200 and len(resumed.buffer) == 8
+    for k, v in whole.agent.train_state().items():
+        assert torch.equal(resumed.agent.train_state()[k], v), k
+    assert torch.equal(resumed.generator.get_state(), whole.generator.get_state())
+    assert torch.equal(resumed.collect_generator.get_state(),
+                       whole.collect_generator.get_state())
+    for k, v in whole.buffer.state.storage.items():
+        assert torch.equal(resumed.buffer.state.storage[k], v), k

@@ -260,7 +260,8 @@ def test_train_offline_cli(replay_dir, tmp_path, capsys, fused) -> None:
 
 
 @pytest.mark.parametrize("args,item", [
-    (["eval_every_steps=2", "save_eval_video=true"], "item 15"),
+    # videos are written; their sinks beyond the file (wandb, TensorBoard) are not ported
+    (["eval_every_steps=2", "save_eval_video=true", "use_wandb=true"], "item 15"),
     (["use_tb=true"], "item 15"),
     (["agent=sf"], "item 13"),
     (["task=quadruped_walk"], "item 12"),
