@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives ``controllable_agent_torch`` (and nothing of the JAX package) in thirteen
+Drives ``controllable_agent_torch`` (and nothing of the JAX package) in sixteen
 phases, each printed on its own line; any failure exits non-zero:
 
   1. build the CUDA kernels of ``controllable_agent_torch/csrc`` with nvcc;
@@ -74,7 +74,26 @@ phases, each printed on its own line; any failure exits non-zero:
      RND update, a captured collector step and two programs replayed in
      turns on one generator, each against its eager counterpart to the bit;
      the cheetah's reset with its settling steps captured against the same
-     steps launched from the host, in time and to the bit.
+     steps launched from the host, in time and to the bit;
+ 14. successor features at the JAX defaults (hidden 1024, feature 512,
+     backward hidden 512, z 100, batch 1024, float32): SF with each of its
+     thirteen feature learners, with ``q_loss=false``, ``boltzmann=true``
+     and ``mix_ratio=0.5``, and SF-SVD, each 100 updates through the
+     captured trainer and the same updates eagerly on a twin from the same
+     generator state (held to the bit, else to phase 7's tolerance); per
+     agent the updates/s both ways, the kernel launches and device time per
+     update under the profiler, the peak device memory, and how the update
+     is captured (``mix_ratio`` > 0: two graphs with the pseudo-inverse run
+     eagerly between them);
+ 15. SF (``lap``) and SF-SVD through ``train_offline.main`` at full width on
+     phase 4's episodes, relabeled, with two evaluations, ``finalize()`` into
+     ``test_rewards.json`` and a resumed run; ``pretrain.main agent=sf``
+     for a seed cycle and a training cycle, resumed for one more;
+ 16. the SF agents' inference on 5,120 replay samples, float32 on the card
+     against float64 on the CPU: SF's least squares with full rank and with
+     a rank-deficient φ, SF-SVD's on φ(s, a), and ``get_goal_meta`` after
+     ``precompute_cov``. The fused FB kernels are not on this path: their
+     launches over phases 14-16 must be 0.
 
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -96,13 +115,17 @@ import numpy as np
 import torch
 
 from controllable_agent_torch import _build, pretrain, train_offline, train_online
-from controllable_agent_torch.agents import (DDPGNoise, FBDDPGAgent, FBDDPGConfig, RNDAgent,
-                                             UpdateNoise)
+from controllable_agent_torch.agents import (FEATURE_LEARNERS, DDPGNoise, FBDDPGAgent,
+                                             FBDDPGConfig, RNDAgent, SFAgent, SFConfig,
+                                             SFSVDAgent, SFSVDConfig, UpdateNoise)
+from controllable_agent_torch.agents.sf import normalized_solution
 from controllable_agent_torch.data import ReplayBuffer
 from controllable_agent_torch.data import replay as replay_lib
 from controllable_agent_torch.data.exorl import save_exorl_episodes, synthetic_episodes
 from controllable_agent_torch.envs import locomotion
 from controllable_agent_torch.goals import get_reward_function
+from controllable_agent_torch.models.networks import l2_normalize
+from controllable_agent_torch.ops.linalg import lstsq, pinv
 from controllable_agent_torch.ops import fused_fb as ff
 from controllable_agent_torch.pretrain import build_workspace
 from controllable_agent_torch.train.workspace import OfflineWorkspace
@@ -141,6 +164,13 @@ ONLINE_EVAL_EVERY = 8000  # crossed at 8,000 and 16,000 steps
 DIRECTED_CYCLES, DIRECTED_UPDATES = 3, 50  # phase 13's train_online run
 RND_CYCLES = 3  # phase 13: a seed cycle, then two of 2,000 updates
 CHEETAH_RESETS = 10  # environments of phase 13's cheetah reset, an evaluation's
+SF_UPDATES, SF_FIRST = 100, 10  # phase 14: updates per agent, in calls of 10 then 90
+SF_PROFILED = 5  # phase 14: updates under the profiler per agent (the launch count)
+# phase 14's variants beyond the thirteen learners at their defaults
+SF_VARIANTS = (("lap", "q_loss", False), ("icm", "boltzmann", True), ("svd_sr", "mix_ratio", 0.5))
+SF_RESUMED_STEPS = 100  # phase 15: updates of the resumed offline runs
+INFERENCE_SAMPLES = 5120  # phase 16: the agents' num_inference_steps
+F32_EPS = float(torch.finfo(torch.float32).eps)
 HBM_BYTES_PER_S = 3.35e12
 FWD_RTOL = 2e-4  # as tests/test_pallas_fb.py: order of f32 sums over n^2
 GRAD_RTOL = 1e-4  # of the largest entry: f32 accumulation order only
@@ -1010,6 +1040,261 @@ def check_online_paths(tmp: str, fb_agent: tp.Any) -> None:
         raise AssertionError("captured and eager settling steps disagree")
 
 
+def _sf_configs() -> tp.List[tp.Tuple[str, type, tp.Any]]:
+    """Phase 14's agents: SF with each learner at the JAX defaults, the
+    variants, and SF-SVD."""
+    configs = [(f"sf {name}", SFAgent, SFConfig(feature_learner=name))
+               for name in sorted(FEATURE_LEARNERS)]
+    configs += [(f"sf {name} {key}={value}", SFAgent,
+                 SFConfig(feature_learner=name, **{key: value}))
+                for name, key, value in SF_VARIANTS]
+    return configs + [("sf_svd", SFSVDAgent, SFSVDConfig())]
+
+
+def check_sf_agent(label: str, agent_cls: type, cfg: tp.Any, buf: tp.Any,
+                   fb_rate: float, card: str) -> tp.Dict[str, tp.Any]:
+    """One agent of phase 14: SF_UPDATES updates through the captured
+    trainer and the same updates eagerly on a twin from the same generator
+    state; then the profiler over SF_PROFILED more replays."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    results = []
+    for capture in (True, False):
+        agent = agent_cls(cfg, OBS_DIM, ACTION_DIM, device="cuda", seed=SEED)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+        trainer = make_offline_trainer(agent, buf.cfg, cfg.batch_size, SF_UPDATES,
+                                       capture=capture)
+        trainer(buf.state, gen, steps=SF_FIRST)  # captures, or warms the eager loop up
+        torch.cuda.synchronize()
+        metrics, seconds = _timed(lambda: trainer(buf.state, gen, steps=SF_UPDATES - SF_FIRST))
+        if capture:
+            peak = torch.cuda.max_memory_allocated() - held
+        results.append((agent, gen, trainer, {k: v.clone() for k, v in metrics.items()},
+                        (SF_UPDATES - SF_FIRST) / seconds))
+    (agent, gen, trainer, metrics, rate), (twin, twin_gen, _, twin_metrics, eager_rate) = results
+    got, want = agent.train_state(), twin.train_state()
+    bitwise = all(torch.equal(got[k], v) for k, v in want.items()) \
+        and all(torch.equal(metrics[k], v) for k, v in twin_metrics.items()) \
+        and torch.equal(gen.get_state(), twin_gen.get_state())
+    worst = {"parameters and targets": 0.0, "Adam moments": 0.0}
+    for name, b in want.items():
+        diff = float((got[name].float() - b.float()).abs().max())
+        if "_opt." in name and not name.endswith("count"):
+            worst["Adam moments"] = max(worst["Adam moments"],
+                                        diff / max(float(b.float().abs().max()), 1e-30))
+        else:
+            worst["parameters and targets"] = max(worst["parameters and targets"], diff)
+    tol = 2 * cfg.lr * SF_UPDATES
+    program = trainer._program
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        trainer(buf.state, gen, steps=SF_PROFILED)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    launches = len(kernels) / SF_PROFILED
+    busy_ms = 1e-3 * sum(e.time_range.elapsed_us() for e in kernels) / SF_PROFILED
+    # the matrix products by their cuBLAS/CUTLASS names, against the rest
+    products = [e for e in kernels if "gemm" in e.name.lower() or "cutlass" in e.name.lower()]
+    products_ms = 1e-3 * sum(e.time_range.elapsed_us() for e in products) / SF_PROFILED
+    row = {k: float(v) for k, v in metrics.items()}  # means over the timed call
+    how = (f"{len(program.graphs)} captured graphs with the pseudo-inverse (torch.linalg.pinv, "
+           f"an SVD checked on the host) run eagerly between them" if len(program.graphs) > 1
+           else "one captured graph")
+    print(f"phase 14 {label}: captured {rate:.1f} updates/s, eager {eager_rate:.1f} "
+          f"({rate / eager_rate:.2f}x), FB's captured trainer in phase 4 {fb_rate:.1f}; update as "
+          f"{how}; {launches:.1f} kernel launches and {busy_ms:.4f} ms of device time per update, "
+          f"{len(products) / SF_PROFILED:.1f} of them matrix products taking {products_ms:.4f} ms "
+          f"(profiler, {SF_PROFILED} updates); peak device memory {peak / 2**20:.1f} MiB above "
+          f"the {held / 2**20:.1f} held; captured vs eager after {SF_UPDATES} updates: equal to "
+          f"the bit {bitwise}, max abs diff of parameters and targets "
+          f"{worst['parameters and targets']:.3e} (tolerance {tol:.1e}), of Adam moments "
+          f"{worst['Adam moments']:.3e} of their largest entry (tolerance 1e-3); sf_loss "
+          f"{row['sf_loss']:.4f}" + (f", phi_loss {row['phi_loss']:.4f}" if "phi_loss" in row
+                                     else "") + f", actor_loss {row['actor_loss']:.4f}; on {card}")
+    if not all(math.isfinite(v) for v in row.values()) or agent.step != SF_UPDATES + SF_PROFILED \
+            or twin.step != SF_UPDATES or (not bitwise and (
+                worst["parameters and targets"] > tol or worst["Adam moments"] > 1e-3)):
+        raise AssertionError(f"{label}: captured and eager updates disagree or are not finite")
+    return {"label": label, "captured": rate, "eager": eager_rate, "launches": launches,
+            "products_ms": products_ms, "busy_ms": busy_ms,
+            "graphs": len(program.graphs), "peak_mib": peak / 2**20, "bitwise": bitwise}
+
+
+def check_sf_learners(episodes: tp.List[tp.Dict[str, np.ndarray]],
+                      fb_rate: float) -> tp.List[tp.Dict[str, tp.Any]]:
+    """Phase 14: every SF learner, three variants and SF-SVD at the JAX
+    defaults (hidden 1024, feature 512, backward hidden 512, z 100, batch
+    1024, float32) on walker-shaped episodes."""
+    card = card_name_and_power_limit()
+    buf = ReplayBuffer(EPISODES, discount=0.98, future=0.99, device="cuda")
+    buf.load_episodes(episodes)
+    out = []
+    for label, agent_cls, cfg in _sf_configs():
+        out.append(check_sf_agent(label, agent_cls, cfg, buf, fb_rate, card))
+        gc.collect()
+        torch.cuda.empty_cache()
+    rates = [r["captured"] for r in out]
+    print(f"phase 14 summary: {len(out)} agents at full width in float32, captured "
+          f"{min(rates):.1f}-{max(rates):.1f} updates/s (FB in bf16 with the fused loss: "
+          f"{fb_rate:.1f}); equal to the bit: "
+          + ", ".join(f"{r['label']} {r['bitwise']}" for r in out) + f"; on {card}")
+    return out
+
+
+def sf_offline_args(folder: str, episodes_dir: str, steps: int, *agent: str) -> tp.List[str]:
+    """Phase 15's offline command line: phase 4's, for an SF agent."""
+    return [f"replay_dir={episodes_dir}", "task=walker_walk", "relabel=true", *agent,
+            f"num_grad_steps={steps}", f"steps_per_call={STEPS_PER_CALL}",
+            f"log_every_steps={STEPS_PER_CALL}", f"eval_every_steps={EVAL_EVERY}",
+            f"num_eval_episodes={EVAL_EPISODES}", "checkpoint_every=0",
+            f"final_tests={FINAL_TESTS}", "save_eval_video=false",
+            f"replay_buffer_episodes={EPISODES}", f"folder={folder}", f"seed={SEED}"]
+
+
+def run_sf_entry_points(tmp: str) -> tp.Dict[str, tp.Any]:
+    """Phase 15: ``train_offline.main`` for SF (lap) and SF-SVD at full
+    width, each resumed, and ``pretrain.main agent=sf``, resumed."""
+    card = card_name_and_power_limit()
+    out = {}
+    for name, agent in (("sf", ("agent=sf", "agent.feature_learner=lap")),
+                        ("sf_svd", ("agent=sf_svd",))):
+        folder = f"{tmp}/{name}"
+        torch.cuda.reset_peak_memory_stats()
+        ws, wall = _timed(lambda: train_offline.main(sf_offline_args(
+            folder, f"{tmp}/episodes", SLICE_STEPS, *agent)))
+        peak = torch.cuda.max_memory_allocated()
+        row, z = ws.last_row, ws.inferred_z
+        evals = read_csv(ws.work_dir / "eval.csv")
+        returns = [float(r["episode_reward"]) for r in evals]
+        written = check_test_rewards(ws)
+        print(f"phase 15 train_offline {' '.join(agent)}: {ws.global_step} updates in {wall:.1f} s "
+              f"(load, relabel, capture, two evaluations, finalize() and the checkpoint included), "
+              f"{row['fps']:.1f} updates/s over the last {STEPS_PER_CALL} (captured); sf_loss "
+              f"{row['sf_loss']:.4f}, phi_loss {row['phi_loss']:.4f}, actor_loss "
+              f"{row['actor_loss']:.4f}; evaluations at steps "
+              f"{[int(float(r['step'])) for r in evals]} episode_reward "
+              + ", ".join(f"{r:.2f}" for r in returns) + "; test_rewards.json mean returns "
+              + ", ".join(f"{t} {np.mean(written[t]):.2f}" for t in WALKER_TASKS)
+              + f"; inferred z norm {float(z.norm()):.4f}; peak device memory "
+              f"{peak / 2**20:.1f} MiB; on {card}")
+        if ws.global_step != SLICE_STEPS or ws.agent.step != SLICE_STEPS \
+                or not all(math.isfinite(v) for v in row.values()) \
+                or [int(float(r["step"])) for r in evals] != list(
+                    range(EVAL_EVERY, SLICE_STEPS + 1, EVAL_EVERY)) \
+                or not all(math.isfinite(r) and 0.0 <= r <= ws.spec.episode_length
+                           for r in returns) \
+                or abs(float(z.norm()) - math.sqrt(ws.agent.cfg.z_dim)) > 1e-3:
+            raise AssertionError(f"bad {name} offline run: {row}, {evals}, {z}")
+        more = SLICE_STEPS + SF_RESUMED_STEPS
+        resumed, wall = _timed(lambda: train_offline.main(
+            [a for a in sf_offline_args(folder, f"{tmp}/episodes", more, *agent)
+             if not a.startswith(("final_tests=", "eval_every_steps="))]
+            + ["final_tests=0", "eval_every_steps=0"]))
+        print(f"phase 15 train_offline {' '.join(agent)} resumed: a fresh run on the folder "
+              f"continued from step {SLICE_STEPS} to {resumed.global_step} (agent step "
+              f"{resumed.agent.step}) in {wall:.1f} s")
+        if resumed.global_step != more or resumed.agent.step != more:
+            raise AssertionError(f"the resumed {name} run did not continue the saved one")
+        out[name] = resumed
+        del ws
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    folder = f"{tmp}/sf_online"
+    args = ["task=walker_walk", "agent=sf", "agent.feature_learner=lap",
+            f"num_envs={ONLINE_ENVS}", f"num_seed_frames={CYCLE_STEPS}",
+            f"eval_every_steps={2 * CYCLE_STEPS}", f"num_eval_episodes={EVAL_EPISODES}",
+            "save_eval_video=false", f"folder={folder}", f"seed={SEED}"]
+    ws, wall = _timed(lambda: pretrain.main(args + [f"num_train_frames={2 * CYCLE_STEPS}",
+                                                    f"final_tests={FINAL_TESTS}"]))
+    report_cycles(ws, "phase 15 sf pretrain")
+    written = check_test_rewards(ws)
+    evals = read_csv(ws.work_dir / "eval.csv")
+    print(f"phase 15 pretrain agent=sf: a seed cycle and a training cycle in {wall:.1f} s, agent "
+          f"step {ws.agent.step}, update captured {ws.online_trainer.trainer.captures} time(s); "
+          f"evaluation episode_reward {float(evals[-1]['episode_reward']):.2f}; "
+          f"test_rewards.json mean returns "
+          + ", ".join(f"{t} {np.mean(written[t]):.2f}" for t in WALKER_TASKS) + f"; on {card}")
+    if ws.agent.step != CYCLE_STEPS // 2 or ws.online_trainer.trainer.captures != 1 \
+            or len(evals) != 1 or not all(math.isfinite(v) for v in ws.last_row.values()):
+        raise AssertionError(f"bad sf pretrain run: {ws.last_row}, {evals}")
+    del ws
+    resumed, wall = _timed(lambda: pretrain.main(args + [f"num_train_frames={3 * CYCLE_STEPS}",
+                                                         "final_tests=0"]))
+    report_cycles(resumed, "phase 15 sf pretrain resumed")
+    print(f"phase 15 pretrain agent=sf resumed: step {2 * CYCLE_STEPS} -> {resumed.global_step}, "
+          f"agent step {resumed.agent.step}, buffer {len(resumed.buffer)} episodes, in {wall:.1f} s")
+    if resumed.global_step != 3 * CYCLE_STEPS or resumed.agent.step != CYCLE_STEPS \
+            or len(resumed.buffer) != 3 * ONLINE_ENVS:
+        raise AssertionError("the resumed sf pretrain run did not continue the saved one")
+    return out
+
+
+def _held_to_float64(what: str, got: torch.Tensor, want: torch.Tensor,
+                     tol: float, detail: str) -> None:
+    err = float((got.double().cpu() - want).norm() / want.norm())
+    ok = err <= tol
+    print(f"phase 16 {what}: relative error {err:.3e} against float64 on the CPU, tolerance "
+          f"{tol:.3e} ({detail}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what} on the card disagrees with float64 on the CPU")
+
+
+def check_lstsq(what: str, phi: torch.Tensor, reward: torch.Tensor) -> None:
+    """z = lstsq(φ, r) normalized, float32 on the card against float64 on
+    the CPU with the float32 cutoff. Tolerance 50 eps (κ + κ² tan θ), the
+    perturbation bound of least squares: κ the condition number over the
+    kept singular values, θ the angle between r and the range of φ."""
+    z_dim = phi.shape[1]
+    a, b = phi.double().cpu(), reward.reshape(-1, 1).double().cpu()
+    rcond = F32_EPS * max(a.shape)
+    x = lstsq(a, b, rcond=rcond)
+    s = torch.linalg.svdvals(a)
+    kept = s[s >= rcond * s[0]]
+    kappa = float(kept[0] / kept[-1])
+    fit = a @ x
+    tan = float((b - fit).norm() / fit.norm())
+    want = math.sqrt(z_dim) * x[:, 0] / x.norm()
+    got = normalized_solution(phi, reward, z_dim)
+    _held_to_float64(what, got, want, 50 * F32_EPS * (kappa + kappa ** 2 * tan),
+                     f"{a.shape[0]} samples x {z_dim} features, rank {len(kept)}, "
+                     f"condition number {kappa:.1f}, tan theta {tan:.3f}")
+
+
+def check_sf_inference(sf_ws: tp.Any, svd_ws: tp.Any) -> None:
+    """Phase 16: the inference of phase 15's agents on INFERENCE_SAMPLES of
+    their replay, float32 on the card against float64 on the CPU."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    batch = sf_ws.buffer.sample(gen, INFERENCE_SAMPLES)
+    phi = sf_ws.agent.features(batch.next_obs)
+    check_lstsq("sf lstsq, full rank", phi, batch.reward)
+    deficient = phi.clone()
+    deficient[:, 1] = 0.0
+    deficient[:, 2] = deficient[:, 3]
+    check_lstsq("sf lstsq, rank-deficient (a dead and a duplicated feature)", deficient,
+                batch.reward)
+    check_lstsq("sf_svd lstsq of phi(s, a)", svd_ws.agent.features(batch.next_obs, batch.action),
+                batch.reward)
+
+    agent = sf_ws.agent
+    agent.precompute_cov(batch.next_obs)
+    phi64 = phi.double().cpu()
+    cov = phi64.T @ phi64 / phi64.shape[0]
+    rtol = 10 * cov.shape[0] * F32_EPS
+    want_inv = pinv(cov, rtol=rtol)
+    s = torch.linalg.svdvals(cov)
+    kappa = float(s[0] / s[s > rtol * s[0]][-1])
+    tol = 50 * F32_EPS * kappa
+    detail = f"covariance of {phi64.shape[0]} x {phi64.shape[1]} features, condition number {kappa:.1f}"
+    _held_to_float64("precompute_cov: the pinv of the phi covariance", agent.inv_cov, want_inv,
+                     tol, detail)
+    goal = batch.next_obs[7]
+    want = l2_normalize(phi64[7:8] @ want_inv)[0]
+    _held_to_float64("get_goal_meta after precompute_cov", agent.get_goal_meta(goal), want, tol,
+                     detail)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1034,6 +1319,7 @@ def main() -> int:
     check_update(synthetic_episodes(EPISODES, EPISODE_LENGTH, OBS_DIM, ACTION_DIM, SEED))
     with tempfile.TemporaryDirectory() as tmp:
         counts, ws = run_slice(tmp)
+        fb_rate = ws.last_row["fps"]
         rows = time_kernels(errors, counts)
         profile_slice(ws)
         check_capture(ws)
@@ -1052,8 +1338,23 @@ def main() -> int:
             row["launches"] = online_counts[row["wrapper"]]
             row["launches_by_path"]["pretrain (phase 12)"] = online_counts[row["wrapper"]]
         check_online_paths(tmp, online_ws.agent)
+        del online_ws
+        gc.collect()
+        torch.cuda.empty_cache()
 
-    print(f"total: {time.perf_counter() - started:.1f} s for phases 1-13, the build included")
+        # this slice's path, SF and SF-SVD: none of the fused kernels is on it
+        ff.reset_launches()
+        check_sf_learners(synthetic_episodes(EPISODES, EPISODE_LENGTH, OBS_DIM, ACTION_DIM,
+                                             SEED), fb_rate)
+        sf_runs = run_sf_entry_points(tmp)
+        check_sf_inference(sf_runs["sf"], sf_runs["sf_svd"])
+        sf_counts = dict(ff.launches)
+        if any(sf_counts.values()) or any(ff.device_runs().values()):
+            raise AssertionError(f"the SF path launched fused FB kernels: {sf_counts}")
+        for row in rows:
+            row["launches_by_path"]["sf, sf_svd (phases 14-16)"] = sf_counts[row["wrapper"]]
+
+    print(f"total: {time.perf_counter() - started:.1f} s for phases 1-16, the build included")
     print(json.dumps({"kernels": rows}))
     print(f"card: {card_name_and_power_limit()}")
     print(json.dumps({"ok": True, "device": {

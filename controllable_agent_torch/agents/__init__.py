@@ -8,16 +8,20 @@ import typing as tp
 from .ddpg import DDPGAgent, DDPGConfig, DDPGNoise
 from .exploration import IntrinsicDDPGAgent, RNDAgent, RNDConfig
 from .fb_ddpg import FBDDPGAgent, FBDDPGConfig, UpdateNoise
+from .sf import FEATURE_LEARNERS, SFAgent, SFConfig, SFNoise
+from .sf_svd import SFSVDAgent, SFSVDConfig
 
 AGENTS: tp.Dict[str, tp.Tuple[type, type]] = {
     "fb_ddpg": (FBDDPGConfig, FBDDPGAgent),
     "ddpg": (DDPGConfig, DDPGAgent),
     "rnd": (RNDConfig, RNDAgent),
+    "sf": (SFConfig, SFAgent),
+    "sf_svd": (SFSVDConfig, SFSVDAgent),
 }
 
 # the JAX registry's other names: their agents are ROADMAP Queue A item 13
 NOT_PORTED = ("aps", "new_aps", "diayn", "icm", "icm_apt", "disagreement", "max_ent",
-              "smm", "proto", "uvf", "sf", "sf_svd", "goal_td3", "goal_sm",
+              "smm", "proto", "uvf", "goal_td3", "goal_sm",
               "discrete_fb", "discrete_sf")
 
 
@@ -35,5 +39,6 @@ def agent_classes(name: str) -> tp.Tuple[type, type]:
 
 
 __all__ = ["AGENTS", "DDPGAgent", "DDPGConfig", "DDPGNoise", "FBDDPGAgent",
-           "FBDDPGConfig", "IntrinsicDDPGAgent", "NOT_PORTED", "RNDAgent", "RNDConfig",
+           "FBDDPGConfig", "FEATURE_LEARNERS", "IntrinsicDDPGAgent", "NOT_PORTED", "RNDAgent",
+           "RNDConfig", "SFAgent", "SFConfig", "SFNoise", "SFSVDAgent", "SFSVDConfig",
            "UpdateNoise", "agent_classes"]

@@ -122,14 +122,21 @@ class ZMetaMixin:
 
     def infer_meta(self, buffer: tp.Any, generator: torch.Generator) -> MetaDict:
         """Task inference from a replay buffer's STORED rewards: sample
-        num_inference_steps transitions and regress z on them; agents
-        without a regression API fall back to a random task vector."""
+        num_inference_steps transitions and regress z on them, on (next
+        state, action) for an agent with the action-conditioned API (SF-SVD)
+        and on the next state otherwise; agents without a regression API
+        fall back to a random task vector."""
         cfg = self.cfg  # type: ignore[attr-defined]
-        if not hasattr(self, "infer_meta_from_obs_and_rewards") or len(buffer) == 0:
+        has_sa = hasattr(self, "infer_meta_from_obs_action_and_rewards")
+        if not (has_sa or hasattr(self, "infer_meta_from_obs_and_rewards")) or len(buffer) == 0:
             return self.init_meta(generator)  # type: ignore[attr-defined]
         batch = buffer.sample(generator, getattr(cfg, "num_inference_steps", 5120))
         obs = (batch.next_goal
                if (getattr(cfg, "goal_space", None) is not None
                    and batch.next_goal is not None) else batch.next_obs)
-        z = self.infer_meta_from_obs_and_rewards(obs, batch.reward)
+        if has_sa:  # the SVD family regresses on (state, action)
+            z = self.infer_meta_from_obs_action_and_rewards(  # type: ignore[attr-defined]
+                obs, batch.action, batch.reward)
+        else:
+            z = self.infer_meta_from_obs_and_rewards(obs, batch.reward)  # type: ignore[attr-defined]
         return {self.meta_key: z}

@@ -12,8 +12,11 @@ counter and the three Adam states (optax ``ScaleByAdamState`` mu, nu,
 count). A ``DDPGTrainState`` (``agents/ddpg.py:99``) loads into a
 ``DDPGAgent`` the same way, and an ``IntrinsicTrainState``
 (``agents/exploration.py:48``: the DDPG state, the module, its Adam state
-and the running statistics) into an ``IntrinsicDDPGAgent`` such as RND;
-``load_train_state`` picks by the agent's class. This module reads those
+and the running statistics) into an ``IntrinsicDDPGAgent`` such as RND, an
+``SFTrainState`` (``agents/sf.py:326``: the networks, the φ learner's tree
+with its target subtrees, three Adam states and ``inv_cov``) into an
+``SFAgent``, and an ``SFSVDTrainState`` (``agents/sf_svd.py:92``) into an
+``SFSVDAgent``; ``load_train_state`` picks by the agent's class. This module reads those
 objects by attribute, or by key when the
 state is the nested dict of a decoded checkpoint
 (``train/jax_checkpoint.py``: fields by name, tuples by position), and
@@ -31,6 +34,8 @@ import torch
 from .agents.ddpg import DDPGAgent
 from .agents.exploration import IntrinsicDDPGAgent
 from .agents.fb_ddpg import FBDDPGAgent
+from .agents.sf import SFAgent
+from .agents.sf_svd import SFSVDAgent
 from .optim import Adam
 
 
@@ -75,10 +80,17 @@ def _tensor(x: tp.Any) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.float32))
 
 
-def _load_adam(opt: Adam, opt_state: tp.Any) -> None:
+def _load_adam(opt: Adam, opt_state: tp.Any, skip: tp.Sequence[str] = ()) -> None:
+    """optax's ``ScaleByAdamState`` into ``opt``; moments of parameters
+    under the submodules ``skip`` are dropped (the JAX φ learners keep their
+    target networks in the optimized tree, where their moments stay 0; the
+    port's Adam leaves them out)."""
     parts = opt_state.values() if isinstance(opt_state, dict) else opt_state
     adam = next(s for s in parts if hasattr(s, "mu") or (isinstance(s, dict) and "mu" in s))
-    mu, nu = flax_to_state_dict(_get(adam, "mu")), flax_to_state_dict(_get(adam, "nu"))
+    mu, nu = (
+        {k: v for k, v in flax_to_state_dict(_get(adam, key)).items()
+         if not any(k.startswith(f"{prefix}.") for prefix in skip)}
+        for key in ("mu", "nu"))
     if set(mu) != set(opt.params) or set(nu) != set(opt.params):
         raise ValueError(f"Adam state names {sorted(mu)} do not match the "
                          f"parameters {sorted(opt.params)}")
@@ -134,9 +146,43 @@ def load_intrinsic_train_state(agent: IntrinsicDDPGAgent, state: tp.Any) -> None
             getattr(agent, f"rms_{name}").copy_(_tensor(_get(rms, name)))
 
 
+def load_sf_train_state(agent: SFAgent, state: tp.Any) -> None:
+    """Load a JAX ``SFTrainState``, or its decoded dict, into ``agent`` (in
+    place)."""
+    for module, name in ((agent.actor, "actor_params"), (agent.successor_net, "sf_params"),
+                         (agent.target_successor_net, "target_sf_params"),
+                         (agent.feature_learner, "feature_params")):
+        module.load_state_dict(flax_to_state_dict(_get(state, name)))
+    agent.step = int(np.asarray(_get(state, "step")))
+    _load_adam(agent.actor_opt, _get(state, "actor_opt_state"))
+    _load_adam(agent.sf_opt, _get(state, "sf_opt_state"))
+    if agent.phi_opt is not None:
+        targets = [target for _, target in type(agent.feature_learner).TARGET_PAIRS]
+        _load_adam(agent.phi_opt, _get(state, "phi_opt_state"), skip=targets)
+    with torch.no_grad():
+        agent.inv_cov.copy_(_tensor(_get(state, "inv_cov")))
+
+
+def load_sf_svd_train_state(agent: SFSVDAgent, state: tp.Any) -> None:
+    """Load a JAX ``SFSVDTrainState``, or its decoded dict, into ``agent``
+    (in place)."""
+    for module, name in ((agent.actor, "actor_params"), (agent.successor_net, "sf_params"),
+                         (agent.target_successor_net, "target_sf_params"),
+                         (agent.svd, "svd_params")):
+        module.load_state_dict(flax_to_state_dict(_get(state, name)))
+    agent.step = int(np.asarray(_get(state, "step")))
+    _load_adam(agent.actor_opt, _get(state, "actor_opt_state"))
+    _load_adam(agent.sf_opt, _get(state, "sf_opt_state"))
+    _load_adam(agent.svd_opt, _get(state, "svd_opt_state"))
+
+
 def load_train_state(agent: tp.Any, state: tp.Any) -> None:
     """Load the JAX train state of ``agent``'s kind into it."""
-    if isinstance(agent, FBDDPGAgent):
+    if isinstance(agent, SFAgent):
+        load_sf_train_state(agent, state)
+    elif isinstance(agent, SFSVDAgent):
+        load_sf_svd_train_state(agent, state)
+    elif isinstance(agent, FBDDPGAgent):
         load_fb_train_state(agent, state)
     elif isinstance(agent, IntrinsicDDPGAgent):
         load_intrinsic_train_state(agent, state)

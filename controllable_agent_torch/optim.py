@@ -31,11 +31,15 @@ from torch import nn
 
 
 class Adam:
-    def __init__(self, module: nn.Module, lr: float,
+    """Adam over a module's parameters, or over named parameters (a
+    feature learner's, its target networks left out)."""
+
+    def __init__(self, module: tp.Union[nn.Module, tp.Mapping[str, nn.Parameter]], lr: float,
                  mu_dtype: torch.dtype = torch.float32, b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-8) -> None:
         self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
-        self.params: tp.Dict[str, nn.Parameter] = dict(module.named_parameters())
+        self.params: tp.Dict[str, nn.Parameter] = dict(
+            module.named_parameters() if isinstance(module, nn.Module) else module)
         self.mu = {k: torch.zeros_like(p, dtype=mu_dtype) for k, p in self.params.items()}
         self.nu = {k: torch.zeros_like(p) for k, p in self.params.items()}
         device = next(iter(self.params.values())).device

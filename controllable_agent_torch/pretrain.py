@@ -5,7 +5,9 @@ the port's other entry points share.
     python -m controllable_agent_torch.pretrain agent=fb_ddpg task=walker_walk \
         agent.use_pallas_loss=true agent.compute_dtype=bfloat16 num_train_frames=100000
 
-``agent=NAME`` selects the agent (fb_ddpg, ddpg, rnd); ``agent.*`` keys
+``agent=NAME`` selects the agent (fb_ddpg, ddpg, rnd, sf, sf_svd;
+``agent=sf`` takes one of thirteen φ learners as ``agent.feature_learner``,
+an unknown one raising ``ValueError`` with the known list); ``agent.*`` keys
 override the agent config; every other ``key=value`` overrides the workspace
 config; ``--help`` lists them all. The run (``OnlineWorkspace``) collects
 ``num_envs`` episodes at a time and trains on them as it goes, writing
@@ -14,7 +16,8 @@ end, ``test_rewards.json`` into ``folder``; the same command again resumes
 from that checkpoint. ``device=cpu`` runs on the CPU; the default is the
 card. Still raising ``NotImplementedError`` with their ROADMAP item: pixels
 and the quadruped, jaco, grid and d4rl tasks (12), the agents other than
-fb_ddpg, ddpg and rnd (13), ``use_tb``, ``use_wandb`` and ``profile_dir`` (15).
+fb_ddpg, ddpg, rnd, sf and sf_svd (13), ``use_tb``, ``use_wandb`` and
+``profile_dir`` (15).
 """
 
 from __future__ import annotations
@@ -83,7 +86,7 @@ def build_config(argv: tp.Sequence[str]
 def print_help(doc: tp.Optional[str]) -> None:
     """``--help``: the entry point's usage, then every workspace field and
     every ported agent's fields, with their defaults."""
-    from .agents import AGENTS
+    from .agents import AGENTS, FEATURE_LEARNERS
     print(doc or "")
     print("workspace config (key=value):")
     for f in dataclasses.fields(WorkspaceConfig):
@@ -92,6 +95,7 @@ def print_help(doc: tp.Optional[str]) -> None:
     for name, (cfg_cls, _) in sorted(AGENTS.items()):
         fields = ", ".join(f.name for f in dataclasses.fields(cfg_cls) if f.name != "name")
         print(f"  {name}: {fields}")
+    print(f"\nagent.feature_learner of sf: {', '.join(sorted(FEATURE_LEARNERS))}")
 
 
 def wants_help(argv: tp.Sequence[str], doc: tp.Optional[str]) -> bool:

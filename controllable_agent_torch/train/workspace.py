@@ -16,7 +16,8 @@ the device; the collector draws from a generator of its own
 Parts of the JAX workspace that are not ported raise ``NotImplementedError``
 naming the ROADMAP item that ports them, whenever a config would make them
 fire: TensorBoard/wandb and profiles (item 15), the agents other than
-fb_ddpg, ddpg and rnd (13), pixels, d4rl and the other environments (12).
+fb_ddpg, ddpg, rnd, sf and sf_svd (13), pixels, d4rl and the other
+environments (12).
 """
 
 from __future__ import annotations
@@ -115,6 +116,13 @@ def make_env(task: str, episode_length: tp.Optional[int] = None) -> Environment:
         from ..envs import locomotion
         return locomotion.make(task, episode_length=episode_length or 1000)
     raise _not_ported(f"the environment of task {task!r}", 12)
+
+
+def _can_regress(agent: tp.Any) -> bool:
+    """Whether ``agent`` infers z from rewards: on states (FB, SF) or on
+    states and actions (SF-SVD)."""
+    return (hasattr(agent, "infer_meta_from_obs_and_rewards")
+            or hasattr(agent, "infer_meta_from_obs_action_and_rewards"))
 
 
 # the tasks of the final test battery, by domain
@@ -223,7 +231,7 @@ class Workspace:
         agent = self.agent
         meta_key = getattr(agent, "meta_key", None)
         can_goal = meta_key is not None and hasattr(agent, "get_goal_meta")
-        can_infer = meta_key is not None and hasattr(agent, "infer_meta_from_obs_and_rewards")
+        can_infer = meta_key is not None and _can_regress(agent)
 
         def goal_meta(goal: tp.Any) -> MetaDict:
             g = torch.as_tensor(goal, dtype=torch.float32, device=self.device)
@@ -251,11 +259,13 @@ class Workspace:
 
     def _infer_meta_from_replay(self, custom_reward: tp.Optional[tp.Any] = None,
                                 draws: tp.Optional[int] = None) -> Tensor:
-        """z = rᵀB/N over num_inference_steps samples, with the rewards of
+        """z regressed on num_inference_steps samples, with the rewards of
         ``custom_reward`` computed from the sampled physics (the stored
-        rewards when it is None). ``draws`` > 1 returns the norm-preserving
-        spherical mean of that many independent regressions
-        (cfg.z_inference_draws by default)."""
+        rewards when it is None): z = rᵀB/N for FB, lstsq(φ(s), r) for SF,
+        lstsq(φ(s, a), r) for SF-SVD, whose action-conditioned regression
+        takes the next state with the action, as the JAX workspace does.
+        ``draws`` > 1 returns the norm-preserving spherical mean of that
+        many independent regressions (cfg.z_inference_draws by default)."""
         n = self.agent.cfg.num_inference_steps
         draws = self.cfg.z_inference_draws if draws is None else draws
 
@@ -265,6 +275,9 @@ class Workspace:
                 custom_reward=custom_reward.from_physics if custom_reward else None)
             obs = (batch.next_obs if (self.cfg.goal_space is None
                                       or batch.next_goal is None) else batch.next_goal)
+            if hasattr(self.agent, "infer_meta_from_obs_action_and_rewards"):
+                return self.agent.infer_meta_from_obs_action_and_rewards(
+                    obs, batch.action, batch.reward)
             return self.agent.infer_meta_from_obs_and_rewards(obs, batch.reward)
 
         if draws <= 1:
@@ -398,7 +411,7 @@ class Workspace:
             return rewards
         if self.domain not in _FINAL_TASKS:
             return {}
-        if not (hasattr(self.agent, "infer_meta_from_obs_and_rewards")
+        if not (_can_regress(self.agent)
                 and len(self.buffer) > 0 and "physics" in self.buffer.state.storage):
             return {}
         names = [name for name in _FINAL_TASKS[self.domain]

@@ -1,12 +1,18 @@
-"""A function captured once in a CUDA graph and replayed.
+"""A function captured once in CUDA graphs and replayed.
 
 The updates, the evaluation rollout, the episode collector and the
 cheetah's settle all run this way on a CUDA device, so that a step costs
 the host one graph launch instead of hundreds of kernel launches.
+
+A step that a graph cannot hold (an SVD, whose result PyTorch checks on the
+host) is marked with ``eager_step``: the capture ends a graph before it,
+runs it eagerly and begins the next graph after it, and each replay runs
+the graphs with the eager steps between them.
 """
 
 from __future__ import annotations
 
+import gc
 import typing as tp
 
 import torch
@@ -17,9 +23,33 @@ from ..ops import fused_fb
 # memory and let cuBLAS and the allocator reach their steady state
 WARMUP_RUNS = 2
 
+# the program being captured, if any (a capture does not nest)
+_capturing: tp.List["CapturedProgram"] = []
+# one side stream per device for every warm-up and capture: cuBLAS keeps a
+# workspace for each stream it has run on, so a new stream per program would
+# hold tens of MiB more for every program built
+_side_streams: tp.Dict[torch.device, torch.cuda.Stream] = {}
+
+
+def _side_stream(device: torch.device) -> torch.cuda.Stream:
+    if device not in _side_streams:
+        _side_streams[device] = torch.cuda.Stream(device)
+    return _side_streams[device]
+
+
+def eager_step(fn: tp.Callable[[], torch.Tensor]) -> torch.Tensor:
+    """``fn()``, run eagerly between the graphs of the program being
+    captured (outside a capture: just ``fn()``). ``fn`` reads tensors that
+    the graph before it wrote and returns one tensor, which the graph after
+    it reads: each replay copies ``fn()``'s new result into the tensor
+    returned here."""
+    if not _capturing:
+        return fn()
+    return _capturing[-1]._split(fn)
+
 
 class CapturedProgram:
-    """``fn()`` captured in a CUDA graph on ``device``.
+    """``fn()`` captured in CUDA graphs on ``device``.
 
     ``fn`` is warmed up eagerly on a side stream, then everything the
     warm-up changed is put back: ``state``, the tensors that ``fn`` changes
@@ -27,14 +57,20 @@ class CapturedProgram:
     environment state and buffers), and the state of every generator in
     ``generators``. So building the program leaves no trace but the kernels'
     launch counts. Every generator that ``fn`` draws from must be listed: it
-    is registered with the graph, which makes each replay draw fresh numbers
-    and advances the generator as eager draws would. Whatever ``fn`` returns
-    is kept in ``out``; its tensors are overwritten by each replay. ``fn``
-    itself is kept too: the graph reads the tensors its closure holds (a
-    constant input such as a zero action) at their addresses, so they must
-    live as long as the graph, or the allocator hands their memory to
+    is registered with the graphs, which makes each replay draw fresh
+    numbers and advances the generator as eager draws would. Whatever ``fn``
+    returns is kept in ``out``; its tensors are overwritten by each replay.
+    ``fn`` itself is kept too: the graph reads the tensors its closure holds
+    (a constant input such as a zero action) at their addresses, so they
+    must live as long as the graph, or the allocator hands their memory to
     other tensors and the replays read whatever those hold.
-    ``warmup_runs`` is at least 1. A failure to capture raises.
+
+    Most programs are one graph. Each ``eager_step`` inside ``fn`` splits
+    it: the graph before the step is replayed once at capture time so that
+    the step sees real inputs, and what that replay changed is put back
+    after the capture as the warm-up's is. The graphs share one memory pool
+    and are always replayed in capture order. ``warmup_runs`` is at least 1.
+    A failure to capture raises.
     """
 
     def __init__(self, fn: tp.Callable[[], tp.Any], device: torch.device,
@@ -44,25 +80,80 @@ class CapturedProgram:
         self.fn = fn
         state = list(state)
         saved = [t.clone() for t in state]
-        gen_states = [g.get_state() for g in generators]
-        side = torch.cuda.Stream(device)
+        self._generators = list(generators)
+        gen_states = [g.get_state() for g in self._generators]
+
+        def restore() -> None:
+            with torch.no_grad():
+                for t, before in zip(state, saved):
+                    t.copy_(before)
+            for g, before in zip(self._generators, gen_states):
+                g.set_state(before)
+
+        side = _side_stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
             for _ in range(warmup_runs):
                 fn()
         torch.cuda.current_stream(device).wait_stream(side)
-        with torch.no_grad():
-            for t, before in zip(state, saved):
-                t.copy_(before)
-        for g, before in zip(generators, gen_states):
-            g.set_state(before)
-        self.graph = torch.cuda.CUDAGraph()
-        for g in generators:
-            self.graph.register_generator_state(g)
-        with fused_fb.held_by_capture() as self.held, torch.cuda.graph(self.graph):
-            self.out = fn()
+        restore()
+        self.graphs: tp.List[torch.cuda.CUDAGraph] = []
+        # (fn, the tensor the next graph reads) of each eager step, in order
+        self.steps: tp.List[tp.Tuple[tp.Callable[[], torch.Tensor], torch.Tensor]] = []
+        self._pool: tp.Any = None
+        self._open = False  # whether a graph is being captured
+        torch.cuda.synchronize(device)
+        gc.collect()
+        torch.cuda.empty_cache()
+        _capturing.append(self)
+        try:
+            with fused_fb.held_by_capture() as self.held, torch.cuda.stream(side):
+                self._begin()
+                try:
+                    self.out = fn()
+                except BaseException:
+                    # end the capture, but raise fn's error, not the invalid capture's
+                    try:
+                        self._end()
+                    except RuntimeError:
+                        pass
+                    raise
+                self._end()
+        finally:
+            _capturing.pop()
+        if self.steps:
+            torch.cuda.synchronize(device)
+            restore()
+
+    def _begin(self) -> None:
+        graph = torch.cuda.CUDAGraph()
+        for g in self._generators:
+            graph.register_generator_state(g)
+        graph.capture_begin(pool=self._pool)
+        self._open = True
+        self.graphs.append(graph)
+
+    def _end(self) -> None:
+        if self._open:
+            self._open = False
+            self.graphs[-1].capture_end()
+            if self._pool is None:  # the later graphs allocate from the first one's pool
+                self._pool = self.graphs[-1].pool()
+
+    def _split(self, fn: tp.Callable[[], torch.Tensor]) -> torch.Tensor:
+        self._end()
+        # a capture computes nothing: run the graph so that fn reads real values
+        self.graphs[-1].replay()
+        out = fn()
+        self.steps.append((fn, out))
+        self._begin()
+        return out
 
     def replay(self, times: int = 1) -> None:
         for _ in range(times):
-            self.graph.replay()
+            for i, graph in enumerate(self.graphs):
+                graph.replay()
+                if i < len(self.steps):
+                    fn, out = self.steps[i]
+                    out.copy_(fn())
         fused_fb.count_replay(self.held, times)

@@ -12,7 +12,8 @@ import torch
 
 from controllable_agent_torch import pretrain
 from controllable_agent_torch.agents import (DDPGAgent, DDPGConfig, DDPGNoise, FBDDPGAgent,
-                                             FBDDPGConfig, RNDAgent, RNDConfig, UpdateNoise)
+                                             FBDDPGConfig, RNDAgent, RNDConfig, SFAgent,
+                                             SFConfig, SFSVDAgent, SFSVDConfig, UpdateNoise)
 from controllable_agent_torch.data import ReplayBuffer
 from controllable_agent_torch.data import replay as replay_lib
 from controllable_agent_torch.data.exorl import synthetic_episodes
@@ -21,6 +22,7 @@ from controllable_agent_torch.envs.wrappers import (ActionRepeatWrapper, FrameSt
                                                     StatefulEnv)
 from controllable_agent_torch.goals import get_reward_function
 from controllable_agent_torch.ops import fused_fb as ff
+from controllable_agent_torch.ops.linalg import lstsq
 from controllable_agent_torch.tools import dynamics_check
 from controllable_agent_torch.train.loops import (WARMUP_RUNS, CapturedProgram,
                                                   EpisodeCollector, OnlineTrainer, Rollout,
@@ -523,3 +525,78 @@ def test_a_resumed_online_run_equals_an_uninterrupted_one(cuda_device, tmp_path)
                        whole.collect_generator.get_state())
     for k, v in whole.buffer.state.storage.items():
         assert torch.equal(resumed.buffer.state.storage[k], v), k
+
+
+SF_SMALL = dict(hidden_dim=64, backward_hidden_dim=64, feature_dim=32, z_dim=16, batch_size=128)
+
+
+def _sf_captured_and_eager(cuda_device, agent_cls, cfg, updates: int):
+    """``updates`` through the captured trainer and through the eager one,
+    from twin agents and generators in the same state."""
+    buf = ReplayBuffer(8, discount=0.98, future=0.99, device=cuda_device)
+    buf.load_episodes(synthetic_episodes(8, 50, 24, 6, seed=0))
+    agents = [agent_cls(cfg, 24, 6, device=cuda_device, seed=0) for _ in range(2)]
+    gens = [torch.Generator(device=cuda_device).manual_seed(5) for _ in range(2)]
+    trainers = [make_offline_trainer(agents[0], buf.cfg, cfg.batch_size, updates),
+                make_offline_trainer(agents[1], buf.cfg, cfg.batch_size, updates, capture=False)]
+    metrics = [trainer(buf.state, gen) for trainer, gen in zip(trainers, gens)]
+    torch.cuda.synchronize()
+    return agents, gens, trainers, metrics
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("learner", ["lap", "contrastive", "svd_sr", "sf_svd"])
+def test_captured_sf_updates_equal_eager(cuda_device, learner) -> None:
+    """SF with three φ learners (one reading the sampled future states, one
+    with target networks) and SF-SVD: 4 updates through the captured trainer
+    (one graph, sampling included) and eagerly from the same generator
+    state, equal to the bit, metrics included."""
+    agent_cls, cfg = ((SFSVDAgent, SFSVDConfig(**SF_SMALL)) if learner == "sf_svd"
+                      else (SFAgent, SFConfig(**SF_SMALL, feature_learner=learner)))
+    agents, gens, trainers, metrics = _sf_captured_and_eager(cuda_device, agent_cls, cfg, 4)
+    assert trainers[0]._program is not None and len(trainers[0]._program.graphs) == 1
+    assert agents[0].step == agents[1].step == 4
+    for k, v in agents[1].train_state().items():
+        assert torch.equal(agents[0].train_state()[k], v), k
+    assert torch.equal(gens[0].get_state(), gens[1].get_state())
+    assert set(metrics[0]) == set(metrics[1])
+    for k, v in metrics[1].items():
+        assert torch.equal(metrics[0][k], v), k
+
+
+@pytest.mark.cuda
+def test_captured_sf_mix_update_runs_its_pinv_between_two_graphs(cuda_device) -> None:
+    """``mix_ratio`` > 0: the pseudo-inverse (an SVD checked on the host)
+    runs eagerly between the two graphs of the update; 3 replays equal 3
+    eager updates from the same generator state."""
+    cfg = SFConfig(**SF_SMALL, feature_learner="svd_sr", mix_ratio=0.5)
+    agents, gens, trainers, _ = _sf_captured_and_eager(cuda_device, SFAgent, cfg, 3)
+    program = trainers[0]._program
+    assert program is not None and len(program.graphs) == 2 and len(program.steps) == 1
+    assert agents[0].step == agents[1].step == 3
+    for k, v in agents[1].train_state().items():
+        torch.testing.assert_close(agents[0].train_state()[k], v, rtol=0, atol=0, msg=k)
+    assert torch.equal(gens[0].get_state(), gens[1].get_state())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["full_rank", "rank_deficient"])
+def test_lstsq_on_the_card_matches_float64(cuda_device, kind) -> None:
+    """SF's inference regression, 5,120 samples x 100 features, in float32 on
+    the card against float64 on the CPU with the same cutoff: the solution
+    within 1e-4 of its norm (float32 on the CPU is 1.7e-6 off at this
+    condition number, 28; a rank-deficient φ has a zero (dead) and a
+    duplicated column, whose minimum-norm solution weighs the two alike)."""
+    rng = np.random.RandomState(0)
+    phi = rng.randn(5120, 100).astype(np.float32) * rng.uniform(0.1, 3.0, 100).astype(np.float32)
+    if kind == "rank_deficient":
+        phi[:, 1] = 0.0
+        phi[:, 2] = phi[:, 3]
+    reward = (phi @ rng.randn(100, 1) + 0.1 * rng.randn(5120, 1)).astype(np.float32)
+    a, b = torch.from_numpy(phi), torch.from_numpy(reward)
+    rcond = torch.finfo(torch.float32).eps * 5120
+    want = lstsq(a.double(), b.double(), rcond=rcond)
+    got = lstsq(a.to(cuda_device), b.to(cuda_device)).cpu().double()
+    assert float((got - want).norm() / want.norm()) < 1e-4
+    if kind == "rank_deficient":
+        assert abs(float(got[2] - got[3])) < 1e-4 * float(want.norm())

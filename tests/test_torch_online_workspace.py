@@ -118,10 +118,10 @@ def test_the_explorers_pretrain_online(tmp_path, agent) -> None:
 
 
 def test_the_registry_names_what_is_ported() -> None:
-    assert sorted(AGENTS) == ["ddpg", "fb_ddpg", "rnd"]
+    assert sorted(AGENTS) == ["ddpg", "fb_ddpg", "rnd", "sf", "sf_svd"]
     with pytest.raises(NotImplementedError, match="item 13"):
         pretrain.build_workspace(["agent=diayn", "device=cpu"])
-    with pytest.raises(ValueError, match="known: \\['ddpg', 'fb_ddpg', 'rnd'\\]"):
+    with pytest.raises(ValueError, match="known: \\['ddpg', 'fb_ddpg', 'rnd', 'sf', 'sf_svd'\\]"):
         pretrain.build_workspace(["agent=nope", "device=cpu"])
 
 
