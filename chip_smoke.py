@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives ``controllable_agent_torch`` (and nothing of the JAX package) in sixteen
+Drives ``controllable_agent_torch`` (and nothing of the JAX package) in nineteen
 phases, each printed on its own line; any failure exits non-zero:
 
   1. build the CUDA kernels of ``controllable_agent_torch/csrc`` with nvcc;
@@ -93,7 +93,31 @@ phases, each printed on its own line; any failure exits non-zero:
      against float64 on the CPU: SF's least squares with full rank and with
      a rank-deficient φ, SF-SVD's on φ(s, a), and ``get_goal_meta`` after
      ``precompute_cov``. The fused FB kernels are not on this path: their
-     launches over phases 14-16 must be 0.
+     launches over phases 14-16 must be 0;
+ 17. the gridworld on the card: every layout and observation type, 1,024
+     environments x 200 steps of the same actions on the card and on the
+     CPU, equal to the bit (observations, rewards, discounts, step types,
+     actions, physics, the state and the goal observation); ``simple``'s
+     goals over 16,384 resets (every free cell but the start, none else);
+     one control step of discrete FB at full width captured and replayed
+     over 20 steps against eager, to the bit (the greedy rollout and the
+     epsilon-greedy collector); environment steps/s of ``env.step`` alone
+     and of the evaluation rollout at 10, 1,024 and 16,384 environments;
+ 18. the discrete agents at the JAX defaults (discrete FB: hidden 1024, z 50,
+     batch 1024, float32; its default, ``boltzmann=false`` and
+     ``q_loss=true``, whose pseudo-inverse runs eagerly between two graphs;
+     discrete SF with icm, identity and lap), 100 updates each through the
+     captured trainer against the same updates eagerly on a twin, as phase
+     14;
+ 19. the entry points on the grid: ``pretrain.main agent=discrete_fb
+     task=grid_simple`` at full width (4 environments, a seed cycle, three
+     training cycles, two evaluations with their videos; returns in [0,
+     200], a finite goal-observation z of norm sqrt(z_dim), one capture of
+     the update program), resumed for one more cycle; ``anytrain.main
+     agent=discrete_fb task=grid_obstacle`` and ``pretrain.main
+     agent=discrete_sf task=grid_simple`` for a seed cycle and a training
+     cycle. No fused FB kernel is on this path: their launches over phases
+     17-19 must be 0 by both counts.
 
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -103,6 +127,7 @@ without the package beside it, the script fails before printing a result.
 from __future__ import annotations
 
 import csv
+import dataclasses
 import gc
 import json
 import math
@@ -114,15 +139,16 @@ import typing as tp
 import numpy as np
 import torch
 
-from controllable_agent_torch import _build, pretrain, train_offline, train_online
-from controllable_agent_torch.agents import (FEATURE_LEARNERS, DDPGNoise, FBDDPGAgent,
-                                             FBDDPGConfig, RNDAgent, SFAgent, SFConfig,
-                                             SFSVDAgent, SFSVDConfig, UpdateNoise)
+from controllable_agent_torch import _build, anytrain, pretrain, train_offline, train_online
+from controllable_agent_torch.agents import (FEATURE_LEARNERS, DDPGNoise, DiscreteFBAgent,
+                                             DiscreteFBConfig, DiscreteSFAgent, DiscreteSFConfig,
+                                             FBDDPGAgent, FBDDPGConfig, RNDAgent, SFAgent,
+                                             SFConfig, SFSVDAgent, SFSVDConfig, UpdateNoise)
 from controllable_agent_torch.agents.sf import normalized_solution
 from controllable_agent_torch.data import ReplayBuffer
 from controllable_agent_torch.data import replay as replay_lib
 from controllable_agent_torch.data.exorl import save_exorl_episodes, synthetic_episodes
-from controllable_agent_torch.envs import locomotion
+from controllable_agent_torch.envs import build_gridworld_task, gridworld, locomotion
 from controllable_agent_torch.goals import get_reward_function
 from controllable_agent_torch.models.networks import l2_normalize
 from controllable_agent_torch.ops.linalg import lstsq, pinv
@@ -170,6 +196,13 @@ SF_PROFILED = 5  # phase 14: updates under the profiler per agent (the launch co
 SF_VARIANTS = (("lap", "q_loss", False), ("icm", "boltzmann", True), ("svd_sr", "mix_ratio", 0.5))
 SF_RESUMED_STEPS = 100  # phase 15: updates of the resumed offline runs
 INFERENCE_SAMPLES = 5120  # phase 16: the agents' num_inference_steps
+GRID_ENVS, GRID_LENGTH = 1024, 200  # phase 17: environments per pair; the JAX default episode
+GRID_FIELDS = ("observation", "reward", "discount", "physics", "step_type", "action")
+GRID_RESETS = 16384  # phase 17: resets of simple whose goals are counted
+GRID_SIZES = (10, 1024, 16384)  # phase 17: environments advanced together
+GRID_EPISODES = 64  # phase 18: random-policy episodes of grid_simple in the replay
+GRID_CYCLE_STEPS = ONLINE_ENVS * GRID_LENGTH  # phase 19: environment steps of one cycle
+GRID_CYCLES = 4  # phase 19: a seed cycle, then three of 400 updates
 F32_EPS = float(torch.finfo(torch.float32).eps)
 HBM_BYTES_PER_S = 3.35e12
 FWD_RTOL = 2e-4  # as tests/test_pallas_fb.py: order of f32 sums over n^2
@@ -838,16 +871,17 @@ def report_cycles(ws: tp.Any, phase: str) -> tp.List[tp.Dict[str, float]]:
     seconds and environment steps/s, the updates/s, the collection's share
     of the cycle, the buffer's size (from ``train.csv``)."""
     rows = read_csv(ws.work_dir / "train.csv")[-len(ws.cycle_timings):]
+    envs, horizon = ws.cfg.num_envs, ws.spec.episode_length
     out = []
     for i, (timing, row) in enumerate(zip(ws.cycle_timings, rows)):
         collect, update, updates = timing["collect"], timing["update"], int(timing["updates"])
         share = collect / (collect + update)
-        out.append({"collect_s": collect, "steps_per_s": CYCLE_STEPS / collect,
+        out.append({"collect_s": collect, "steps_per_s": envs * horizon / collect,
                     "updates_per_s": updates / update if updates else float("nan"),
                     "share": share})
         print(f"{phase} cycle {i + 1}: step {int(float(row['step']))}; collection of "
-              f"{ONLINE_ENVS} x {EPISODE_LENGTH} steps {collect:.3f} s "
-              f"({CYCLE_STEPS / collect:.0f} environment steps/s, the reset included"
+              f"{envs} x {horizon} steps {collect:.3f} s "
+              f"({envs * horizon / collect:.0f} environment steps/s, the reset included"
               f"{', and the capture of the control step' if i == 0 else ''}); {updates} updates "
               f"in {update:.3f} s ({out[-1]['updates_per_s']:.1f} updates/s, the commit "
               f"included{', and the capture of the update' if updates and i == 1 else ''}); "
@@ -1051,17 +1085,19 @@ def _sf_configs() -> tp.List[tp.Tuple[str, type, tp.Any]]:
     return configs + [("sf_svd", SFSVDAgent, SFSVDConfig())]
 
 
-def check_sf_agent(label: str, agent_cls: type, cfg: tp.Any, buf: tp.Any,
-                   fb_rate: float, card: str) -> tp.Dict[str, tp.Any]:
-    """One agent of phase 14: SF_UPDATES updates through the captured
-    trainer and the same updates eagerly on a twin from the same generator
-    state; then the profiler over SF_PROFILED more replays."""
+def check_captured_agent(phase: str, label: str, make_agent: tp.Callable[[], tp.Any],
+                         cfg: tp.Any, buf: tp.Any, fb_rate: float,
+                         card: str) -> tp.Dict[str, tp.Any]:
+    """One agent of phases 14 and 18: SF_UPDATES updates through the
+    captured trainer and the same updates eagerly on a twin (``make_agent``
+    builds both) from the same generator state; then the profiler over
+    SF_PROFILED more replays."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
     results = []
     for capture in (True, False):
-        agent = agent_cls(cfg, OBS_DIM, ACTION_DIM, device="cuda", seed=SEED)
+        agent = make_agent()
         gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
         trainer = make_offline_trainer(agent, buf.cfg, cfg.batch_size, SF_UPDATES,
                                        capture=capture)
@@ -1101,7 +1137,8 @@ def check_sf_agent(label: str, agent_cls: type, cfg: tp.Any, buf: tp.Any,
     how = (f"{len(program.graphs)} captured graphs with the pseudo-inverse (torch.linalg.pinv, "
            f"an SVD checked on the host) run eagerly between them" if len(program.graphs) > 1
            else "one captured graph")
-    print(f"phase 14 {label}: captured {rate:.1f} updates/s, eager {eager_rate:.1f} "
+    losses = ", ".join(f"{k} {v:.4f}" for k, v in row.items() if k.endswith("_loss"))
+    print(f"{phase} {label}: captured {rate:.1f} updates/s, eager {eager_rate:.1f} "
           f"({rate / eager_rate:.2f}x), FB's captured trainer in phase 4 {fb_rate:.1f}; update as "
           f"{how}; {launches:.1f} kernel launches and {busy_ms:.4f} ms of device time per update, "
           f"{len(products) / SF_PROFILED:.1f} of them matrix products taking {products_ms:.4f} ms "
@@ -1109,9 +1146,8 @@ def check_sf_agent(label: str, agent_cls: type, cfg: tp.Any, buf: tp.Any,
           f"the {held / 2**20:.1f} held; captured vs eager after {SF_UPDATES} updates: equal to "
           f"the bit {bitwise}, max abs diff of parameters and targets "
           f"{worst['parameters and targets']:.3e} (tolerance {tol:.1e}), of Adam moments "
-          f"{worst['Adam moments']:.3e} of their largest entry (tolerance 1e-3); sf_loss "
-          f"{row['sf_loss']:.4f}" + (f", phi_loss {row['phi_loss']:.4f}" if "phi_loss" in row
-                                     else "") + f", actor_loss {row['actor_loss']:.4f}; on {card}")
+          f"{worst['Adam moments']:.3e} of their largest entry (tolerance 1e-3); {losses}; "
+          f"on {card}")
     if not all(math.isfinite(v) for v in row.values()) or agent.step != SF_UPDATES + SF_PROFILED \
             or twin.step != SF_UPDATES or (not bitwise and (
                 worst["parameters and targets"] > tol or worst["Adam moments"] > 1e-3)):
@@ -1131,7 +1167,9 @@ def check_sf_learners(episodes: tp.List[tp.Dict[str, np.ndarray]],
     buf.load_episodes(episodes)
     out = []
     for label, agent_cls, cfg in _sf_configs():
-        out.append(check_sf_agent(label, agent_cls, cfg, buf, fb_rate, card))
+        out.append(check_captured_agent(
+            "phase 14", label, lambda: agent_cls(cfg, OBS_DIM, ACTION_DIM, device="cuda",
+                                                 seed=SEED), cfg, buf, fb_rate, card))
         gc.collect()
         torch.cuda.empty_cache()
     rates = [r["captured"] for r in out]
@@ -1295,6 +1333,231 @@ def check_sf_inference(sf_ws: tp.Any, svd_ws: tp.Any) -> None:
                      detail)
 
 
+def _grid_trajectory(env: tp.Any, goals: torch.Tensor, actions: torch.Tensor
+                     ) -> tp.Dict[str, torch.Tensor]:
+    """Every field of a reset to ``goals`` and of one step per row of
+    ``actions`` [T, E], on the device of ``goals``, brought to the CPU."""
+    state, ts = env.reset_with_goals(goals)
+    steps = [ts]
+    for a in actions.to(goals.device):
+        state, ts = env.step(state, a)
+        steps.append(ts)
+    out = {f: torch.stack([getattr(t, f) for t in steps]).cpu() for f in GRID_FIELDS}
+    out.update(goal_obs=env.get_goal_obs(state).cpu(), pos=state.pos.cpu(),
+               goal=state.goal.cpu(), t=state.t.cpu())
+    return out
+
+
+def check_gridworld() -> None:
+    """Phase 17: the gridworld on the card against the CPU to the bit,
+    ``simple``'s goals, a captured control step of discrete FB against
+    eager, and the environment's rate."""
+    card = card_name_and_power_limit()
+    actions = torch.from_numpy(
+        np.random.RandomState(SEED).randint(0, 5, (GRID_LENGTH, GRID_ENVS))).float()
+    compared, mismatched = 0, []
+    walls = goals_reached = last = 0
+    for layout in gridworld.TASKS:
+        for obs_type in gridworld.OBSERVATION_TYPES:
+            env = build_gridworld_task(layout, observation_type=obs_type, penalty_for_walls=-0.5)
+            goals, _ = env.reset(torch.Generator().manual_seed(SEED), GRID_ENVS)
+            got = _grid_trajectory(env, goals.goal.cuda(), actions)
+            want = _grid_trajectory(env, goals.goal, actions)
+            compared += 1
+            mismatched += [f"{layout}/{obs_type}/{k}" for k in want
+                           if not torch.equal(got[k], want[k])]
+            walls += int((want["reward"] == -0.5).sum())
+            goals_reached += int((want["reward"] == 1.0).sum())
+            last += int((got["step_type"][-1] == 2).sum())
+    print(f"phase 17 gridworld: {compared} layout x observation type pairs, {GRID_ENVS} "
+          f"environments x {GRID_LENGTH} steps of the same actions on the card and on the CPU "
+          f"(observations, rewards, discounts, step types, actions, physics, the state and the "
+          f"goal observation): equal to the bit {not mismatched}; {walls} wall hits and "
+          f"{goals_reached} goal rewards along the way, LAST at step {GRID_LENGTH} in {last} of "
+          f"{compared * GRID_ENVS} episodes")
+    if mismatched:
+        raise AssertionError(f"the gridworld on the card differs from the CPU: {mismatched}")
+
+    env = build_gridworld_task("simple")
+    state, _ = env.reset(torch.Generator(device="cuda").manual_seed(SEED), GRID_RESETS)
+    drawn = state.goal.cpu().numpy()
+    cells, counts = np.unique(drawn, axis=0, return_counts=True)
+    free = {tuple(c) for c in env.free_cells.tolist()}
+    expected = GRID_RESETS / len(free)
+    ok = ({tuple(c) for c in cells.tolist()} == free and tuple(env.start) not in free
+          and counts.min() > 0.75 * expected and counts.max() < 1.25 * expected)
+    print(f"phase 17 simple's goals over {GRID_RESETS} resets on the card: {len(cells)} cells "
+          f"drawn of the {len(free)} free cells other than the start, each {counts.min()}-"
+          f"{counts.max()} times (expected {expected:.1f}): {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("simple's goals are not drawn uniformly over its free cells")
+
+    # one control step of discrete FB at full width, captured against eager
+    agent = DiscreteFBAgent(DiscreteFBConfig(), env.spec.obs_dim, env.spec.n_actions,
+                            device="cuda", seed=SEED)
+    short = build_gridworld_task("simple", max_episode_length=COMPARED_STEPS)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    z = agent.sample_z(EVAL_EPISODES, gen)
+    state, ts = short.reset(gen, EVAL_EPISODES)
+    got = [x.clone() for x in Rollout(short, agent, EVAL_EPISODES)(z, state, ts)]
+    want = Rollout(short, agent, EVAL_EPISODES, capture=False)(z, state, ts)
+    rollout_ok = all(torch.equal(a, b) for a, b in zip(got, want))
+    gens = [torch.Generator(device="cuda").manual_seed(SEED + 1) for _ in range(2)]
+    runs = []
+    for capture, g in zip((True, False), gens):
+        collector = EpisodeCollector(short, agent, EVAL_EPISODES, g, capture=capture)
+        meta = init_meta_batched(agent, g, EVAL_EPISODES)
+        state, ts = short.reset(g, EVAL_EPISODES)
+        runs.append({k: v.clone() for k, v in collector(meta, state, ts, 0).items()})
+    collector_ok = all(torch.equal(runs[0][k], v) for k, v in runs[1].items()) \
+        and torch.equal(gens[0].get_state(), gens[1].get_state())
+    print(f"phase 17 discrete FB (hidden {agent.cfg.hidden_dim}, z {agent.cfg.z_dim}) on "
+          f"grid_simple, {COMPARED_STEPS} control steps x {EVAL_EPISODES} environments as "
+          f"replays of one captured step against eager: greedy rollout equal to the bit "
+          f"{rollout_ok}, epsilon-greedy collector equal to the bit {collector_ok}")
+    if not (rollout_ok and collector_ok):
+        raise AssertionError("the captured grid control step disagrees with the eager one")
+
+    for envs in GRID_SIZES:
+        state, ts = env.reset(gen, envs)
+        held = dataclasses.replace(state, pos=state.pos.clone(), t=state.t.clone())
+        action = torch.arange(envs, device="cuda").remainder(5).float()
+
+        def step() -> torch.Tensor:
+            new, out = env.step(held, action)
+            held.pos.copy_(new.pos)
+            held.t.copy_(new.t)
+            return out.reward
+
+        program = CapturedProgram(step, torch.device("cuda"), [held.pos, held.t])
+        _, env_s = _timed(lambda: program.replay(GRID_LENGTH))
+        z = agent.sample_z(envs, gen)
+        rollout = Rollout(env, agent, envs)
+        rollout(z, state, ts)  # captures
+        (totals, _, _), run_s = _timed(lambda: rollout(z, state, ts))
+        print(f"phase 17 grid E={envs}: env.step alone {envs * GRID_LENGTH / env_s:.0f} "
+              f"environment steps/s ({1e3 * env_s / GRID_LENGTH:.4f} ms per step, one graph "
+              f"replay each); the evaluation rollout with discrete FB's greedy policy at full "
+              f"width {envs * GRID_LENGTH / run_s:.0f} environment steps/s "
+              f"({1e3 * run_s / GRID_LENGTH:.4f} ms per control step), mean return "
+              f"{float(totals.mean()):.2f}, on {card}")
+        del program, rollout
+
+
+def grid_buffer() -> tp.Any:
+    """GRID_EPISODES random-policy episodes of ``grid_simple`` (200 steps,
+    agent_pos observations), collected on the card."""
+    env = build_gridworld_task("simple")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    state, ts = env.reset(gen, GRID_EPISODES)
+    steps = [ts.to_buffer_dict()]
+    for _ in range(GRID_LENGTH):
+        a = torch.randint(0, 5, (GRID_EPISODES,), generator=gen, device="cuda").float()
+        state, ts = env.step(state, a)
+        steps.append(ts.to_buffer_dict())
+    buf = ReplayBuffer(GRID_EPISODES, discount=0.98, future=0.99, device="cuda")
+    buf.add_trajectory({k: torch.stack([t[k] for t in steps]) for k in steps[0]}, GRID_LENGTH)
+    return buf
+
+
+def check_discrete_agents(fb_rate: float) -> None:
+    """Phase 18: the discrete agents' update at the JAX defaults, captured
+    against eager on a twin."""
+    card = card_name_and_power_limit()
+    buf = grid_buffer()
+    configs = [("discrete_fb", DiscreteFBAgent, DiscreteFBConfig()),
+               ("discrete_fb boltzmann=false", DiscreteFBAgent,
+                DiscreteFBConfig(boltzmann=False)),
+               ("discrete_fb q_loss=true", DiscreteFBAgent, DiscreteFBConfig(q_loss=True))]
+    configs += [(f"discrete_sf {name}", DiscreteSFAgent, DiscreteSFConfig(feature_learner=name))
+                for name in ("icm", "identity", "lap")]
+    out = []
+    for label, agent_cls, cfg in configs:
+        out.append(check_captured_agent(
+            "phase 18", label, lambda: agent_cls(cfg, 2, 5, device="cuda", seed=SEED), cfg, buf,
+            fb_rate, card))
+        gc.collect()
+        torch.cuda.empty_cache()
+    graphs = {r["label"]: r["graphs"] for r in out}
+    if graphs["discrete_fb q_loss=true"] != 2 or any(
+            n != 1 for label, n in graphs.items() if label != "discrete_fb q_loss=true"):
+        raise AssertionError(f"unexpected graphs per update: {graphs}")
+
+
+def grid_args(folder: str, agent: str, task: str, frames: int, *extra: str) -> tp.List[str]:
+    """Phase 19's command line: a discrete agent at the JAX defaults on a
+    grid task, 4 environments, one seed cycle."""
+    return [f"agent={agent}", f"task={task}", f"num_envs={ONLINE_ENVS}",
+            f"num_seed_frames={GRID_CYCLE_STEPS}", f"num_train_frames={frames}",
+            f"eval_every_steps={2 * GRID_CYCLE_STEPS}", f"num_eval_episodes={EVAL_EPISODES}",
+            f"folder={folder}", f"seed={SEED}", *extra]
+
+
+def run_grid_entry_points(tmp: str) -> None:
+    """Phase 19: discrete FB through ``pretrain.main`` on ``grid_simple``
+    with a resume, ``anytrain`` on ``grid_obstacle``, discrete SF through
+    ``pretrain.main``."""
+    card = card_name_and_power_limit()
+    folder = f"{tmp}/grid"
+    frames = GRID_CYCLES * GRID_CYCLE_STEPS
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    ws, wall = _timed(lambda: pretrain.main(grid_args(folder, "discrete_fb", "grid_simple",
+                                                      frames)))
+    peak = torch.cuda.max_memory_allocated()
+    report_cycles(ws, "phase 19 discrete_fb")
+    updates = sum(int(t["updates"]) for t in ws.cycle_timings)
+    captures = ws.online_trainer.trainer.captures
+    evals = read_csv(ws.work_dir / "eval.csv")
+    returns = [float(r["episode_reward"]) for r in evals]
+    steps = [int(float(r["step"])) for r in evals]
+    videos = [(ws.work_dir / "eval_video" / f"{s}.png").exists() for s in steps]
+    z = ws._init_eval_meta()["z"]
+    z_norm = float(z.norm())
+    print(f"phase 19 pretrain agent=discrete_fb task=grid_simple: {GRID_CYCLES} cycles, "
+          f"{ws.global_step} environment steps, {updates} updates in {wall:.1f} s; the update "
+          f"program captured {captures} time(s); evaluations at steps {steps}: episode_reward "
+          + ", ".join(f"{r:.2f}" for r in returns) + f", videos {videos}; the goal-observation "
+          f"z finite {bool(torch.isfinite(z).all())}, norm {z_norm:.4f} (sqrt(z_dim) "
+          f"{math.sqrt(ws.agent.cfg.z_dim):.4f}); finalize() on the grid {ws.finalize()}; peak "
+          f"device memory {peak / 2**20:.1f} MiB, {(peak - held) / 2**20:.1f} above the "
+          f"{held / 2**20:.1f} held, on {card}")
+    if captures != 1 or updates != (GRID_CYCLES - 1) * GRID_CYCLE_STEPS // 2 \
+            or ws.agent.step != updates or steps != [2 * GRID_CYCLE_STEPS, frames] \
+            or not all(videos) or not all(0.0 <= r <= GRID_LENGTH for r in returns) \
+            or not bool(torch.isfinite(z).all()) \
+            or abs(z_norm - math.sqrt(ws.agent.cfg.z_dim)) > 1e-3 \
+            or (ws.work_dir / "test_rewards.json").exists() \
+            or not all(math.isfinite(v) for v in ws.last_row.values()):
+        raise AssertionError(f"the grid pretrain run: captures {captures}, updates {updates}, "
+                             f"evaluations {evals}, z norm {z_norm}")
+    resumed, wall = _timed(lambda: pretrain.main(grid_args(
+        folder, "discrete_fb", "grid_simple", frames + GRID_CYCLE_STEPS)))
+    print(f"phase 19 resumed: step {frames} -> {resumed.global_step}, agent step {updates} -> "
+          f"{resumed.agent.step}, buffer {len(ws.buffer)} -> {len(resumed.buffer)} episodes "
+          f"in {wall:.1f} s")
+    if resumed.global_step != frames + GRID_CYCLE_STEPS \
+            or resumed.agent.step != updates + GRID_CYCLE_STEPS // 2 \
+            or len(resumed.buffer) != len(ws.buffer) + ONLINE_ENVS:
+        raise AssertionError("the resumed grid run did not continue the saved one")
+    del ws, resumed
+
+    for entry, agent, task in ((anytrain.main, "discrete_fb", "grid_obstacle"),
+                               (pretrain.main, "discrete_sf", "grid_simple")):
+        name = f"{entry.__module__.rsplit('.', 1)[1]} agent={agent} task={task}"
+        run, wall = _timed(lambda: entry(grid_args(
+            f"{tmp}/{agent}_{task}", agent, task, 2 * GRID_CYCLE_STEPS)))
+        report_cycles(run, f"phase 19 {name}")
+        row = run.last_row
+        print(f"phase 19 {name}: a seed cycle and a training cycle in {wall:.1f} s, agent step "
+              f"{run.agent.step}, " + ", ".join(f"{k} {v:.4f}" for k, v in row.items()
+                                                 if k.endswith("_loss")) + f", on {card}")
+        if run.agent.step != GRID_CYCLE_STEPS // 2 \
+                or not all(math.isfinite(v) for v in row.values()):
+            raise AssertionError(f"{name}: agent step {run.agent.step}, row {row}")
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1354,7 +1617,20 @@ def main() -> int:
         for row in rows:
             row["launches_by_path"]["sf, sf_svd (phases 14-16)"] = sf_counts[row["wrapper"]]
 
-    print(f"total: {time.perf_counter() - started:.1f} s for phases 1-16, the build included")
+        # this slice's path, the gridworld and the discrete agents: no fused kernel is on it
+        ff.reset_launches()
+        check_gridworld()
+        check_discrete_agents(fb_rate)
+        run_grid_entry_points(tmp)
+        grid_counts, grid_runs = dict(ff.launches), ff.device_runs()
+        print(f"phases 17-19: fused FB launches {grid_counts} by the wrappers' counts, "
+              f"{grid_runs} by the kernels' own")
+        if any(grid_counts.values()) or any(grid_runs.values()):
+            raise AssertionError(f"the grid path launched fused FB kernels: {grid_counts}")
+        for row in rows:
+            row["launches_by_path"]["grid (phases 17-19)"] = grid_counts[row["wrapper"]]
+
+    print(f"total: {time.perf_counter() - started:.1f} s for phases 1-19, the build included")
     print(json.dumps({"kernels": rows}))
     print(f"card: {card_name_and_power_limit()}")
     print(json.dumps({"ok": True, "device": {

@@ -6,6 +6,8 @@ from __future__ import annotations
 import typing as tp
 
 from .ddpg import DDPGAgent, DDPGConfig, DDPGNoise
+from .discrete_fb import DiscreteFBAgent, DiscreteFBConfig
+from .discrete_sf import DiscreteSFAgent, DiscreteSFConfig
 from .exploration import IntrinsicDDPGAgent, RNDAgent, RNDConfig
 from .fb_ddpg import FBDDPGAgent, FBDDPGConfig, UpdateNoise
 from .sf import FEATURE_LEARNERS, SFAgent, SFConfig, SFNoise
@@ -17,12 +19,13 @@ AGENTS: tp.Dict[str, tp.Tuple[type, type]] = {
     "rnd": (RNDConfig, RNDAgent),
     "sf": (SFConfig, SFAgent),
     "sf_svd": (SFSVDConfig, SFSVDAgent),
+    "discrete_fb": (DiscreteFBConfig, DiscreteFBAgent),
+    "discrete_sf": (DiscreteSFConfig, DiscreteSFAgent),
 }
 
 # the JAX registry's other names: their agents are ROADMAP Queue A item 13
 NOT_PORTED = ("aps", "new_aps", "diayn", "icm", "icm_apt", "disagreement", "max_ent",
-              "smm", "proto", "uvf", "goal_td3", "goal_sm",
-              "discrete_fb", "discrete_sf")
+              "smm", "proto", "uvf", "goal_td3", "goal_sm")
 
 
 def agent_classes(name: str) -> tp.Tuple[type, type]:
@@ -38,7 +41,8 @@ def agent_classes(name: str) -> tp.Tuple[type, type]:
     raise ValueError(f"Unknown agent {name!r}; known: {sorted(AGENTS)}")
 
 
-__all__ = ["AGENTS", "DDPGAgent", "DDPGConfig", "DDPGNoise", "FBDDPGAgent",
+__all__ = ["AGENTS", "DDPGAgent", "DDPGConfig", "DDPGNoise", "DiscreteFBAgent",
+           "DiscreteFBConfig", "DiscreteSFAgent", "DiscreteSFConfig", "FBDDPGAgent",
            "FBDDPGConfig", "FEATURE_LEARNERS", "IntrinsicDDPGAgent", "NOT_PORTED", "RNDAgent",
            "RNDConfig", "SFAgent", "SFConfig", "SFNoise", "SFSVDAgent", "SFSVDConfig",
            "UpdateNoise", "agent_classes"]

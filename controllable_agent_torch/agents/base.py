@@ -23,37 +23,64 @@ Tensor = torch.Tensor
 class StepNoise:
     """Every random draw of one collector step for ``n`` environments, in
     the shapes the JAX collector draws them: the policy's noise and uniform
-    exploration (``act``), and the draws of ``rollout_update_meta``."""
+    exploration (``act``; a discrete policy's ε draw and random action
+    instead), and the draws of ``rollout_update_meta``."""
 
-    act_normal: Tensor  # [n, action_dim]
-    act_uniform: Tensor  # [n, action_dim], in [0, 1)
+    act_normal: tp.Optional[Tensor] = None  # [n, action_dim]
+    act_uniform: tp.Optional[Tensor] = None  # [n, action_dim], in [0, 1)
     meta_uniform: tp.Optional[Tensor] = None  # [n, 1], resample when < update_z_proba
     z_normal: tp.Optional[Tensor] = None  # [n, z_dim], the new z's normal draw
     z_uniform: tp.Optional[Tensor] = None  # [n, z_dim], norm_z=False only
+    explore_uniform: tp.Optional[Tensor] = None  # [n], explore when < expl_eps (discrete)
+    random_action: tp.Optional[Tensor] = None  # [n] int64 in [0, n_actions) (discrete)
 
     @classmethod
     def draw(cls, n: int, action_dim: int, generator: torch.Generator,
-             device: torch.device, z_dim: int = 0, norm_z: bool = True) -> "StepNoise":
-        """The draws of one step; ``z_dim`` > 0 adds those of a z resample."""
+             device: torch.device, z_dim: int = 0, norm_z: bool = True,
+             n_actions: int = 0) -> "StepNoise":
+        """The draws of one step; ``z_dim`` > 0 adds those of a z resample,
+        ``n_actions`` > 0 draws a discrete policy's in place of the normal
+        and uniform actions."""
         def normal(*shape: int) -> Tensor:
             return torch.randn(shape, generator=generator, device=device)
 
         def uniform(*shape: int) -> Tensor:
             return torch.rand(shape, generator=generator, device=device)
 
-        return cls(act_normal=normal(n, action_dim), act_uniform=uniform(n, action_dim),
-                   meta_uniform=uniform(n, 1) if z_dim else None,
-                   z_normal=normal(n, z_dim) if z_dim else None,
-                   z_uniform=uniform(n, z_dim) if z_dim and not norm_z else None)
+        meta = dict(meta_uniform=uniform(n, 1) if z_dim else None,
+                    z_normal=normal(n, z_dim) if z_dim else None,
+                    z_uniform=uniform(n, z_dim) if z_dim and not norm_z else None)
+        if n_actions:
+            return cls(explore_uniform=uniform(n), random_action=torch.randint(
+                n_actions, (n,), generator=generator, device=device), **meta)
+        return cls(act_normal=normal(n, action_dim), act_uniform=uniform(n, action_dim), **meta)
 
 
 def act_draws(noise: tp.Optional[StepNoise], mu: Tensor,
               generator: tp.Optional[torch.Generator]) -> tp.Tuple[Tensor, Tensor]:
     """The policy's normal and uniform draws: ``noise``'s, or fresh ones."""
     if noise is not None:
+        assert noise.act_normal is not None and noise.act_uniform is not None
         return noise.act_normal, noise.act_uniform
     return (torch.randn(mu.shape, generator=generator, device=mu.device),
             torch.rand(mu.shape, generator=generator, device=mu.device))
+
+
+def epsilon_greedy(q: Tensor, step: tp.Union[int, Tensor], expl_eps: float,
+                   num_expl_steps: int, noise: tp.Optional[StepNoise],
+                   generator: tp.Optional[torch.Generator]) -> Tensor:
+    """A discrete policy's actions [B] (int64) from its Q values [B,
+    n_actions]: the first argmax, or a uniform random action where the ε
+    draw is below ``expl_eps`` or while ``step`` < ``num_expl_steps`` (a
+    device ``step`` selects on the device). The draws come from ``noise``
+    or, without it, from ``generator``."""
+    greedy = q.argmax(-1)
+    if noise is None:
+        noise = StepNoise.draw(q.shape[0], 0, generator, q.device,  # type: ignore[arg-type]
+                               n_actions=q.shape[-1])
+    assert noise.explore_uniform is not None and noise.random_action is not None
+    explore = (noise.explore_uniform < expl_eps) | (step < num_expl_steps)
+    return torch.where(explore, noise.random_action, greedy)
 
 
 def explore_until(action: Tensor, uniform: Tensor, step: tp.Union[int, Tensor],
@@ -101,10 +128,11 @@ class ZMetaMixin:
         """The draws of one collector step for ``n`` environments."""
         cfg = self.cfg  # type: ignore[attr-defined]
         resamples = bool(getattr(cfg, "update_z_every_step", 0))
-        return StepNoise.draw(n, self.action_dim, generator,  # type: ignore[attr-defined]
-                              self.device,  # type: ignore[attr-defined]
+        n_actions = getattr(self, "n_actions", 0)
+        return StepNoise.draw(n, 0 if n_actions else self.action_dim,  # type: ignore[attr-defined]
+                              generator, self.device,  # type: ignore[attr-defined]
                               z_dim=cfg.z_dim if resamples else 0,
-                              norm_z=getattr(cfg, "norm_z", True))
+                              norm_z=getattr(cfg, "norm_z", True), n_actions=n_actions)
 
     def rollout_update_meta(self, meta: MetaDict, t: Tensor, noise: StepNoise) -> MetaDict:
         """Resample the task vector of each environment at the steps ``t``

@@ -97,21 +97,24 @@ class FBDDPGConfig:
 @dataclasses.dataclass
 class UpdateNoise:
     """Every random draw of one update, in the shapes the JAX update draws
-    them (``_build_train_z``, the target policy noise, the actor noise)."""
+    them (``_build_train_z``, the target policy noise, the actor noise; a
+    discrete FB update draws no action noise)."""
 
     z_normal: Tensor  # [n, z_dim] standard normal of sample_z
     perm: Tensor  # [n] permutation of the backward inputs
     mix_uniform: Tensor  # [n, 1] mix mask draw
-    next_action_normal: Tensor  # [n, action_dim] target policy noise
-    actor_normal: Tensor  # [n, action_dim] actor-loss policy noise
+    next_action_normal: tp.Optional[Tensor] = None  # [n, action_dim] target policy noise
+    actor_normal: tp.Optional[Tensor] = None  # [n, action_dim] actor-loss policy noise
     z_uniform: tp.Optional[Tensor] = None  # [n, z_dim], norm_z=False only
     w_uniform: tp.Optional[Tensor] = None  # [n, n], rand_weight only
     w_scale: tp.Optional[Tensor] = None  # [n, 1], rand_weight only
     future_uniform: tp.Optional[Tensor] = None  # [n, 1], future_ratio > 0 only
 
     @classmethod
-    def draw(cls, cfg: FBDDPGConfig, n: int, action_dim: int,
+    def draw(cls, cfg: tp.Any, n: int, action_dim: int,
              generator: torch.Generator, device: torch.device) -> "UpdateNoise":
+        """The draws for ``cfg`` (an FB or discrete FB config); ``action_dim``
+        0 draws no action noise."""
         def normal(*shape: int) -> Tensor:
             return torch.randn(shape, generator=generator, device=device)
 
@@ -123,8 +126,8 @@ class UpdateNoise:
             z_normal=normal(n, cfg.z_dim),
             perm=torch.randperm(n, generator=generator, device=device),
             mix_uniform=uniform(n, 1),
-            next_action_normal=normal(n, action_dim),
-            actor_normal=normal(n, action_dim),
+            next_action_normal=normal(n, action_dim) if action_dim else None,
+            actor_normal=normal(n, action_dim) if action_dim else None,
             z_uniform=None if cfg.norm_z else uniform(n, cfg.z_dim),
             w_uniform=uniform(n, n) if rand_weight else None,
             w_scale=uniform(n, 1) if rand_weight else None,
@@ -136,7 +139,99 @@ def _dot(x: Tensor, z: Tensor) -> Tensor:
     return (x.float() * z.float()).sum(-1)
 
 
-class FBDDPGAgent(ZMetaMixin, nn.Module):
+@torch.no_grad()
+def build_train_z(cfg: tp.Any, backward_net: nn.Module, batch: EpisodeBatch,
+                  noise: UpdateNoise) -> Tensor:
+    """The z of each sample of an update (FB and discrete FB alike): sampled,
+    replaced with probability mix_ratio by B of permuted goals (random
+    convex-ish mixtures of them with rand_weight), and with probability
+    future_ratio by B of the sampled future goal."""
+    z = sample_z(noise.z_normal, noise.z_uniform, cfg.norm_z)
+    backward_input = batch.goal if cfg.goal_space is not None else batch.obs
+    future_goal = (batch.future_goal if cfg.goal_space is not None
+                   else batch.future_obs)
+    backward_input = backward_input[noise.perm]
+
+    if cfg.mix_ratio > 0:
+        b_all = backward_net(backward_input).float()
+        if cfg.rand_weight:
+            # random convex-ish mixtures of the whole batch's B vectors
+            w = noise.w_uniform
+            w = w / torch.linalg.vector_norm(w, dim=1, keepdim=True).clamp_min(1e-12)
+            mix_z = (noise.w_scale * w) @ b_all
+        else:
+            mix_z = b_all
+        if cfg.norm_z:
+            mix_z = l2_normalize(mix_z)
+        z = torch.where(noise.mix_uniform < cfg.mix_ratio, mix_z, z)
+
+    if cfg.future_ratio > 0:
+        assert future_goal is not None, "future_ratio > 0 requires future goals"
+        fut_z = backward_net(future_goal).float()
+        z = torch.where(noise.future_uniform < cfg.future_ratio, fut_z, z)
+    return z
+
+
+class FBMetaMixin(ZMetaMixin):
+    """What FB and discrete FB share around their networks: the device step
+    counter (``step_t``), z sampling, the host-side ``update_meta`` and
+    zero-shot inference through ``backward_net``."""
+
+    @property
+    def step(self) -> int:
+        """Gradient steps taken (reading it waits for the device)."""
+        return int(self.step_t)
+
+    @step.setter
+    def step(self, value: int) -> None:
+        self.step_t.fill_(value)
+
+    # -- z sampling and meta -------------------------------------------
+    def sample_z(self, size: int, generator: torch.Generator) -> Tensor:
+        normal = torch.randn(size, self.cfg.z_dim, generator=generator,
+                             device=self.device)
+        uniform = None if self.cfg.norm_z else torch.rand(
+            size, self.cfg.z_dim, generator=generator, device=self.device)
+        return self.z_from_noise(normal, uniform)
+
+    def z_from_noise(self, normal: Tensor, uniform: tp.Optional[Tensor]) -> Tensor:
+        """``sample_z`` from its draws: a normal and, without norm_z, a uniform."""
+        return sample_z(normal, uniform, self.cfg.norm_z)
+
+    def init_meta(self, generator: torch.Generator) -> MetaDict:
+        return {"z": self.sample_z(1, generator)[0]}
+
+    def update_meta(self, meta: MetaDict, global_step: int,
+                    generator: torch.Generator) -> MetaDict:
+        """Resample z every update_z_every_step environment steps, with
+        probability update_z_proba (the host-side hook; the collector
+        resamples inside its step with ``rollout_update_meta``)."""
+        if global_step % self.cfg.update_z_every_step == 0:
+            new_z = self.sample_z(1, generator)[0]
+            take = torch.rand((), generator=generator, device=self.device) < self.cfg.update_z_proba
+            return {**meta, "z": torch.where(take, new_z, meta["z"])}
+        return meta
+
+    @torch.no_grad()
+    def get_goal_meta(self, goal: Tensor) -> Tensor:
+        """Zero-shot z from a goal state: z = B(g)."""
+        z = self.backward_net(goal[None]).float()
+        if self.cfg.norm_z:
+            z = l2_normalize(z)
+        return z[0]
+
+    @torch.no_grad()
+    def infer_meta_from_obs_and_rewards(self, obs: Tensor, reward: Tensor) -> Tensor:
+        """Zero-shot z from (state, reward) samples: z = rᵀB/N."""
+        b = self.backward_net(obs).float()
+        reward = reward.reshape(-1, 1).float()
+        z = reward.T @ b / reward.shape[0]
+        if self.cfg.norm_z:
+            z = l2_normalize(z)
+        return z[0]
+
+
+class FBDDPGAgent(FBMetaMixin, nn.Module):
     """Networks, target networks and optimizers of one FB agent."""
 
     def __init__(self, cfg: FBDDPGConfig, obs_dim: int, action_dim: int,
@@ -184,15 +279,6 @@ class FBDDPGAgent(ZMetaMixin, nn.Module):
                                                    device=self.device))
         self._stddev = schedule(cfg.stddev_schedule)
 
-    @property
-    def step(self) -> int:
-        """Gradient steps taken (reading it waits for the device)."""
-        return int(self.step_t)
-
-    @step.setter
-    def step(self, value: int) -> None:
-        self.step_t.fill_(value)
-
     def train_state(self) -> tp.Dict[str, Tensor]:
         """Every tensor an update changes, by name and not copied: the five
         networks and the step counter (``state_dict``), and the three Adam
@@ -206,50 +292,6 @@ class FBDDPGAgent(ZMetaMixin, nn.Module):
     def load_train_state(self, state: tp.Mapping[str, Tensor]) -> None:
         """Copy ``state`` (as ``train_state`` names it) into the agent."""
         load_train_state(self, state)
-
-    # -- z sampling and meta -------------------------------------------
-    def sample_z(self, size: int, generator: torch.Generator) -> Tensor:
-        normal = torch.randn(size, self.cfg.z_dim, generator=generator,
-                             device=self.device)
-        uniform = None if self.cfg.norm_z else torch.rand(
-            size, self.cfg.z_dim, generator=generator, device=self.device)
-        return self.z_from_noise(normal, uniform)
-
-    def z_from_noise(self, normal: Tensor, uniform: tp.Optional[Tensor]) -> Tensor:
-        """``sample_z`` from its draws: a normal and, without norm_z, a uniform."""
-        return sample_z(normal, uniform, self.cfg.norm_z)
-
-    def init_meta(self, generator: torch.Generator) -> MetaDict:
-        return {"z": self.sample_z(1, generator)[0]}
-
-    def update_meta(self, meta: MetaDict, global_step: int,
-                    generator: torch.Generator) -> MetaDict:
-        """Resample z every update_z_every_step environment steps, with
-        probability update_z_proba (the host-side hook; the collector
-        resamples inside its step with ``rollout_update_meta``)."""
-        if global_step % self.cfg.update_z_every_step == 0:
-            new_z = self.sample_z(1, generator)[0]
-            take = torch.rand((), generator=generator, device=self.device) < self.cfg.update_z_proba
-            return {**meta, "z": torch.where(take, new_z, meta["z"])}
-        return meta
-
-    @torch.no_grad()
-    def get_goal_meta(self, goal: Tensor) -> Tensor:
-        """Zero-shot z from a goal state: z = B(g)."""
-        z = self.backward_net(goal[None]).float()
-        if self.cfg.norm_z:
-            z = l2_normalize(z)
-        return z[0]
-
-    @torch.no_grad()
-    def infer_meta_from_obs_and_rewards(self, obs: Tensor, reward: Tensor) -> Tensor:
-        """Zero-shot z from (state, reward) samples: z = rᵀB/N."""
-        b = self.backward_net(obs).float()
-        reward = reward.reshape(-1, 1).float()
-        z = reward.T @ b / reward.shape[0]
-        if self.cfg.norm_z:
-            z = l2_normalize(z)
-        return z[0]
 
     # -- eval diagnostics -------------------------------------------------
     @torch.no_grad()
@@ -305,33 +347,8 @@ class FBDDPGAgent(ZMetaMixin, nn.Module):
         return explore_until(action, uniform, step, self.cfg.num_expl_steps)
 
     # -- z construction for the update ----------------------------------
-    @torch.no_grad()
     def _build_train_z(self, batch: EpisodeBatch, noise: UpdateNoise) -> Tensor:
-        cfg = self.cfg
-        z = sample_z(noise.z_normal, noise.z_uniform, cfg.norm_z)
-        backward_input = batch.goal if cfg.goal_space is not None else batch.obs
-        future_goal = (batch.future_goal if cfg.goal_space is not None
-                       else batch.future_obs)
-        backward_input = backward_input[noise.perm]
-
-        if cfg.mix_ratio > 0:
-            b_all = self.backward_net(backward_input).float()
-            if cfg.rand_weight:
-                # random convex-ish mixtures of the whole batch's B vectors
-                w = noise.w_uniform
-                w = w / torch.linalg.vector_norm(w, dim=1, keepdim=True).clamp_min(1e-12)
-                mix_z = (noise.w_scale * w) @ b_all
-            else:
-                mix_z = b_all
-            if cfg.norm_z:
-                mix_z = l2_normalize(mix_z)
-            z = torch.where(noise.mix_uniform < cfg.mix_ratio, mix_z, z)
-
-        if cfg.future_ratio > 0:
-            assert future_goal is not None, "future_ratio > 0 requires future goals"
-            fut_z = self.backward_net(future_goal).float()
-            z = torch.where(noise.future_uniform < cfg.future_ratio, fut_z, z)
-        return z
+        return build_train_z(self.cfg, self.backward_net, batch, noise)
 
     # -- losses ---------------------------------------------------------
     @torch.no_grad()

@@ -316,13 +316,13 @@ class SFConfig:
 @dataclasses.dataclass
 class SFNoise:
     """Every random draw of one update, in the shapes the JAX updates draw
-    them: z's normal, the target policy's and the actor's noise, and, with
-    ``mix_ratio`` > 0, the permutation of the replay goals and the mix
-    mask's uniform."""
+    them: z's normal, the target policy's and the actor's noise (none for
+    discrete SF, which has no actor), and, with ``mix_ratio`` > 0, the
+    permutation of the replay goals and the mix mask's uniform."""
 
     z_normal: Tensor  # [n, z_dim]
-    next_action_normal: Tensor  # [n, action_dim]
-    actor_normal: Tensor  # [n, action_dim]
+    next_action_normal: tp.Optional[Tensor] = None  # [n, action_dim]
+    actor_normal: tp.Optional[Tensor] = None  # [n, action_dim]
     perm: tp.Optional[Tensor] = None  # [n], mix_ratio > 0 only
     mix_uniform: tp.Optional[Tensor] = None  # [n, 1], mix_ratio > 0 only
 
@@ -332,8 +332,9 @@ class SFNoise:
         def normal(*shape: int) -> Tensor:
             return torch.randn(shape, generator=generator, device=device)
 
-        return cls(z_normal=normal(n, z_dim), next_action_normal=normal(n, action_dim),
-                   actor_normal=normal(n, action_dim),
+        return cls(z_normal=normal(n, z_dim),
+                   next_action_normal=normal(n, action_dim) if action_dim else None,
+                   actor_normal=normal(n, action_dim) if action_dim else None,
                    perm=torch.randperm(n, generator=generator, device=device) if mix else None,
                    mix_uniform=torch.rand((n, 1), generator=generator, device=device)
                    if mix else None)

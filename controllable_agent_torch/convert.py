@@ -15,8 +15,11 @@ count). A ``DDPGTrainState`` (``agents/ddpg.py:99``) loads into a
 and the running statistics) into an ``IntrinsicDDPGAgent`` such as RND, an
 ``SFTrainState`` (``agents/sf.py:326``: the networks, the φ learner's tree
 with its target subtrees, three Adam states and ``inv_cov``) into an
-``SFAgent``, and an ``SFSVDTrainState`` (``agents/sf_svd.py:92``) into an
-``SFSVDAgent``; ``load_train_state`` picks by the agent's class. This module reads those
+``SFAgent``, an ``SFSVDTrainState`` (``agents/sf_svd.py:92``) into an
+``SFSVDAgent``, a ``DiscreteFBTrainState`` (``agents/discrete_fb.py:69``)
+into a ``DiscreteFBAgent`` and a ``DiscreteSFTrainState``
+(``agents/discrete_sf.py:40``) into a ``DiscreteSFAgent``;
+``load_train_state`` picks by the agent's class. This module reads those
 objects by attribute, or by key when the
 state is the nested dict of a decoded checkpoint
 (``train/jax_checkpoint.py``: fields by name, tuples by position), and
@@ -32,6 +35,8 @@ import numpy as np
 import torch
 
 from .agents.ddpg import DDPGAgent
+from .agents.discrete_fb import DiscreteFBAgent
+from .agents.discrete_sf import DiscreteSFAgent
 from .agents.exploration import IntrinsicDDPGAgent
 from .agents.fb_ddpg import FBDDPGAgent
 from .agents.sf import SFAgent
@@ -176,9 +181,40 @@ def load_sf_svd_train_state(agent: SFSVDAgent, state: tp.Any) -> None:
     _load_adam(agent.svd_opt, _get(state, "svd_opt_state"))
 
 
+def load_discrete_fb_train_state(agent: DiscreteFBAgent, state: tp.Any) -> None:
+    """Load a JAX ``DiscreteFBTrainState``, or its decoded dict, into
+    ``agent`` (in place)."""
+    for module, name in ((agent.forward_net, "forward_params"),
+                         (agent.backward_net, "backward_params"),
+                         (agent.target_forward_net, "target_forward_params"),
+                         (agent.target_backward_net, "target_backward_params")):
+        module.load_state_dict(flax_to_state_dict(_get(state, name)))
+    agent.step = int(np.asarray(_get(state, "step")))
+    _load_adam(agent.fw_opt, _get(state, "fw_opt_state"))
+    _load_adam(agent.bw_opt, _get(state, "bw_opt_state"))
+
+
+def load_discrete_sf_train_state(agent: DiscreteSFAgent, state: tp.Any) -> None:
+    """Load a JAX ``DiscreteSFTrainState``, or its decoded dict, into
+    ``agent`` (in place); the φ targets' zero moments are dropped, as for SF."""
+    for module, name in ((agent.successor_net, "sf_params"),
+                         (agent.target_successor_net, "target_sf_params"),
+                         (agent.feature_learner, "feature_params")):
+        module.load_state_dict(flax_to_state_dict(_get(state, name)))
+    agent.step = int(np.asarray(_get(state, "step")))
+    _load_adam(agent.sf_opt, _get(state, "sf_opt_state"))
+    if agent.phi_opt is not None:
+        targets = [target for _, target in type(agent.feature_learner).TARGET_PAIRS]
+        _load_adam(agent.phi_opt, _get(state, "phi_opt_state"), skip=targets)
+
+
 def load_train_state(agent: tp.Any, state: tp.Any) -> None:
     """Load the JAX train state of ``agent``'s kind into it."""
-    if isinstance(agent, SFAgent):
+    if isinstance(agent, DiscreteFBAgent):
+        load_discrete_fb_train_state(agent, state)
+    elif isinstance(agent, DiscreteSFAgent):
+        load_discrete_sf_train_state(agent, state)
+    elif isinstance(agent, SFAgent):
         load_sf_train_state(agent, state)
     elif isinstance(agent, SFSVDAgent):
         load_sf_svd_train_state(agent, state)

@@ -1,3 +1,7 @@
-"""Environments of the port: so far the kinematic side only (models, features,
-observations and rewards as functions of stored physics); the dynamics and
-rollouts are ROADMAP Queue A item 9."""
+"""Environments of the port, batched over a leading ``[E]`` axis
+(``envs/base.py``): the planar locomotion domains (``locomotion.py``), the
+point-mass maze (``pointmass.py``) and the gridworld (``gridworld.py``)."""
+
+from .gridworld import GridWorld, build_gridworld_task
+
+__all__ = ["GridWorld", "build_gridworld_task"]

@@ -196,6 +196,45 @@ class ForwardMap(_Net):
             return self.mlps[-2](h), self.mlps[-1](h)
 
 
+class DiscreteForwardMap(_Net):
+    """Twin forward maps for discrete actions: (obs, z) -> two [B, z_dim,
+    n_actions] tensors, one F per action."""
+
+    def __init__(self, obs_dim: int, z_dim: int, n_actions: int, feature_dim: int,
+                 hidden_dim: int, preprocess: bool = False, add_trunk: bool = True,
+                 dtype: torch.dtype = torch.float32) -> None:
+        if preprocess:
+            mlps = [MLP(obs_dim, (hidden_dim, "ntanh", feature_dim, "irelu")),
+                    MLP(feature_dim + z_dim, (hidden_dim, "ntanh", feature_dim, "irelu"))]
+            h_dim = 2 * feature_dim
+            if add_trunk:
+                mlps.append(MLP(h_dim, (hidden_dim, "irelu")))
+                h_dim = hidden_dim
+        else:
+            mlps = [MLP(obs_dim + z_dim,
+                        (hidden_dim, "ntanh", hidden_dim, "irelu", hidden_dim, "irelu"))]
+            h_dim = hidden_dim
+        mlps += [MLP(h_dim, (hidden_dim, "irelu", z_dim * n_actions)),
+                 MLP(h_dim, (hidden_dim, "irelu", z_dim * n_actions))]
+        super().__init__(mlps, dtype)
+        self.z_dim, self.n_actions = z_dim, n_actions
+        self.preprocess, self.add_trunk = preprocess, add_trunk
+
+    def forward(self, obs: torch.Tensor, z: torch.Tensor
+                ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+        assert z.shape[-1] == self.z_dim
+        with self._compute(obs):
+            if self.preprocess:
+                obs_emb = self.mlps[0](obs)
+                h = torch.cat([obs_emb, self.mlps[1](torch.cat([obs_emb, z], dim=-1))], dim=-1)
+                if self.add_trunk:
+                    h = self.mlps[2](h)
+            else:
+                h = self.mlps[0](torch.cat([obs, z], dim=-1))
+            shape = h.shape[:-1] + (self.z_dim, self.n_actions)
+            return self.mlps[-2](h).reshape(shape), self.mlps[-1](h).reshape(shape)
+
+
 class BackwardMap(_Net):
     """Backward map B: goal -> [B, z_dim], optionally sqrt(d)-L2-normalized."""
 

@@ -5,9 +5,13 @@ the port's other entry points share.
     python -m controllable_agent_torch.pretrain agent=fb_ddpg task=walker_walk \
         agent.use_pallas_loss=true agent.compute_dtype=bfloat16 num_train_frames=100000
 
-``agent=NAME`` selects the agent (fb_ddpg, ddpg, rnd, sf, sf_svd;
-``agent=sf`` takes one of thirteen φ learners as ``agent.feature_learner``,
-an unknown one raising ``ValueError`` with the known list); ``agent.*`` keys
+    python -m controllable_agent_torch.pretrain agent=discrete_fb task=grid_simple
+
+``agent=NAME`` selects the agent (fb_ddpg, ddpg, rnd, sf, sf_svd, and on the
+gridworld's ``grid_simple``, ``grid_obstacle`` and ``grid_random_goal``
+tasks discrete_fb and discrete_sf; ``agent=sf`` and ``agent=discrete_sf``
+take one of thirteen φ learners as ``agent.feature_learner``, an unknown
+one raising ``ValueError`` with the known list); ``agent.*`` keys
 override the agent config; every other ``key=value`` overrides the workspace
 config; ``--help`` lists them all. The run (``OnlineWorkspace``) collects
 ``num_envs`` episodes at a time and trains on them as it goes, writing
@@ -15,9 +19,9 @@ config; ``--help`` lists them all. The run (``OnlineWorkspace``) collects
 end, ``test_rewards.json`` into ``folder``; the same command again resumes
 from that checkpoint. ``device=cpu`` runs on the CPU; the default is the
 card. Still raising ``NotImplementedError`` with their ROADMAP item: pixels
-and the quadruped, jaco, grid and d4rl tasks (12), the agents other than
-fb_ddpg, ddpg, rnd, sf and sf_svd (13), ``use_tb``, ``use_wandb`` and
-``profile_dir`` (15).
+and the quadruped, jaco and d4rl tasks (12), the agents other than fb_ddpg,
+ddpg, rnd, sf, sf_svd, discrete_fb and discrete_sf (13), ``use_tb``,
+``use_wandb`` and ``profile_dir`` (15).
 """
 
 from __future__ import annotations
@@ -95,7 +99,8 @@ def print_help(doc: tp.Optional[str]) -> None:
     for name, (cfg_cls, _) in sorted(AGENTS.items()):
         fields = ", ".join(f.name for f in dataclasses.fields(cfg_cls) if f.name != "name")
         print(f"  {name}: {fields}")
-    print(f"\nagent.feature_learner of sf: {', '.join(sorted(FEATURE_LEARNERS))}")
+    print(f"\nagent.feature_learner of sf and discrete_sf: "
+          f"{', '.join(sorted(FEATURE_LEARNERS))}")
 
 
 def wants_help(argv: tp.Sequence[str], doc: tp.Optional[str]) -> bool:

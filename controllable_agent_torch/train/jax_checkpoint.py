@@ -136,7 +136,8 @@ def restore(data: bytes) -> tp.Any:
 def load_agent(path: tp.Union[str, Path], agent: tp.Any) -> tp.Dict[str, int]:
     """Load ``path/agent.msgpack`` (the train state of the agent's kind:
     ``FBTrainState``, ``DDPGTrainState``, ``IntrinsicTrainState``,
-    ``SFTrainState`` or ``SFSVDTrainState``) into
+    ``SFTrainState``, ``SFSVDTrainState``, ``DiscreteFBTrainState`` or
+    ``DiscreteSFTrainState``) into
     ``agent`` in place; returns the counters of ``meta.json``."""
     path = Path(path)
     meta = json.loads((path / "meta.json").read_text())

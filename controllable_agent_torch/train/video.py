@@ -1,11 +1,12 @@
 """Videos of evaluation rollouts (mirror of ``controllable_agent_tpu/train/video.py``).
 
 Frames are drawn from the physics vector by a small numpy rasterizer per
-domain: the point-mass maze's walls and mass, and the planar skeletons of
-walker, cheetah and hopper from forward kinematics over the model's numpy
-constants (``envs/physics2d.PlanarModel``). The drawing is the JAX module's,
-line for line, so both give the same frames to the byte. Nothing here runs
-on the device.
+domain: the gridworld's walls, goal and agent, the point-mass maze's walls
+and mass, and the planar skeletons of walker, cheetah and hopper from
+forward kinematics over the model's numpy constants
+(``envs/physics2d.PlanarModel``). The drawing is the JAX module's, line for
+line, so both give the same frames to the byte. Nothing here runs on the
+device.
 
 ``VideoRecorder.save`` writes an animated PNG with the port's own encoder
 (below), which needs nothing beyond numpy and zlib. The JAX module writes an
@@ -95,14 +96,30 @@ class Renderer:
         self.model: tp.Optional[_NpModel] = None
         if env is not None and hasattr(env, "model"):
             self.model = _NpModel(env.model)
+        # the gridworld's walls
+        self.layout = np.asarray(env.layout) if hasattr(env, "layout") else None
 
     def __call__(self, physics: np.ndarray) -> np.ndarray:
         physics = np.asarray(physics)
+        if self.domain == "grid":
+            return self._grid(physics)
         if self.domain == "point_mass_maze":
             return self._maze(physics)
         if self.model is None:  # no kinematic model
             return _blank()
         return self._locomotion(physics)
+
+    def _grid(self, physics: np.ndarray) -> np.ndarray:
+        img = _blank()
+        cell = 256 // 10
+        if self.layout is not None:
+            for (y, x) in np.argwhere(self.layout == -1):
+                img[y * cell:(y + 1) * cell, x * cell:(x + 1) * cell] = (120, 125, 130)
+        ay, ax, gy, gx = physics[:4]
+        img[int(gy) * cell:int(gy + 1) * cell,
+            int(gx) * cell:int(gx + 1) * cell] = (90, 180, 90)
+        _draw_disk(img, (ay + 0.5) * cell, (ax + 0.5) * cell, cell // 3, (230, 120, 40))
+        return img
 
     def _maze(self, physics: np.ndarray) -> np.ndarray:
         img = _blank()

@@ -16,8 +16,9 @@ the device; the collector draws from a generator of its own
 Parts of the JAX workspace that are not ported raise ``NotImplementedError``
 naming the ROADMAP item that ports them, whenever a config would make them
 fire: TensorBoard/wandb and profiles (item 15), the agents other than
-fb_ddpg, ddpg, rnd, sf and sf_svd (13), pixels, d4rl and the other
-environments (12).
+fb_ddpg, ddpg, rnd, sf, sf_svd, discrete_fb and discrete_sf (13), pixels,
+d4rl and the environments other than the planar ones, the point-mass maze
+and the gridworld (12).
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from ..agents import agent_classes
 from ..config import apply_overrides, to_flat_dict
 from ..data import ReplayBuffer
 from ..envs.base import Environment, EnvSpec
+from ..envs.gridworld import build_gridworld_task
 from ..envs.pointmass import TASKS as _PMM_TASKS
 from ..envs.pointmass import PointMassMaze
 from ..goals import get_goal_space_dim, get_reward_function, goal_spaces, goals
@@ -103,8 +105,11 @@ def _not_ported(what: str, item: int) -> NotImplementedError:
 
 
 def make_env(task: str, episode_length: tp.Optional[int] = None) -> Environment:
-    """Name-based environment dispatch: the point-mass maze, and walker,
-    cheetah and hopper. Other domains are not ported."""
+    """Name-based environment dispatch: the gridworld, the point-mass maze,
+    and walker, cheetah and hopper. Other domains are not ported."""
+    if task.startswith("grid_"):
+        kwargs = {} if episode_length is None else {"max_episode_length": episode_length}
+        return build_gridworld_task(task[len("grid_"):], **kwargs)
     if task.startswith("point_mass_maze_"):
         sub = task[len("point_mass_maze_"):]
         if sub not in _PMM_TASKS and sub != "multi_goal":
@@ -190,7 +195,15 @@ class Workspace:
                      for k, v in agent_cfg_base.items() if k in field_names}
             base_agent_cfg = dataclasses.replace(base_agent_cfg, **fixed)
         self.agent_cfg = apply_overrides(base_agent_cfg, list(agent_cfg_overrides))
-        self.agent = agent_cls(self.agent_cfg, spec.obs_dim, spec.action_dim,
+        # the discrete agents take the number of actions, the others the action's width
+        discrete = getattr(agent_cls, "takes_n_actions", False)
+        if discrete != spec.discrete_actions:
+            raise ValueError(f"agent {cfg.agent_name!r} acts in a "
+                             f"{'discrete' if discrete else 'continuous'} action space; "
+                             f"task {cfg.task!r} has a "
+                             f"{'discrete' if spec.discrete_actions else 'continuous'} one")
+        self.agent = agent_cls(self.agent_cfg, spec.obs_dim,
+                               spec.n_actions if discrete else spec.action_dim,
                                goal_dim=goal_dim, device=self.device, seed=cfg.seed)
         # sized by the first episode loaded: stored episodes may be longer or
         # shorter than the evaluation's episode_length
@@ -224,10 +237,10 @@ class Workspace:
 
     # -- zero-shot task inference ---------------------------------------
     def _init_eval_meta(self) -> MetaDict:
-        """Eval-time meta selection: every path of the JAX
-        ``_init_eval_meta`` that needs no live environment. Returns an
-        (unbatched) meta dict: {meta_key: z} for an agent with a task
-        vector, ``init_meta``'s (empty for DDPG) otherwise."""
+        """Eval-time meta selection, the paths of the JAX ``_init_eval_meta``
+        in its order. Returns an (unbatched) meta dict: {meta_key: z} for an
+        agent with a task vector, ``init_meta``'s (empty for DDPG)
+        otherwise."""
         agent = self.agent
         meta_key = getattr(agent, "meta_key", None)
         can_goal = meta_key is not None and hasattr(agent, "get_goal_meta")
@@ -236,6 +249,12 @@ class Workspace:
         def goal_meta(goal: tp.Any) -> MetaDict:
             g = torch.as_tensor(goal, dtype=torch.float32, device=self.device)
             return {meta_key: agent.get_goal_meta(g)}
+
+        # the gridworld: z = B(the goal's observation) of a reset of its own
+        # (on grid_simple its goal is not the evaluation episodes' goals, as in JAX)
+        if hasattr(self.env, "get_goal_obs") and can_goal:
+            state, _ = self.env.reset(self.generator, 1)
+            return goal_meta(self.env.get_goal_obs(state)[0])
 
         # custom reward with a registered goal
         if self.cfg.custom_reward is not None:

@@ -4,7 +4,8 @@
 Load episodes, either ``replay_dir=`` (a directory of ExORL-format .npz
 episodes) or ``load_replay=`` (the replay of a checkpoint), by default
 relabel their rewards for ``task`` from the stored physics
-(``relabel=false`` keeps the stored rewards), then run gradient steps:
+(``relabel=false`` keeps the stored rewards; the gridworld's tasks have no
+reward functions, so grid episodes take it), then run gradient steps:
 
     python -m controllable_agent_torch.train_offline agent=fb_ddpg \\
         task=walker_walk replay_dir=/path/to/episodes \\

@@ -11,13 +11,15 @@ import pytest
 import torch
 
 from controllable_agent_torch import pretrain
-from controllable_agent_torch.agents import (DDPGAgent, DDPGConfig, DDPGNoise, FBDDPGAgent,
-                                             FBDDPGConfig, RNDAgent, RNDConfig, SFAgent,
-                                             SFConfig, SFSVDAgent, SFSVDConfig, UpdateNoise)
+from controllable_agent_torch.agents import (DDPGAgent, DDPGConfig, DDPGNoise, DiscreteFBAgent,
+                                             DiscreteFBConfig, DiscreteSFAgent, DiscreteSFConfig,
+                                             FBDDPGAgent, FBDDPGConfig, RNDAgent, RNDConfig,
+                                             SFAgent, SFConfig, SFSVDAgent, SFSVDConfig,
+                                             UpdateNoise)
 from controllable_agent_torch.data import ReplayBuffer
 from controllable_agent_torch.data import replay as replay_lib
 from controllable_agent_torch.data.exorl import synthetic_episodes
-from controllable_agent_torch.envs import locomotion, pointmass
+from controllable_agent_torch.envs import build_gridworld_task, gridworld, locomotion, pointmass
 from controllable_agent_torch.envs.wrappers import (ActionRepeatWrapper, FrameStackWrapper,
                                                     StatefulEnv)
 from controllable_agent_torch.goals import get_reward_function
@@ -600,3 +602,108 @@ def test_lstsq_on_the_card_matches_float64(cuda_device, kind) -> None:
     assert float((got - want).norm() / want.norm()) < 1e-4
     if kind == "rank_deficient":
         assert abs(float(got[2] - got[3])) < 1e-4 * float(want.norm())
+
+
+def _grid_buffer(device: torch.device, episodes: int = 8, horizon: int = 50):
+    """``grid_simple`` and a buffer of ``episodes`` random-policy episodes
+    of it, collected on ``device``."""
+    env = build_gridworld_task("simple", max_episode_length=horizon)
+    gen = torch.Generator(device=device).manual_seed(0)
+    state, ts = env.reset(gen, episodes)
+    steps = [ts.to_buffer_dict()]
+    for _ in range(horizon):
+        action = torch.randint(0, 5, (episodes,), generator=gen, device=device).float()
+        state, ts = env.step(state, action)
+        steps.append(ts.to_buffer_dict())
+    buf = ReplayBuffer(episodes, discount=0.98, future=0.99, device=device)
+    buf.add_trajectory({k: torch.stack([s[k] for s in steps]) for k in steps[0]}, horizon)
+    return env, buf
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["simple", "obstacle", "random_goal"])
+def test_gridworld_on_the_card_equals_the_cpu(cuda_device, layout) -> None:
+    """Every observation type, 256 environments, 60 steps of the same
+    actions on the card and on the CPU: equal to the bit."""
+    actions = torch.from_numpy(np.random.RandomState(1).randint(0, 5, (60, 256))).float()
+    for obs_type in gridworld.OBSERVATION_TYPES:
+        env = build_gridworld_task(layout, observation_type=obs_type, max_episode_length=40,
+                                   penalty_for_walls=-0.5)
+        goals, _ = env.reset(torch.Generator().manual_seed(2), 256)
+        runs = []
+        for device in (cuda_device, torch.device("cpu")):
+            state, ts = env.reset_with_goals(goals.goal.to(device))
+            out = [ts]
+            for a in actions:
+                state, ts = env.step(state, a.to(device))
+                out.append(ts)
+            runs.append(out + [env.get_goal_obs(state)])
+        for got, want in zip(*runs):
+            if isinstance(want, torch.Tensor):
+                assert torch.equal(got.cpu(), want), obs_type
+                continue
+            for field in ("observation", "reward", "discount", "physics", "step_type", "action"):
+                assert torch.equal(getattr(got, field).cpu(), getattr(want, field)), (obs_type,
+                                                                                     field)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["discrete_fb", "discrete_sf"])
+def test_captured_grid_rollout_and_collector_equal_eager(cuda_device, name) -> None:
+    """The evaluation rollout (greedy) and the collector (ε-greedy, z
+    resampled inside the episode) of a discrete agent on the gridworld, as
+    replays of one captured control step against the same steps run
+    eagerly: equal to the bit."""
+    env = build_gridworld_task("simple", max_episode_length=24)
+    agent = (DiscreteFBAgent(DiscreteFBConfig(**ONLINE_SMALL, update_z_every_step=7), 2, 5,
+                             device=cuda_device, seed=1) if name == "discrete_fb" else
+             DiscreteSFAgent(DiscreteSFConfig(**ONLINE_SMALL, update_z_every_step=7), 2, 5,
+                             device=cuda_device, seed=1))
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    z = agent.sample_z(6, gen)
+    state, ts = env.reset(gen, 6)
+    got = [x.clone() for x in Rollout(env, agent, 6)(z, state, ts)]
+    want = Rollout(env, agent, 6, capture=False)(z, state, ts)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    gens = [torch.Generator(device=cuda_device).manual_seed(9) for _ in range(2)]
+    runs = []
+    for collector, g in ((EpisodeCollector(env, agent, 4, gens[0]), gens[0]),
+                         (EpisodeCollector(env, agent, 4, gens[1], capture=False), gens[1])):
+        meta = init_meta_batched(agent, g, 4)
+        state, ts = env.reset(g, 4)
+        runs.append({k: v.clone() for k, v in collector(meta, state, ts, 0).items()})
+    for key, value in runs[1].items():
+        assert torch.equal(runs[0][key], value), key
+    actions = runs[0]["action"][1:]
+    assert bool((actions == actions.round()).all()) and len(actions.unique()) > 1
+    assert not torch.equal(runs[0]["z"][1], runs[0]["z"][20])
+    assert torch.equal(gens[0].get_state(), gens[1].get_state())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["fb", "fb_argmax", "fb_q_loss", "sf_icm", "sf_identity"])
+def test_captured_discrete_updates_equal_eager(cuda_device, case) -> None:
+    """Four updates of each discrete agent through the captured trainer and
+    eagerly from the same generator state: equal to the bit; discrete FB's
+    ``q_loss`` runs its pseudo-inverse eagerly between two graphs."""
+    _, buf = _grid_buffer(cuda_device)
+    small = dict(hidden_dim=64, backward_hidden_dim=64, feature_dim=32, z_dim=16, batch_size=128)
+    cfg = {"fb": DiscreteFBConfig(**small),
+           "fb_argmax": DiscreteFBConfig(**small, boltzmann=False),
+           "fb_q_loss": DiscreteFBConfig(**small, q_loss=True),
+           "sf_icm": DiscreteSFConfig(**small),
+           "sf_identity": DiscreteSFConfig(**small, feature_learner="identity")}[case]
+    agent_cls = DiscreteFBAgent if case.startswith("fb") else DiscreteSFAgent
+    agents = [agent_cls(cfg, 2, 5, device=cuda_device, seed=0) for _ in range(2)]
+    gens = [torch.Generator(device=cuda_device).manual_seed(5) for _ in range(2)]
+    trainers = [make_offline_trainer(agents[0], buf.cfg, cfg.batch_size, 4),
+                make_offline_trainer(agents[1], buf.cfg, cfg.batch_size, 4, capture=False)]
+    metrics = [trainer(buf.state, gen) for trainer, gen in zip(trainers, gens)]
+    program = trainers[0]._program
+    assert program is not None and len(program.graphs) == (2 if case == "fb_q_loss" else 1)
+    assert agents[0].step == agents[1].step == 4
+    for k, v in agents[1].train_state().items():
+        assert torch.equal(agents[0].train_state()[k], v), k
+    assert torch.equal(gens[0].get_state(), gens[1].get_state())
+    for k, v in metrics[1].items():
+        assert torch.equal(metrics[0][k], v), k

@@ -6,6 +6,7 @@ folder; the directed-rollout mix (the port of
 
 import csv
 import json
+import re
 
 import numpy as np
 import pytest
@@ -118,10 +119,11 @@ def test_the_explorers_pretrain_online(tmp_path, agent) -> None:
 
 
 def test_the_registry_names_what_is_ported() -> None:
-    assert sorted(AGENTS) == ["ddpg", "fb_ddpg", "rnd", "sf", "sf_svd"]
+    ported = ["ddpg", "discrete_fb", "discrete_sf", "fb_ddpg", "rnd", "sf", "sf_svd"]
+    assert sorted(AGENTS) == ported
     with pytest.raises(NotImplementedError, match="item 13"):
         pretrain.build_workspace(["agent=diayn", "device=cpu"])
-    with pytest.raises(ValueError, match="known: \\['ddpg', 'fb_ddpg', 'rnd', 'sf', 'sf_svd'\\]"):
+    with pytest.raises(ValueError, match=re.escape(f"known: {ported}")):
         pretrain.build_workspace(["agent=nope", "device=cpu"])
 
 

@@ -41,7 +41,10 @@ def test_port_imports_nothing_of_jax(path) -> None:
 def test_port_has_modules_to_check() -> None:
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     assert {"controllable_agent_torch/ops/fused_fb.py", "controllable_agent_torch/_build.py",
-            "controllable_agent_torch/train_offline.py", "chip_smoke.py"} <= names
+            "controllable_agent_torch/train_offline.py", "chip_smoke.py",
+            "controllable_agent_torch/envs/gridworld.py",
+            "controllable_agent_torch/agents/discrete_fb.py",
+            "controllable_agent_torch/agents/discrete_sf.py"} <= names
 
 
 def _functions() -> dict:
