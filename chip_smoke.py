@@ -2,8 +2,8 @@
 
     python3 chip_smoke.py
 
-Drives ``controllable_agent_torch`` (and nothing of the JAX package) in nineteen
-phases, each printed on its own line; any failure exits non-zero:
+Drives ``controllable_agent_torch`` (and nothing of the JAX package) in
+twenty-two phases, each printed on its own line; any failure exits non-zero:
 
   1. build the CUDA kernels of ``controllable_agent_torch/csrc`` with nvcc;
   2. hold each of the two fused-FB-loss kernels (the forward's four sums,
@@ -117,7 +117,35 @@ phases, each printed on its own line; any failure exits non-zero:
      agent=discrete_fb task=grid_obstacle`` and ``pretrain.main
      agent=discrete_sf task=grid_simple`` for a seed cycle and a training
      cycle. No fused FB kernel is on this path: their launches over phases
-     17-19 must be 0 by both counts.
+     17-19 must be 0 by both counts;
+ 20. the 3-D engine on the card: ``forward_dynamics`` and one control step of
+     the quadruped on flat ground, on an escape terrain and of jaco on 4,096
+     random states against float64 on the CPU (``tools/dynamics_check.py``,
+     each model's allowance); for each of the eight quadruped tasks and
+     jaco, a full-width FB policy's rollout of 10 episodes over 20 steps as
+     replays of one captured control step against eager, to the bit; the
+     kernel launches and device ms per control step of stand, escape, fetch
+     and jaco under the profiler; ``env.step`` alone at 10, 1,024 and 16,384
+     environments for stand, escape and fetch (``tools/env_step.py``), and
+     one copy of 16,384 escape terrains beside escape's step;
+ 21. this slice's main path, the recipe of ``results/quad_one`` with only
+     the cycles and the cycle's size short: ``train_online.main``
+     ``agent=fb_ddpg task=quadruped_stand goal_space=quad_pos_speed`` at
+     full width (hidden 1024, feature 512, backward hidden 526, z 50, batch
+     1024) in bf16 with ``agent.use_pallas_loss=true``, three cycles of 4
+     episodes x 1,000 steps and 2,000 updates; per cycle the collection's
+     seconds and share and the updates/s; one capture of the update program;
+     the fused kernels' launches by the wrappers' count and by the kernels'
+     own, equal and > 0; then ``evaluate()`` (10 episodes, its video) and
+     ``finalize()`` into ``test_rewards.json`` with exactly the four rows of
+     the quadruped's battery, finite and in [0, 1000], each timed;
+ 22. the other entry points of the slice: ``pretrain agent=fb_ddpg
+     task=jaco_reach_top_left`` (4 environments x 250 steps, a seed cycle and
+     a cycle of 500 updates; ``finalize()`` returns ``{}``), ``train_offline``
+     on phase 21's replay relabeled for ``quadruped_walk`` (400 captured
+     updates, the relabeled rewards against the reward function), and
+     ``anytrain`` on ``quadruped_fetch`` and ``quadruped_escape`` for one
+     cycle of 2,000 updates each.
 
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -154,8 +182,8 @@ from controllable_agent_torch.models.networks import l2_normalize
 from controllable_agent_torch.ops.linalg import lstsq, pinv
 from controllable_agent_torch.ops import fused_fb as ff
 from controllable_agent_torch.pretrain import build_workspace
-from controllable_agent_torch.train.workspace import OfflineWorkspace
-from controllable_agent_torch.tools import dynamics_check
+from controllable_agent_torch.train.workspace import OfflineWorkspace, make_env
+from controllable_agent_torch.tools import dynamics_check, env_step
 from controllable_agent_torch.train.loops import (WARMUP_RUNS, CapturedProgram,
                                                   EpisodeCollector, Rollout, init_meta_batched,
                                                   make_offline_trainer)
@@ -203,6 +231,15 @@ GRID_SIZES = (10, 1024, 16384)  # phase 17: environments advanced together
 GRID_EPISODES = 64  # phase 18: random-policy episodes of grid_simple in the replay
 GRID_CYCLE_STEPS = ONLINE_ENVS * GRID_LENGTH  # phase 19: environment steps of one cycle
 GRID_CYCLES = 4  # phase 19: a seed cycle, then three of 400 updates
+QUAD_TASKS = tuple(f"quadruped_{t}" for t in ("stand", "walk", "run", "jump", "roll",
+                                                "roll_fast", "escape", "fetch"))
+QUAD_BATTERY = tuple(f"quadruped_{t}" for t in ("stand", "walk", "run", "jump"))
+QUAD_STEP_TASKS = ("quadruped_stand", "quadruped_escape", "quadruped_fetch")  # phase 20
+QUAD_PROFILED = QUAD_STEP_TASKS + ("jaco_reach_top_left",)
+QUAD_CYCLES, QUAD_UPDATES = 3, 2000  # phase 21
+QUAD_REPLAY_EPISODES = 2000  # results/quad_one's replay_buffer_episodes
+JACO_LENGTH = 250  # phase 22
+QUAD_OFFLINE_UPDATES = 400  # phase 22: train_offline on phase 21's replay
 F32_EPS = float(torch.finfo(torch.float32).eps)
 HBM_BYTES_PER_S = 3.35e12
 FWD_RTOL = 2e-4  # as tests/test_pallas_fb.py: order of f32 sums over n^2
@@ -333,12 +370,14 @@ def read_csv(path: tp.Any) -> tp.List[tp.Dict[str, str]]:
         return list(csv.DictReader(f))
 
 
-def check_test_rewards(ws: tp.Any, returned: tp.Any = None) -> tp.Dict[str, tp.List[float]]:
-    """``test_rewards.json`` of the workspace: the four walker tasks with
-    FINAL_TESTS finite returns each inside [0, episode_length]."""
+def check_test_rewards(ws: tp.Any, returned: tp.Any = None,
+                       tasks: tp.Tuple[str, ...] = WALKER_TASKS) -> tp.Dict[str, tp.List[float]]:
+    """``test_rewards.json`` of the workspace: the domain's battery (the
+    four walker tasks by default) with FINAL_TESTS finite returns each inside
+    [0, episode_length]."""
     horizon = ws.spec.episode_length
     written = json.loads((ws.work_dir / "test_rewards.json").read_text())
-    if (returned is not None and written != returned) or tuple(written) != WALKER_TASKS \
+    if (returned is not None and written != returned) or tuple(written) != tasks \
             or not all(len(v) == FINAL_TESTS
                        and all(math.isfinite(r) and 0.0 <= r <= horizon for r in v)
                        for v in written.values()):
@@ -749,7 +788,7 @@ def _timed(fn: tp.Callable[[], tp.Any]) -> tp.Tuple[tp.Any, float]:
 
 
 def profile_rollout(rollout: Rollout, z: torch.Tensor, state: tp.Any, ts: tp.Any,
-                    substeps: int) -> None:
+                    substeps: int, phase: str = "phase 11") -> None:
     """A ``torch.profiler`` trace of one captured rollout of COMPARED_STEPS
     steps: launches and device time per control step, the busy share, and
     the kernels that take most of the device time."""
@@ -763,7 +802,7 @@ def profile_rollout(rollout: Rollout, z: torch.Tensor, state: tp.Any, ts: tp.Any
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
-    print(f"phase 11 profile E={rollout.num_envs}: {COMPARED_STEPS} control steps in "
+    print(f"{phase} profile E={rollout.num_envs}: {COMPARED_STEPS} control steps in "
           f"{graph_launches} graph launches: {len(kernels) / COMPARED_STEPS:.1f} kernel launches "
           f"and {1e-3 * busy_us / COMPARED_STEPS:.4f} ms of device time per control step "
           f"({substeps} substeps), {1e3 * wall / COMPARED_STEPS:.3f} ms of wall time per step "
@@ -1558,6 +1597,202 @@ def run_grid_entry_points(tmp: str) -> None:
 
 
 
+def check_3d_engine() -> None:
+    """Phase 20: the 3-D engine's dynamics on the card against float64, the
+    captured control step of every quadruped task and of jaco against eager,
+    launches and device time per control step, and ``env.step``'s rate."""
+    card = card_name_and_power_limit()
+    for domain in dynamics_check.DOMAINS_3D:
+        pressed, held = dynamics_check.check_domain(domain, DYNAMICS_STATES, "cuda", SEED)
+        allowed, factor = dynamics_check.ALLOWANCES.get(
+            domain, (dynamics_check.STEP_OUTLIERS, dynamics_check.OUTLIER_FACTOR))
+        ok = all(h.ok for h in held)
+        print(f"phase 20 dynamics {domain}: {DYNAMICS_STATES} states, {pressed:.2f} of them "
+              f"with a contact pressed, card float32 against CPU float64 (tolerances "
+              f"{dynamics_check.DYNAMICS_TOL} and {dynamics_check.STEP_TOL} of the largest "
+              f"entry, by state; after a step {allowed} of the states may miss, within "
+              f"{factor:.0f}x): " + "; ".join(str(h) for h in held) + (" ok" if ok else " FAIL"))
+        if not ok:
+            raise AssertionError(f"the {domain}'s dynamics on the card disagree with the CPU's")
+
+    for task in QUAD_TASKS + ("jaco_reach_top_left",):
+        env = make_env(task, COMPARED_STEPS)
+        agent = FBDDPGAgent(FBDDPGConfig(compute_dtype="bfloat16"), env.spec.obs_dim,
+                            env.spec.action_dim, device="cuda", seed=SEED)
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        z = agent.sample_z(EVAL_EPISODES, gen)
+        state, ts = env.reset(gen, EVAL_EPISODES)
+        captured = Rollout(env, agent, EVAL_EPISODES)
+        eager = Rollout(env, agent, EVAL_EPISODES, capture=False)
+        got = [x.clone() for x in captured(z, state, ts)]
+        eager(z, state, ts)  # warm-up
+        want, eager_s = _timed(lambda: eager(z, state, ts))
+        _, captured_s = _timed(lambda: captured(z, state, ts))
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, want))
+        finite = bool(torch.isfinite(got[1]).all())
+        print(f"phase 20 captured vs eager {task}: FB at full width (bf16), {COMPARED_STEPS} "
+              f"control steps x {EVAL_EPISODES} episodes from the same states: equal to the "
+              f"bit {bitwise}, finite {finite}; eager {1e3 * eager_s / COMPARED_STEPS:.3f} ms "
+              f"per control step, captured {1e3 * captured_s / COMPARED_STEPS:.3f}, on {card}")
+        if not (bitwise and finite):
+            raise AssertionError(f"{task}: the captured control step disagrees with the eager one")
+        if task in QUAD_PROFILED:
+            profile_rollout(captured, z, state, ts, env.n_substeps, f"phase 20 {task}")
+        del agent, captured, eager, got, want
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for task in QUAD_STEP_TASKS:
+        env = make_env(task)
+        for envs in ROLLOUT_SIZES:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t = env_step.step_timing(env, envs, gen)
+            print(f"phase 20 env.step {task} E={envs}: {t.steps_per_s:.0f} environment steps/s "
+                  f"({t.replay_ms:.4f} ms per replay of the captured step); eager "
+                  f"{t.launches} launches and {t.device_ms:.4f} ms of device time per step "
+                  f"({env.n_substeps} substeps) under the profiler; captured equal to eager "
+                  f"{t.bitwise}; peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f}"
+                  f" MiB, on {card}")
+            if not t.bitwise:
+                raise AssertionError(f"{task} E={envs}: the captured env.step differs")
+    copy_ms = env_step.terrain_copy_ms(ROLLOUT_SIZES[-1], gen)
+    print(f"phase 20 escape terrain at E={ROLLOUT_SIZES[-1]}: one copy of the "
+          f"{ROLLOUT_SIZES[-1] * 101 * 101 * 4 / 1e6:.0f} MB of terrains {copy_ms:.4f} ms (the "
+          f"step hands the same tensor on, so the loops' copies of the state skip it), on {card}")
+
+
+def quad_args(folder: str, *extra: str) -> tp.List[str]:
+    """The quadruped runs' common arguments: FB at full width, bf16, the
+    fused loss, 10 evaluation episodes and a battery of 10 per task."""
+    return ["agent=fb_ddpg", "agent.use_pallas_loss=true", "agent.compute_dtype=bfloat16",
+            f"num_eval_episodes={EVAL_EPISODES}", f"final_tests={FINAL_TESTS}",
+            f"folder={folder}", f"seed={SEED}", *extra]
+
+
+def run_quadruped(tmp: str) -> tp.Tuple[tp.Dict[str, int], tp.Any]:
+    """Phase 21: ``train_online`` on the quadruped with ``quad_pos_speed``
+    at full width, then ``evaluate()`` and ``finalize()``."""
+    card = card_name_and_power_limit()
+    frames = QUAD_CYCLES * CYCLE_STEPS
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    ff.reset_launches()
+    ws, wall = _timed(lambda: train_online.main(quad_args(
+        f"{tmp}/quad", "task=quadruped_stand", "goal_space=quad_pos_speed",
+        f"num_rollout_episodes={ONLINE_ENVS}", f"num_agent_updates={QUAD_UPDATES}",
+        f"num_train_frames={frames}", "eval_every_steps=0",
+        f"replay_buffer_episodes={QUAD_REPLAY_EPISODES}")))
+    counts, ran = dict(ff.launches), ff.device_runs()
+    peak = torch.cuda.max_memory_allocated()
+    rows = read_csv(ws.work_dir / "train.csv")
+    updates = sum(int(t["updates"]) for t in ws.cycle_timings)
+    for i, (timing, row) in enumerate(zip(ws.cycle_timings, rows)):
+        collect, update = timing["collect"], timing["update"]
+        print(f"phase 21 cycle {i + 1}: {collect + update:.3f} s: collection of {ONLINE_ENVS} x "
+              f"{EPISODE_LENGTH} steps {collect:.3f} s ({ONLINE_ENVS * EPISODE_LENGTH / collect:.0f}"
+              f" environment steps/s{', the capture of the control step included' if i == 0 else ''}"
+              f"), {int(timing['updates'])} updates and the commit {update:.3f} s "
+              f"({timing['updates'] / update:.1f} updates/s"
+              f"{', the capture of the update included' if i == 0 else ''}); collection "
+              f"{collect / (collect + update):.4f} of the cycle; episode_reward "
+              f"{float(row['episode_reward']):.2f}, fb_loss {float(row['fb_loss']):.4f}")
+    captures = ws.trainer.captures
+    expected = updates + WARMUP_RUNS
+    print(f"phase 21 train_online agent=fb_ddpg task=quadruped_stand goal_space=quad_pos_speed: "
+          f"{QUAD_CYCLES} cycles, {ws.global_step} environment steps, {updates} updates in "
+          f"{wall:.1f} s (finalize() and the checkpoint included); the update program captured "
+          f"{captures} time(s) across {len(ws.buffer)} committed episodes; fused launches "
+          f"{counts} by the wrappers' counts = {updates} replayed updates + {WARMUP_RUNS} eager "
+          f"warm-up runs; {ran} by the kernels' own count in device memory; peak device memory "
+          f"{peak / 2**20:.1f} MiB, {(peak - held) / 2**20:.1f} above the {held / 2**20:.1f} "
+          f"held before, on {card}")
+    if captures != 1 or ws.agent.step != updates or updates != QUAD_CYCLES * QUAD_UPDATES \
+            or any(c != expected for c in counts.values()) or ran != counts \
+            or not all(c > 0 for c in counts.values()) or ws.global_step != frames \
+            or len(ws.buffer) != QUAD_CYCLES * ONLINE_ENVS \
+            or not all(math.isfinite(v) for v in ws.last_row.values()):
+        raise AssertionError(f"quadruped run: captures {captures}, agent step {ws.agent.step}, "
+                             f"launches {counts}, device runs {ran}, row {ws.last_row}")
+    metrics, eval_s = _timed(ws.evaluate)
+    video = ws.work_dir / "eval_video" / f"{ws.global_step}.png"
+    print(f"phase 21 evaluate: {EVAL_EPISODES} episodes x {EPISODE_LENGTH} steps in {eval_s:.3f} s "
+          f"(the capture of the control step, z inferred from the replay ({ws.cfg.z_inference_draws}"
+          f" draws), the csv row and the video included): episode_reward "
+          f"{metrics['episode_reward']:.2f}, z_norm {metrics['z_norm']:.4f}, phys_up_mean "
+          f"{metrics['phys_up_mean']:.4f}; video {video.stat().st_size} bytes, on {card}")
+    if not (all(math.isfinite(v) for v in metrics.values())
+            and 0.0 <= metrics["episode_reward"] <= EPISODE_LENGTH and video.stat().st_size > 0):
+        raise AssertionError(f"bad quadruped evaluation: {metrics}")
+    rewards, final_s = _timed(ws.finalize)
+    written = check_test_rewards(ws, rewards, QUAD_BATTERY)
+    print(f"phase 21 finalize: {len(QUAD_BATTERY)} tasks x {FINAL_TESTS} episodes x "
+          f"{EPISODE_LENGTH} steps in one batch of {len(QUAD_BATTERY) * FINAL_TESTS} in "
+          f"{final_s:.3f} s; test_rewards.json mean returns "
+          + ", ".join(f"{t} {np.mean(written[t]):.2f}" for t in QUAD_BATTERY) + f", on {card}")
+    return counts, ws
+
+
+def run_quadruped_paths(tmp: str) -> None:
+    """Phase 22: jaco through ``pretrain``, ``train_offline`` on phase 21's
+    replay relabeled for ``quadruped_walk``, ``anytrain`` on fetch and escape."""
+    card = card_name_and_power_limit()
+    jaco_cycle = ONLINE_ENVS * JACO_LENGTH
+    jaco_ws, wall = _timed(lambda: pretrain.main(quad_args(
+        f"{tmp}/jaco", "task=jaco_reach_top_left", f"num_envs={ONLINE_ENVS}",
+        f"num_seed_frames={jaco_cycle}", f"num_train_frames={2 * jaco_cycle}",
+        "eval_every_steps=0")))
+    battery = jaco_ws.finalize()
+    jaco_rows = read_csv(jaco_ws.work_dir / "train.csv")
+    print(f"phase 22 pretrain agent=fb_ddpg task=jaco_reach_top_left: {ONLINE_ENVS} x "
+          f"{JACO_LENGTH} steps per cycle, a seed cycle and a cycle of {jaco_ws.agent.step} "
+          f"updates in {wall:.1f} s; collection {jaco_ws.cycle_timings[-1]['collect']:.3f} s of "
+          f"the last cycle; episode_reward "
+          + ", ".join(f"{float(r['episode_reward']):.3f}" for r in jaco_rows)
+          + f"; finalize() {battery}, test_rewards.json written "
+          f"{(jaco_ws.work_dir / 'test_rewards.json').exists()}, on {card}")
+    if jaco_ws.agent.step != jaco_cycle // 2 or battery != {} \
+            or (jaco_ws.work_dir / "test_rewards.json").exists() \
+            or not all(math.isfinite(v) for v in jaco_ws.last_row.values()):
+        raise AssertionError(f"the jaco run: agent step {jaco_ws.agent.step}, {battery}")
+    del jaco_ws
+
+    offline, wall = _timed(lambda: train_offline.main(quad_args(
+        f"{tmp}/quad_offline", "task=quadruped_walk", "goal_space=quad_pos_speed",
+        f"load_replay={tmp}/quad/models/latest", "relabel=true",
+        f"num_grad_steps={QUAD_OFFLINE_UPDATES}", f"steps_per_call={STEPS_PER_CALL}",
+        f"log_every_steps={STEPS_PER_CALL}", "eval_every_steps=0", "final_tests=0",
+        f"replay_buffer_episodes={QUAD_REPLAY_EPISODES}")))
+    storage, lengths = offline.buffer.state.storage, offline.buffer.state.ep_lengths
+    n = int(lengths[0])
+    want = get_reward_function("quadruped_walk").from_physics(storage["physics"][0, 1:n + 1])
+    relabeled = torch.equal(storage["reward"][0, 1:n + 1, 0], want)
+    print(f"phase 22 train_offline task=quadruped_walk on phase 21's replay ({len(offline.buffer)}"
+          f" episodes) relabeled from the stored physics (equal to the reward function to the "
+          f"bit {relabeled}): {offline.global_step} captured updates in {wall:.1f} s, "
+          f"{offline.last_row['fps']:.1f} updates/s in the last window, fb_loss "
+          f"{offline.last_row['fb_loss']:.4f}, inferred z finite "
+          f"{bool(torch.isfinite(offline.inferred_z).all())}, on {card}")
+    if offline.global_step != QUAD_OFFLINE_UPDATES or not relabeled \
+            or not bool(torch.isfinite(offline.inferred_z).all()):
+        raise AssertionError("the offline quadruped run")
+    del offline
+
+    for task in ("quadruped_fetch", "quadruped_escape"):
+        run, wall = _timed(lambda: anytrain.main(quad_args(
+            f"{tmp}/{task}", f"task={task}", f"num_envs={ONLINE_ENVS}", "num_seed_frames=0",
+            f"num_train_frames={CYCLE_STEPS}", "eval_every_steps=0", "final_tests=0")))
+        timing = run.cycle_timings[0]
+        row = run.last_row
+        print(f"phase 22 anytrain task={task}: one cycle of {ONLINE_ENVS} x {EPISODE_LENGTH} "
+              f"steps (collection {timing['collect']:.3f} s, the capture included) and "
+              f"{run.agent.step} updates ({timing['update']:.3f} s) in {wall:.1f} s; "
+              f"episode_reward {row['episode_reward']:.2f}, fb_loss {row['fb_loss']:.4f}, "
+              f"on {card}")
+        if run.agent.step != CYCLE_STEPS // 2 or not all(math.isfinite(v) for v in row.values()):
+            raise AssertionError(f"{task}: agent step {run.agent.step}, row {row}")
+        del run
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1630,7 +1865,30 @@ def main() -> int:
         for row in rows:
             row["launches_by_path"]["grid (phases 17-19)"] = grid_counts[row["wrapper"]]
 
-    print(f"total: {time.perf_counter() - started:.1f} s for phases 1-19, the build included")
+        # this slice's path: the 3-D engine, and FB trained online on the quadruped
+        check_3d_engine()
+        gc.collect()
+        torch.cuda.empty_cache()
+        quad_counts, quad_ws = run_quadruped(tmp)
+        for row in rows:
+            row["launches"] = quad_counts[row["wrapper"]]
+            row["launches_by_path"]["quadruped train_online (phase 21)"] = \
+                quad_counts[row["wrapper"]]
+        del quad_ws
+        gc.collect()
+        torch.cuda.empty_cache()
+        ff.reset_launches()
+        run_quadruped_paths(tmp)
+        other_counts, other_runs = dict(ff.launches), ff.device_runs()
+        print(f"phase 22: fused FB launches {other_counts} by the wrappers' counts, "
+              f"{other_runs} by the kernels' own")
+        if other_runs != other_counts or not all(other_counts.values()):
+            raise AssertionError(f"phase 22's fused launches: {other_counts}, {other_runs}")
+        for row in rows:
+            row["launches_by_path"]["jaco, quadruped train_offline, fetch, escape (phase 22)"] = \
+                other_counts[row["wrapper"]]
+
+    print(f"total: {time.perf_counter() - started:.1f} s for phases 1-22, the build included")
     print(json.dumps({"kernels": rows}))
     print(f"card: {card_name_and_power_limit()}")
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,8 @@
 """Native task rewards by name (mirror of
 ``controllable_agent_tpu/envs/dmc_tasks.py``).
 
-Every locomotion task reward is a batched function of the physics tensor,
-so relabeling needs no state replay. Quadruped and jaco tasks wait for
-their environments (ROADMAP Queue A item 12).
+Every walker, cheetah, hopper, quadruped and jaco task reward is a batched
+function of the physics tensor, so relabeling needs no state replay.
 """
 
 from __future__ import annotations
@@ -18,17 +17,21 @@ from . import locomotion
 
 
 class TaskReward(BaseReward):
-    """reward_from_physics of a named walker, cheetah or hopper task."""
+    """reward_from_physics of a named walker, cheetah, hopper, quadruped or
+    jaco task."""
 
     def __init__(self, name: str, seed: tp.Optional[int] = None) -> None:
         super().__init__(seed)
         self.name = name
-        if name.startswith("quadruped_") or name.startswith("jaco_"):
-            raise NotImplementedError(
-                f"task reward {name!r}: the quadruped and jaco environments are "
-                "not ported to controllable_agent_torch yet (ROADMAP Queue A "
-                "item 12)")
-        self._env = locomotion.make(name)
+        self._env: tp.Any
+        if name.startswith("quadruped_"):
+            from . import quadruped
+            self._env = quadruped.make(name)
+        elif name.startswith("jaco_"):
+            from . import jaco
+            self._env = jaco.make(name)
+        else:
+            self._env = locomotion.make(name)
 
     def get_goal(self, goal_space: str) -> np.ndarray:
         from ..goals.registry import goals

@@ -8,8 +8,9 @@ code injection) and WalkerRandomReward.
 
 ``from_physics`` is batched and stays on its input's device: it maps a
 ``[..., physics_dim]`` tensor to ``[...]`` rewards, so relabeling a whole
-buffer is one pass where the buffer lives. The two quadruped rewards wait
-for the quadruped's features (ROADMAP Queue A item 12).
+buffer is one pass where the buffer lives. ``QuadrupedReward`` and
+``QuadrupedPosReward`` draw the numpy random numbers of the JAX package's in
+the same order, so one seed gives the same case and targets.
 """
 
 from __future__ import annotations
@@ -105,6 +106,84 @@ class MazeMultiGoal(BaseReward):
         distance = torch.linalg.vector_norm(d, dim=-1)
         reward = tolerance(distance, bounds=(0.0, target_size), margin=target_size)
         return reward, distance
+
+
+@functools.cache
+def _quadruped_env() -> tp.Any:
+    from ..envs import quadruped  # deferred: the reward zoo imports without the environments
+    return quadruped.make("quadruped_stand")
+
+
+def _quad_features(physics: Tensor) -> Tensor:
+    """[up, 0, x, y, z, vx, vy, vz] of quadruped physics, batched."""
+    return _quadruped_env().goal_features(torch.as_tensor(physics))
+
+
+def _inv(distance: Tensor) -> Tensor:
+    return 1.0 / (1.0 + torch.abs(distance))
+
+
+class QuadrupedReward(BaseReward):
+    """One of 7 random mixed rewards over the quadruped's position, speed
+    and quadrant, drawn by the seed, on the feature layout [up, 0, x, y, z,
+    vx, vy, vz]."""
+
+    NUM_CASES = 7
+
+    def __init__(self, seed: tp.Optional[int] = None) -> None:
+        super().__init__(seed)
+        self.x = self._rng.uniform(-5, 5, size=2)
+        self.vx = self._rng.uniform(-3, 3, size=2)
+        self.quadrant = self._rng.choice([1, -1], size=2, replace=True)
+        self.speed = float(np.linalg.norm(self.vx))
+        self._case = self._rng.randint(self.NUM_CASES)
+
+    def from_physics(self, physics: Tensor) -> Tensor:
+        feats = _quad_features(physics)
+
+        def const(value: tp.Any) -> Tensor:
+            return torch.as_tensor(np.asarray(value, np.float32), device=feats.device)
+
+        up = feats[..., 0].clamp_min(0.0)
+        x, vx = feats[..., 2:4], feats[..., 5:7]
+        speed = torch.linalg.vector_norm(vx, dim=-1)
+        in_quadrant = (x * const(self.quadrant) > const(self.x)).all(-1).float()
+        case = self._case
+        if case == 0:
+            return up * _inv(speed - self.speed)
+        if case == 1:
+            return up * _inv(torch.linalg.vector_norm(x - const(self.x), dim=-1))
+        if case == 2:
+            return up * in_quadrant
+        if case == 3:
+            return up * in_quadrant * _inv(self.speed - speed)
+        if case == 4:
+            return up * _inv(torch.linalg.vector_norm(const(self.vx) - vx, dim=-1)
+                             / float(np.sqrt(2)))
+        if case == 5:
+            return up * in_quadrant * (speed > self.speed).float()
+        return up * (speed > self.speed).float()
+
+
+class QuadrupedPosReward(BaseReward):
+    """A fixed position to reach, upright."""
+
+    def __init__(self, seed: tp.Optional[int] = None) -> None:
+        super().__init__(seed)
+        self.x = np.array([2.0, 2.0, 0.8], np.float32)
+
+    def get_goal(self, goal_space: str) -> np.ndarray:
+        if goal_space != "quad_pos_speed":
+            raise ValueError(
+                f"Goal space {goal_space} not supported with this reward")
+        return np.concatenate([[1.0], self.x, [0.0] * 3]).astype(np.float32)
+
+    def from_physics(self, physics: Tensor) -> Tensor:
+        feats = _quad_features(physics)
+        up = (feats[..., 0] + 1.0) / 2.0
+        target = torch.as_tensor(self.x, device=feats.device)
+        dist = torch.linalg.vector_norm(feats[..., 2:5] - target, dim=-1)
+        return 0.5 * up + 0.5 / (1.0 + torch.abs(dist))
 
 
 class WalkerPosReward(BaseReward):
@@ -215,10 +294,10 @@ def get_reward_function(name: str, seed: tp.Optional[int] = None) -> BaseReward:
     """String -> reward factory."""
     if name == "maze_multi_goal":
         return MazeMultiGoal(seed)
-    if name in ("quadruped_mix", "quadruped_position"):
-        raise NotImplementedError(
-            f"reward {name!r} needs the quadruped's features, not ported to "
-            "controllable_agent_torch yet (ROADMAP Queue A item 12)")
+    if name == "quadruped_mix":
+        return QuadrupedReward(seed)
+    if name == "quadruped_position":
+        return QuadrupedPosReward(seed)
     if name.startswith("walker_yoga_"):
         from .yoga import WalkerYogaReward
         return WalkerYogaReward(name[len("walker_yoga_"):], seed)

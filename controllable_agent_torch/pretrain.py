@@ -19,7 +19,7 @@ config; ``--help`` lists them all. The run (``OnlineWorkspace``) collects
 end, ``test_rewards.json`` into ``folder``; the same command again resumes
 from that checkpoint. ``device=cpu`` runs on the CPU; the default is the
 card. Still raising ``NotImplementedError`` with their ROADMAP item: pixels
-and the quadruped, jaco and d4rl tasks (12), the agents other than fb_ddpg,
+and d4rl (12), the agents other than fb_ddpg,
 ddpg, rnd, sf, sf_svd, discrete_fb and discrete_sf (13), ``use_tb``,
 ``use_wandb`` and ``profile_dir`` (15).
 """

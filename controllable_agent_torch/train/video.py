@@ -2,11 +2,12 @@
 
 Frames are drawn from the physics vector by a small numpy rasterizer per
 domain: the gridworld's walls, goal and agent, the point-mass maze's walls
-and mass, and the planar skeletons of walker, cheetah and hopper from
-forward kinematics over the model's numpy constants
-(``envs/physics2d.PlanarModel``). The drawing is the JAX module's, line for
-line, so both give the same frames to the byte. Nothing here runs on the
-device.
+and mass, the planar skeletons of walker, cheetah and hopper, and an oblique
+projection of the quadruped's and jaco's 3-D trees (jaco's target beside
+it), from forward kinematics over the model's numpy constants
+(``envs/physics2d.PlanarModel``, ``envs/physics3d.Model3D``). The drawing is
+the JAX module's, line for line, so both give the same frames to the byte.
+Nothing here runs on the device.
 
 ``VideoRecorder.save`` writes an animated PNG with the port's own encoder
 (below), which needs nothing beyond numpy and zlib. The JAX module writes an
@@ -78,6 +79,38 @@ def _fk2d(model: tp.Any, q: np.ndarray) -> tp.Tuple[np.ndarray, np.ndarray]:
     return origins, angles
 
 
+def _fk3d(model: tp.Any, q: np.ndarray) -> np.ndarray:
+    """3-D forward kinematics in float64: body origins."""
+    q = np.asarray(q, np.float64)
+    anchor = model.anchor
+    axis = model.axis
+    nb = len(model.parent)
+
+    def euler_rot(e: np.ndarray) -> np.ndarray:
+        cx, sx = np.cos(e[0]), np.sin(e[0])
+        cy, sy = np.cos(e[1]), np.sin(e[1])
+        cz, sz = np.cos(e[2]), np.sin(e[2])
+        rx = np.array([[1, 0, 0], [0, cx, -sx], [0, sx, cx]])
+        ry = np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]])
+        rz = np.array([[cz, -sz, 0], [sz, cz, 0], [0, 0, 1]])
+        return rz @ ry @ rx
+
+    def axis_rot(k: np.ndarray, a: float) -> np.ndarray:
+        c, s = np.cos(a), np.sin(a)
+        kx = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+        return np.eye(3) * c + s * kx + (1 - c) * np.outer(k, k)
+
+    origins = np.zeros((nb, 3))
+    rots = np.zeros((nb, 3, 3))
+    origins[0] = q[0:3]
+    rots[0] = euler_rot(q[3:6])
+    for b in range(1, nb):
+        p = model.parent[b]
+        origins[b] = origins[p] + rots[p] @ anchor[b]
+        rots[b] = rots[p] @ axis_rot(axis[b], q[6 + b - 1])
+    return origins
+
+
 class _NpModel:
     """The kinematic constants of an environment's model, in numpy."""
 
@@ -86,6 +119,7 @@ class _NpModel:
         self.ndof = model.ndof
         self.anchor = np.asarray(model.anchor)
         self.com = np.asarray(model.com)
+        self.axis = np.asarray(model.axis) if hasattr(model, "axis") else None
 
 
 class Renderer:
@@ -105,6 +139,8 @@ class Renderer:
             return self._grid(physics)
         if self.domain == "point_mass_maze":
             return self._maze(physics)
+        if self.domain in ("quadruped", "jaco"):
+            return self._body3d(physics)
         if self.model is None:  # no kinematic model
             return _blank()
         return self._locomotion(physics)
@@ -161,6 +197,36 @@ class Renderer:
             y0, x0 = to_px(*origins[b])
             y1, x1 = to_px(*end)
             _draw_line(img, y0, x0, y1, x1, (60, 90, 160), 4)
+        return img
+
+    def _body3d(self, physics: np.ndarray) -> np.ndarray:
+        """The quadruped and jaco: an oblique projection of the 3-D tree (x
+        to the right, y into the screen with a shear of 0.4, z up)."""
+        img = _blank()
+        model = self.model
+        assert model is not None
+        origins = _fk3d(model, physics[:model.ndof])
+        scale = 120.0 if self.domain == "quadruped" else 220.0
+        shear = 0.4
+        root = origins[0]
+        ground_y = 220.0
+
+        def to_px(p: np.ndarray) -> tp.Tuple[float, float]:
+            sx = (p[0] - root[0]) + shear * (p[1] - root[1])
+            sz = p[2] + shear * 0.5 * (p[1] - root[1])
+            return (ground_y - sz * scale, 128 + sx * scale)
+
+        img[int(ground_y):, :] = (210, 205, 195)
+        for b in range(1, len(origins)):
+            y0, x0 = to_px(origins[model.parent[b]])
+            y1, x1 = to_px(origins[b])
+            _draw_line(img, y0, x0, y1, x1, (60, 90, 160), 4)
+        _draw_disk(img, *to_px(origins[0]), 7, (40, 60, 120))
+        if self.domain == "jaco":
+            # the target, from the physics vector's tail
+            target = physics[2 * model.ndof:2 * model.ndof + 3]
+            if target.size == 3:
+                _draw_disk(img, *to_px(target), 5, (200, 60, 60))
         return img
 
 

@@ -16,15 +16,15 @@ the device; the collector draws from a generator of its own
 Parts of the JAX workspace that are not ported raise ``NotImplementedError``
 naming the ROADMAP item that ports them, whenever a config would make them
 fire: TensorBoard/wandb and profiles (item 15), the agents other than
-fb_ddpg, ddpg, rnd, sf, sf_svd, discrete_fb and discrete_sf (13), pixels,
-d4rl and the environments other than the planar ones, the point-mass maze
-and the gridworld (12).
+fb_ddpg, ddpg, rnd, sf, sf_svd, discrete_fb and discrete_sf (13), pixels
+and d4rl (12).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import time
 import typing as tp
 from pathlib import Path
 
@@ -106,7 +106,8 @@ def _not_ported(what: str, item: int) -> NotImplementedError:
 
 def make_env(task: str, episode_length: tp.Optional[int] = None) -> Environment:
     """Name-based environment dispatch: the gridworld, the point-mass maze,
-    and walker, cheetah and hopper. Other domains are not ported."""
+    the quadruped (episodes of 1,000 steps by default), jaco (250), and
+    walker, cheetah and hopper (1,000)."""
     if task.startswith("grid_"):
         kwargs = {} if episode_length is None else {"max_episode_length": episode_length}
         return build_gridworld_task(task[len("grid_"):], **kwargs)
@@ -117,6 +118,12 @@ def make_env(task: str, episode_length: tp.Optional[int] = None) -> Environment:
         return PointMassMaze(sub if sub in _PMM_TASKS else "reach_top_left",
                              episode_length=episode_length or 1000)
     domain = task.split("_", 1)[0]
+    if domain == "quadruped":
+        from ..envs import quadruped
+        return quadruped.make(task, episode_length=episode_length or 1000)
+    if domain == "jaco":
+        from ..envs import jaco
+        return jaco.make(task, episode_length=episode_length or 250)
     if domain in ("walker", "cheetah", "hopper"):
         from ..envs import locomotion
         return locomotion.make(task, episode_length=episode_length or 1000)
@@ -133,6 +140,7 @@ def _can_regress(agent: tp.Any) -> bool:
 # the tasks of the final test battery, by domain
 _FINAL_TASKS = {
     "cheetah": ["walk", "walk_backward", "run", "run_backward"],
+    "quadruped": ["stand", "walk", "run", "jump"],
     "walker": ["stand", "walk", "run", "flip"],
     "hopper": ["stand", "hop", "hop_backward", "flip"],
 }
@@ -419,7 +427,7 @@ class Workspace:
         """Final multi-task test battery: every task of the domain, z from
         rewards relabeled on the replay's physics, ``final_tests`` episodes
         each, all tasks in one batch of rollouts; writes test_rewards.json."""
-        from ..envs import locomotion
+        from ..envs import locomotion, quadruped
         repeat = self.cfg.final_tests
         if not repeat:
             return {}
@@ -433,8 +441,8 @@ class Workspace:
         if not (_can_regress(self.agent)
                 and len(self.buffer) > 0 and "physics" in self.buffer.state.storage):
             return {}
-        names = [name for name in _FINAL_TASKS[self.domain]
-                 if name in locomotion.TASKS[self.domain]]
+        known = quadruped.TASKS if self.domain == "quadruped" else locomotion.TASKS[self.domain]
+        names = [name for name in _FINAL_TASKS[self.domain] if name in known]
         reward_fns = {f"{self.domain}_{name}": get_reward_function(
             f"{self.domain}_{name}", self.cfg.seed) for name in names}
         z = torch.stack([self._infer_meta_from_replay(fn) for fn in reward_fns.values()])
@@ -609,7 +617,9 @@ class TrainOnlineWorkspace(Workspace):
     episodes are directed: they hold a task z inferred from the replay
     (refreshed every ``task_z_refresh_frames``; held random z's before the
     seed frames) for the whole episode. ``update_replay_buffer=False``
-    trains on a frozen loaded buffer."""
+    trains on a frozen loaded buffer. ``cycle_timings`` holds each cycle's
+    seconds of collection and of commits and updates, and its updates;
+    ``trainer`` is the run's update program."""
 
     def _collector(self, num_envs: int, hold_meta: bool) -> OnlineTrainer:
         return OnlineTrainer(self.env, self.agent, self.buffer, num_envs=num_envs,
@@ -630,15 +640,20 @@ class TrainOnlineWorkspace(Workspace):
         meta_key = getattr(self.agent, "meta_key", "z")
         trainer = make_offline_trainer(self.agent, self.buffer.cfg, self.agent.cfg.batch_size,
                                        steps_per_call=cfg.num_agent_updates)
+        self.trainer = trainer
         steps_per_cycle = horizon * cfg.num_rollout_episodes
+        self.cycle_timings: tp.List[tp.Dict[str, float]] = []
         self.timer.lap()
         while frames_remaining(self.global_step, cfg.num_train_frames) > 0:
             prev_step = self.global_step
             metrics: tp.Dict[str, tp.Any] = {}
+            timing = {"collect": 0.0, "update": 0.0, "updates": 0}
             if cfg.update_replay_buffer:
                 if collector is not None:
                     collector.global_step = self.global_step
                     metrics.update(collector.run_cycle(self.generator, self.collect_generator))
+                    timing["collect"] += collector.timings["collect"]
+                    timing["update"] += collector.timings["update"]
                     self.global_step += horizon * n_rand
                     self.global_episode += n_rand
                 if task_collector is not None:
@@ -658,6 +673,8 @@ class TrainOnlineWorkspace(Workspace):
                     task_collector.global_step = self.global_step
                     directed = task_collector.run_cycle(self.generator, self.collect_generator,
                                                         meta=task_meta)
+                    timing["collect"] += task_collector.timings["collect"]
+                    timing["update"] += task_collector.timings["update"]
                     if can_infer:
                         metrics["task_episode_reward"] = directed["episode_reward"]
                     metrics.setdefault("episode_reward", directed["episode_reward"])
@@ -667,7 +684,13 @@ class TrainOnlineWorkspace(Workspace):
                 self.global_step += steps_per_cycle
             self._maybe_snapshot(prev_step)
             if len(self.buffer) > 0:
+                started = time.perf_counter()
                 metrics.update(trainer(self.buffer.state, self.generator))
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                timing["update"] += time.perf_counter() - started
+                timing["updates"] = cfg.num_agent_updates
+            self.cycle_timings.append(timing)
             self._log_train(steps_per_cycle, metrics, episode=self.global_episode)
             self._evaluate_and_save(steps_per_cycle)
         self.save_checkpoint()

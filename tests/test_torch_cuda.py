@@ -19,7 +19,8 @@ from controllable_agent_torch.agents import (DDPGAgent, DDPGConfig, DDPGNoise, D
 from controllable_agent_torch.data import ReplayBuffer
 from controllable_agent_torch.data import replay as replay_lib
 from controllable_agent_torch.data.exorl import synthetic_episodes
-from controllable_agent_torch.envs import build_gridworld_task, gridworld, locomotion, pointmass
+from controllable_agent_torch.envs import (build_gridworld_task, gridworld, jaco, locomotion,
+                                           pointmass, quadruped)
 from controllable_agent_torch.envs.wrappers import (ActionRepeatWrapper, FrameStackWrapper,
                                                     StatefulEnv)
 from controllable_agent_torch.goals import get_reward_function
@@ -293,6 +294,47 @@ def test_dynamics_on_the_card_match_the_cpu(cuda_device, domain) -> None:
     and their bound as ``tools/dynamics_check.py`` states them."""
     _, held = dynamics_check.check_domain(domain, 4096, cuda_device, seed=0)
     assert all(h.ok for h in held), "; ".join(str(h) for h in held)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("domain", dynamics_check.DOMAINS_3D)
+def test_3d_dynamics_on_the_card_match_the_cpu(cuda_device, domain) -> None:
+    """The 3-D engine's ``forward_dynamics`` and one control step on the card
+    against float64 on the CPU, by the comparison the smoke run shares, with
+    each model's allowance as ``tools/dynamics_check.py`` states it."""
+    pressed, held = dynamics_check.check_domain(domain, 4096, cuda_device, seed=0)
+    assert 0.05 < pressed < 0.95
+    assert all(h.ok for h in held), "; ".join(str(h) for h in held)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", ["quadruped_walk", "quadruped_escape", "quadruped_fetch",
+                                  "jaco_reach_top_left"])
+def test_captured_3d_control_step_equals_the_eager_one(cuda_device, task) -> None:
+    """The quadruped's (flat, escape, fetch) and jaco's control step as
+    replays of one captured step against the same steps run eagerly, in the
+    greedy rollout and in the exploring collector: equal to the bit."""
+    env = (jaco.make(task, 10) if task.startswith("jaco") else quadruped.make(task, 10))
+    cfg = FBDDPGConfig(**ONLINE_SMALL, compute_dtype="bfloat16")
+    agent = FBDDPGAgent(cfg, env.spec.obs_dim, env.spec.action_dim, device=cuda_device, seed=2)
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    z = agent.sample_z(6, gen)
+    state, ts = env.reset(gen, 6)
+    captured = Rollout(env, agent, 6)
+    got = [x.clone() for x in captured(z, state, ts)]
+    want = Rollout(env, agent, 6, capture=False)(z, state, ts)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert bool(torch.isfinite(got[1]).all()) and float(got[1].abs().max()) > 0.0
+    gens = [torch.Generator(device=cuda_device).manual_seed(9) for _ in range(2)]
+    runs = []
+    for capture, g in zip((True, False), gens):
+        collector = EpisodeCollector(env, agent, 4, g, capture=capture)
+        meta = init_meta_batched(agent, g, 4)
+        state, ts = env.reset(g, 4)
+        runs.append({k: v.clone() for k, v in collector(meta, state, ts, 0).items()})
+    for name, want in runs[1].items():
+        assert torch.equal(runs[0][name], want), name
+    assert torch.equal(gens[0].get_state(), gens[1].get_state())
 
 
 @pytest.mark.cuda

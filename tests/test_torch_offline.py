@@ -264,7 +264,7 @@ def test_train_offline_cli(replay_dir, tmp_path, capsys, fused) -> None:
     (["eval_every_steps=2", "save_eval_video=true", "use_wandb=true"], "item 15"),
     (["use_tb=true"], "item 15"),
     (["agent=uvf"], "item 13"),
-    (["task=quadruped_walk"], "item 12"),
+    (["d4rl_dataset=hopper-medium-v2"], "item 12"),
 ], ids=["eval_video", "tensorboard", "other_agent", "other_environment"])
 def test_unported_options_raise(replay_dir, tmp_path, args, item) -> None:
     base = [f"replay_dir={replay_dir}", *SMALL, *SLICE, "num_grad_steps=2",

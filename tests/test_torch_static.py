@@ -44,7 +44,18 @@ def test_port_has_modules_to_check() -> None:
             "controllable_agent_torch/train_offline.py", "chip_smoke.py",
             "controllable_agent_torch/envs/gridworld.py",
             "controllable_agent_torch/agents/discrete_fb.py",
-            "controllable_agent_torch/agents/discrete_sf.py"} <= names
+            "controllable_agent_torch/agents/discrete_sf.py",
+            "controllable_agent_torch/envs/physics3d.py",
+            "controllable_agent_torch/envs/quadruped.py",
+            "controllable_agent_torch/envs/jaco.py"} <= names
+
+
+def test_engine_differentiates_by_hand() -> None:
+    """The 3-D engine and its environments take no derivative by autodiff:
+    ``torch.func`` and ``torch.autograd`` are for the tests only."""
+    for name in ("physics3d.py", "quadruped.py", "jaco.py"):
+        text = (PORT / "envs" / name).read_text()
+        assert "torch.func" not in text and "autograd" not in text, name
 
 
 def _functions() -> dict:
