@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Drives ``controllable_agent_torch`` (and nothing of the JAX package) in
-twenty-two phases, each printed on its own line; any failure exits non-zero:
+twenty-five phases, each printed on its own line; any failure exits non-zero:
 
   1. build the CUDA kernels of ``controllable_agent_torch/csrc`` with nvcc;
   2. hold each of the two fused-FB-loss kernels (the forward's four sums,
@@ -70,7 +70,7 @@ twenty-two phases, each printed on its own line; any failure exits non-zero:
      one more cycle, continuing the step, the replay and the agent's step;
  13. the other online paths: ``train_online.main`` with half of each
      cycle's episodes directed by a task z (``task_episode_reward``);
-     ``pretrain.main agent=rnd`` at full width for three cycles; a captured
+     ``pretrain.main agent=rnd`` at full width for two cycles; a captured
      RND update, a captured collector step and two programs replayed in
      turns on one generator, each against its eager counterpart to the bit;
      the cheetah's reset with its settling steps captured against the same
@@ -78,7 +78,7 @@ twenty-two phases, each printed on its own line; any failure exits non-zero:
  14. successor features at the JAX defaults (hidden 1024, feature 512,
      backward hidden 512, z 100, batch 1024, float32): SF with each of its
      thirteen feature learners, with ``q_loss=false``, ``boltzmann=true``
-     and ``mix_ratio=0.5``, and SF-SVD, each 100 updates through the
+     and ``mix_ratio=0.5``, and SF-SVD, each 50 updates through the
      captured trainer and the same updates eagerly on a twin from the same
      generator state (held to the bit, else to phase 7's tolerance); per
      agent the updates/s both ways, the kernel launches and device time per
@@ -106,7 +106,7 @@ twenty-two phases, each printed on its own line; any failure exits non-zero:
  18. the discrete agents at the JAX defaults (discrete FB: hidden 1024, z 50,
      batch 1024, float32; its default, ``boltzmann=false`` and
      ``q_loss=true``, whose pseudo-inverse runs eagerly between two graphs;
-     discrete SF with icm, identity and lap), 100 updates each through the
+     discrete SF with icm, identity and lap), 50 updates each through the
      captured trainer against the same updates eagerly on a twin, as phase
      14;
  19. the entry points on the grid: ``pretrain.main agent=discrete_fb
@@ -132,7 +132,7 @@ twenty-two phases, each printed on its own line; any failure exits non-zero:
      the cycles and the cycle's size short: ``train_online.main``
      ``agent=fb_ddpg task=quadruped_stand goal_space=quad_pos_speed`` at
      full width (hidden 1024, feature 512, backward hidden 526, z 50, batch
-     1024) in bf16 with ``agent.use_pallas_loss=true``, three cycles of 4
+     1024) in bf16 with ``agent.use_pallas_loss=true``, two cycles of 4
      episodes x 1,000 steps and 2,000 updates; per cycle the collection's
      seconds and share and the updates/s; one capture of the update program;
      the fused kernels' launches by the wrappers' count and by the kernels'
@@ -145,7 +145,28 @@ twenty-two phases, each printed on its own line; any failure exits non-zero:
      on phase 21's replay relabeled for ``quadruped_walk`` (400 captured
      updates, the relabeled rewards against the reward function), and
      ``anytrain`` on ``quadruped_fetch`` and ``quadruped_escape`` for one
-     cycle of 2,000 updates each.
+     cycle of 2,000 updates each;
+ 23. pixels on the card: 84 x 84 frames with a stack of 3 of the walker,
+     cheetah, hopper and point-mass maze, 1,024 environments x 20 steps,
+     against the same physics rendered on the CPU (uint8 within 1, equal on
+     at least 99.9%); ``random_shift_aug`` against ``np.pad(mode="edge")``
+     and a crop, to the bit; the encoder on the card against the CPU; a
+     full-width pixel DDPG collector captured against eager, to the bit;
+     ``env.step`` on frames at 10, 1,024 and 4,096 environments;
+ 24. this slice's main path: ``pretrain agent=ddpg obs_type=pixels
+     task=walker_walk`` at the JAX DDPG defaults (hidden 1024, batch 1024,
+     n-step 3, float32, 84 x 84 x 9 uint8 frames, pad 4), cut to 2
+     environments and a replay of 64 episodes: a seed cycle and a cycle of
+     1,000 updates, one capture of the update, a uint8 replay; a resumed
+     workspace; the launches and device time of an update; ``evaluate()``
+     (10 episodes, its video) and ``finalize()`` (``{}``); 20 full-width
+     pixel updates captured against eager on a twin, to the bit; the
+     captured update with cuDNN's TF32 off and on;
+ 25. the five explorers (DIAYN, ICM, ICM-APT, Disagreement, MaxEnt) at the
+     JAX defaults, 100 updates each captured against eager on a twin, to
+     the bit; ``pretrain agent=diayn`` with the skill resampled in the
+     captured collector. No fused FB kernel is on phases 23-25: their
+     launches must be 0 by both counts.
 
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -168,17 +189,20 @@ import numpy as np
 import torch
 
 from controllable_agent_torch import _build, anytrain, pretrain, train_offline, train_online
-from controllable_agent_torch.agents import (FEATURE_LEARNERS, DDPGNoise, DiscreteFBAgent,
-                                             DiscreteFBConfig, DiscreteSFAgent, DiscreteSFConfig,
-                                             FBDDPGAgent, FBDDPGConfig, RNDAgent, SFAgent,
-                                             SFConfig, SFSVDAgent, SFSVDConfig, UpdateNoise)
+from controllable_agent_torch.agents import (FEATURE_LEARNERS, DDPGAgent, DDPGConfig, DDPGNoise,
+                                             DiscreteFBAgent, DiscreteFBConfig, DiscreteSFAgent,
+                                             DiscreteSFConfig, FBDDPGAgent, FBDDPGConfig, RNDAgent,
+                                             SFAgent, SFConfig, SFSVDAgent, SFSVDConfig,
+                                             UpdateNoise, agent_classes)
 from controllable_agent_torch.agents.sf import normalized_solution
 from controllable_agent_torch.data import ReplayBuffer
 from controllable_agent_torch.data import replay as replay_lib
 from controllable_agent_torch.data.exorl import save_exorl_episodes, synthetic_episodes
 from controllable_agent_torch.envs import build_gridworld_task, gridworld, locomotion
+from controllable_agent_torch.envs.pixels import make_pixel_env
 from controllable_agent_torch.goals import get_reward_function
-from controllable_agent_torch.models.networks import l2_normalize
+from controllable_agent_torch.models.networks import PixelEncoder, conv_repr_dim, l2_normalize
+from controllable_agent_torch.ops.augment import draw_shifts, random_shift_aug
 from controllable_agent_torch.ops.linalg import lstsq, pinv
 from controllable_agent_torch.ops import fused_fb as ff
 from controllable_agent_torch.pretrain import build_workspace
@@ -216,9 +240,9 @@ ONLINE_ENVS, ONLINE_CYCLES = 4, 4  # phase 12: a seed cycle, then three of 2,000
 CYCLE_STEPS = ONLINE_ENVS * EPISODE_LENGTH  # environment steps of one cycle
 ONLINE_EVAL_EVERY = 8000  # crossed at 8,000 and 16,000 steps
 DIRECTED_CYCLES, DIRECTED_UPDATES = 3, 50  # phase 13's train_online run
-RND_CYCLES = 3  # phase 13: a seed cycle, then two of 2,000 updates
+RND_CYCLES = 2  # phase 13: a seed cycle, then one of 2,000 updates
 CHEETAH_RESETS = 10  # environments of phase 13's cheetah reset, an evaluation's
-SF_UPDATES, SF_FIRST = 100, 10  # phase 14: updates per agent, in calls of 10 then 90
+SF_UPDATES, SF_FIRST = 50, 10  # phases 14, 18: updates per agent, in calls of 10 then 40
 SF_PROFILED = 5  # phase 14: updates under the profiler per agent (the launch count)
 # phase 14's variants beyond the thirteen learners at their defaults
 SF_VARIANTS = (("lap", "q_loss", False), ("icm", "boltzmann", True), ("svd_sr", "mix_ratio", 0.5))
@@ -236,10 +260,23 @@ QUAD_TASKS = tuple(f"quadruped_{t}" for t in ("stand", "walk", "run", "jump", "r
 QUAD_BATTERY = tuple(f"quadruped_{t}" for t in ("stand", "walk", "run", "jump"))
 QUAD_STEP_TASKS = ("quadruped_stand", "quadruped_escape", "quadruped_fetch")  # phase 20
 QUAD_PROFILED = QUAD_STEP_TASKS + ("jaco_reach_top_left",)
-QUAD_CYCLES, QUAD_UPDATES = 3, 2000  # phase 21
+QUAD_CYCLES, QUAD_UPDATES = 2, 2000  # phase 21
 QUAD_REPLAY_EPISODES = 2000  # results/quad_one's replay_buffer_episodes
 JACO_LENGTH = 250  # phase 22
 QUAD_OFFLINE_UPDATES = 400  # phase 22: train_offline on phase 21's replay
+PIXEL_TASKS = ("walker_walk", "cheetah_run", "hopper_hop", "point_mass_maze_reach_top_left")
+PIXEL_ENVS, PIXEL_STEPS = 1024, 20  # phase 23: frames on the card
+PIXEL_CPU_ENVS = 16  # phase 23: of them rendered again on the CPU at every step
+PIXEL_EQUAL_SHARE = 0.999  # uint8 frames: within 1 everywhere, equal on this share
+AUG_PAD, ENCODER_BATCH = 4, 64  # phase 23: DrQ's pad (the JAX default); encoder's check
+# the encoder's features, card against CPU: float32 sums of 81 x 32 products in another order
+ENCODER_RTOL, ENCODER_ATOL = 1e-4, 1e-5
+PIXEL_RUN_ENVS, PIXEL_REPLAY_EPISODES = 2, 64  # phase 24's cuts (the recipe: 4, 5,000)
+PIXEL_CYCLE_STEPS = PIXEL_RUN_ENVS * EPISODE_LENGTH
+PIXEL_COMPARED_UPDATES, PIXEL_FIRST = 20, 5  # phase 24: captured vs eager, timed after 5
+EXPLORERS = ("diayn", "icm", "icm_apt", "disagreement", "max_ent")  # phase 25
+EXPLORER_UPDATES = 100  # phase 25: updates per explorer, captured and eager
+TF32_TIMED = 10  # phase 24: pixel updates timed with cuDNN's TF32 off and on
 F32_EPS = float(torch.finfo(torch.float32).eps)
 HBM_BYTES_PER_S = 3.35e12
 FWD_RTOL = 2e-4  # as tests/test_pallas_fb.py: order of f32 sums over n^2
@@ -1125,12 +1162,14 @@ def _sf_configs() -> tp.List[tp.Tuple[str, type, tp.Any]]:
 
 
 def check_captured_agent(phase: str, label: str, make_agent: tp.Callable[[], tp.Any],
-                         cfg: tp.Any, buf: tp.Any, fb_rate: float,
-                         card: str) -> tp.Dict[str, tp.Any]:
-    """One agent of phases 14 and 18: SF_UPDATES updates through the
+                         cfg: tp.Any, buf: tp.Any, fb_rate: float, card: str,
+                         updates: int = SF_UPDATES, first: int = SF_FIRST,
+                         bitwise_only: bool = False) -> tp.Dict[str, tp.Any]:
+    """One agent of phases 14, 18, 24 and 25: ``updates`` updates through the
     captured trainer and the same updates eagerly on a twin (``make_agent``
-    builds both) from the same generator state; then the profiler over
-    SF_PROFILED more replays."""
+    builds both) from the same generator state, timed after the first
+    ``first``; then the profiler over SF_PROFILED more replays.
+    ``bitwise_only``: the two must agree to the bit, no tolerance."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
@@ -1138,15 +1177,15 @@ def check_captured_agent(phase: str, label: str, make_agent: tp.Callable[[], tp.
     for capture in (True, False):
         agent = make_agent()
         gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
-        trainer = make_offline_trainer(agent, buf.cfg, cfg.batch_size, SF_UPDATES,
+        trainer = make_offline_trainer(agent, buf.cfg, cfg.batch_size, updates,
                                        capture=capture)
-        trainer(buf.state, gen, steps=SF_FIRST)  # captures, or warms the eager loop up
+        trainer(buf.state, gen, steps=first)  # captures, or warms the eager loop up
         torch.cuda.synchronize()
-        metrics, seconds = _timed(lambda: trainer(buf.state, gen, steps=SF_UPDATES - SF_FIRST))
+        metrics, seconds = _timed(lambda: trainer(buf.state, gen, steps=updates - first))
         if capture:
             peak = torch.cuda.max_memory_allocated() - held
         results.append((agent, gen, trainer, {k: v.clone() for k, v in metrics.items()},
-                        (SF_UPDATES - SF_FIRST) / seconds))
+                        (updates - first) / seconds))
     (agent, gen, trainer, metrics, rate), (twin, twin_gen, _, twin_metrics, eager_rate) = results
     got, want = agent.train_state(), twin.train_state()
     bitwise = all(torch.equal(got[k], v) for k, v in want.items()) \
@@ -1160,7 +1199,7 @@ def check_captured_agent(phase: str, label: str, make_agent: tp.Callable[[], tp.
                                         diff / max(float(b.float().abs().max()), 1e-30))
         else:
             worst["parameters and targets"] = max(worst["parameters and targets"], diff)
-    tol = 2 * cfg.lr * SF_UPDATES
+    tol = 2 * cfg.lr * updates
     program = trainer._program
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -1182,14 +1221,15 @@ def check_captured_agent(phase: str, label: str, make_agent: tp.Callable[[], tp.
           f"{how}; {launches:.1f} kernel launches and {busy_ms:.4f} ms of device time per update, "
           f"{len(products) / SF_PROFILED:.1f} of them matrix products taking {products_ms:.4f} ms "
           f"(profiler, {SF_PROFILED} updates); peak device memory {peak / 2**20:.1f} MiB above "
-          f"the {held / 2**20:.1f} held; captured vs eager after {SF_UPDATES} updates: equal to "
+          f"the {held / 2**20:.1f} held; captured vs eager after {updates} updates: equal to "
           f"the bit {bitwise}, max abs diff of parameters and targets "
           f"{worst['parameters and targets']:.3e} (tolerance {tol:.1e}), of Adam moments "
           f"{worst['Adam moments']:.3e} of their largest entry (tolerance 1e-3); {losses}; "
           f"on {card}")
-    if not all(math.isfinite(v) for v in row.values()) or agent.step != SF_UPDATES + SF_PROFILED \
-            or twin.step != SF_UPDATES or (not bitwise and (
-                worst["parameters and targets"] > tol or worst["Adam moments"] > 1e-3)):
+    if not all(math.isfinite(v) for v in row.values()) or agent.step != updates + SF_PROFILED \
+            or twin.step != updates or (not bitwise and (
+                bitwise_only or worst["parameters and targets"] > tol
+                or worst["Adam moments"] > 1e-3)):
         raise AssertionError(f"{label}: captured and eager updates disagree or are not finite")
     return {"label": label, "captured": rate, "eager": eager_rate, "launches": launches,
             "products_ms": products_ms, "busy_ms": busy_ms,
@@ -1793,6 +1833,312 @@ def run_quadruped_paths(tmp: str) -> None:
         del run
 
 
+def _stacked(frames: tp.List[torch.Tensor], stack: int) -> tp.List[torch.Tensor]:
+    """The wrapper's observations of a run of frames [E, H, W, C] (uint8):
+    the first tiled, then the last ``stack`` frames, flat."""
+    held = [frames[0]] * stack
+    out = [torch.stack(held, 3).reshape(frames[0].shape[0], -1)]
+    for frame in frames[1:]:
+        held = held[1:] + [frame]
+        out.append(torch.stack(held, 3).reshape(frame.shape[0], -1))
+    return out
+
+
+def _uint8_agreement(got: torch.Tensor, want: torch.Tensor) -> tp.Tuple[int, float]:
+    """Largest difference and the share of equal entries of two uint8 tensors."""
+    diff = (got.int() - want.int()).abs()
+    return int(diff.max()), float((diff == 0).float().mean())
+
+
+def check_pixels() -> None:
+    """Phase 23: the rendered frames on the card against the same render on
+    the CPU, the random shifts against an explicit crop of edge-padded
+    images, the encoder on the card against the CPU, the captured pixel
+    control step against eager, and ``env.step``'s rate on frames."""
+    card = card_name_and_power_limit()
+    for task in PIXEL_TASKS:
+        env = make_pixel_env(task)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+        (state, ts), reset_s = _timed(lambda: env.reset(gen, PIXEL_ENVS))
+        obs, phys = [ts.observation[:PIXEL_CPU_ENVS].cpu()], [ts.physics[:PIXEL_CPU_ENVS].cpu()]
+        started = time.perf_counter()
+        for _ in range(PIXEL_STEPS):
+            action = torch.rand((PIXEL_ENVS, env.spec.action_dim), generator=gen,
+                                device="cuda") * 2 - 1
+            state, ts = env.step(state, action)
+            obs.append(ts.observation[:PIXEL_CPU_ENVS].cpu())
+            phys.append(ts.physics[:PIXEL_CPU_ENVS].cpu())
+        run_s = time.perf_counter() - started
+        # the same physics rows rendered and stacked on the CPU
+        want = _stacked([env.frame_fn(p).to(torch.uint8) for p in phys], env.frame_stack)
+        agreement = [_uint8_agreement(g, w) for g, w in zip(obs, want)]
+        worst, share = max(a[0] for a in agreement), min(a[1] for a in agreement)
+        newest = ts.observation.reshape((PIXEL_ENVS,) + env.spec.obs_shape[:2]
+                                        + (env.frame_stack, 3))[..., -1, :].cpu()
+        last_worst, last_share = _uint8_agreement(
+            newest, env.frame_fn(ts.physics.cpu()).to(torch.uint8))
+        print(f"phase 23 frames {task}: {PIXEL_ENVS} environments x {PIXEL_STEPS} steps of "
+              f"84 x 84 x {env.frame_stack} uint8 frames on the card ({reset_s:.3f} s reset, "
+              f"{run_s:.3f} s for the eager steps and the copies out); the observations of "
+              f"{PIXEL_CPU_ENVS} of them at every step against the CPU's render of the same "
+              f"physics: largest difference {worst}, equal on {share:.6f} (at the worst step); "
+              f"the newest frame of all {PIXEL_ENVS} at the last step: largest difference "
+              f"{last_worst}, equal on {last_share:.6f}, on {card}")
+        if max(worst, last_worst) > 1 or min(share, last_share) < PIXEL_EQUAL_SHARE:
+            raise AssertionError(f"{task}: card frames differ from the CPU's")
+
+    # the shifts: one gather against a crop of np.pad(mode="edge")
+    imgs = ts.observation.reshape((PIXEL_ENVS,) + env.spec.obs_shape)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    shifts = draw_shifts(PIXEL_ENVS, AUG_PAD, gen, torch.device("cuda"))
+    shifted = random_shift_aug(imgs, shifts, AUG_PAD)
+    aug_ms = time_ms(lambda: random_shift_aug(imgs, shifts, AUG_PAD))
+    padded = np.pad(imgs[:PIXEL_CPU_ENVS].cpu().numpy(),
+                    ((0, 0), (AUG_PAD, AUG_PAD), (AUG_PAD, AUG_PAD), (0, 0)), mode="edge")
+    size = env.spec.obs_shape[0]
+    crops = np.stack([padded[b, r:r + size, c:c + size]
+                      for b, (r, c) in enumerate(shifts[:PIXEL_CPU_ENVS].tolist())])
+    exact = np.array_equal(shifted[:PIXEL_CPU_ENVS].cpu().numpy(), crops)
+    print(f"phase 23 random_shift_aug: {PIXEL_ENVS} uint8 images of {env.spec.obs_shape}, pad "
+          f"{AUG_PAD}: {aug_ms:.4f} ms per call ({2 * imgs.numel() / aug_ms / 1e6:.1f} GB/s read "
+          f"and written); {PIXEL_CPU_ENVS} of them against np.pad(mode='edge') and a crop at the "
+          f"same offsets: equal to the bit {exact}; dtype {shifted.dtype}, on {card}")
+    if not exact or shifted.dtype != torch.uint8:
+        raise AssertionError("the random shifts differ from an explicit crop")
+
+    # the encoder: the card against the CPU on the same weights and frames
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED)
+        encoder = PixelEncoder(env.spec.obs_shape[2])
+    frames = imgs[:ENCODER_BATCH]
+    with torch.no_grad():
+        want = encoder(frames.cpu())
+        got = encoder.cuda()(frames)
+    # torch.testing.assert_close's measure: |diff| against atol + rtol |cpu|
+    err = float(((got.cpu() - want).abs() / (ENCODER_ATOL + ENCODER_RTOL * want.abs())).max())
+    encoder_ms = time_ms(lambda: encoder(imgs), calls=5, replays=5)
+    print(f"phase 23 PixelEncoder: {ENCODER_BATCH} frames of {env.spec.obs_shape} -> "
+          f"{got.shape[1]} features; the card (cuDNN, TF32 off) against the CPU, largest "
+          f"|diff| / ({ENCODER_ATOL} + {ENCODER_RTOL} |cpu|) {err:.3f} (must be <= 1); largest "
+          f"|diff| {float((got.cpu() - want).abs().max()):.3e}; a forward pass over "
+          f"{PIXEL_ENVS} frames {encoder_ms:.4f} ms, on {card}")
+    if err > 1.0 or got.shape[1] != conv_repr_dim(*env.spec.obs_shape[:2]):
+        raise AssertionError("the encoder on the card differs from the CPU")
+    del imgs, shifted, encoder, state, ts
+
+    # the captured pixel control step (render, encoder, policy) against eager
+    env = make_pixel_env("walker_walk", episode_length=COMPARED_STEPS)
+    agent = DDPGAgent(DDPGConfig(obs_type="pixels"), env.spec.obs_dim, ACTION_DIM,
+                      device="cuda", seed=SEED, obs_shape=env.spec.obs_shape)
+    gens = [torch.Generator(device="cuda").manual_seed(SEED + 22) for _ in range(2)]
+    runs = []
+    for capture, g in ((True, gens[0]), (False, gens[1])):
+        collector = EpisodeCollector(env, agent, PIXEL_RUN_ENVS, g, capture=capture)
+        state, ts = env.reset(g, PIXEL_RUN_ENVS)
+        runs.append({k: v.clone() for k, v in collector({}, state, ts, 0).items()})
+    unequal = [k for k, v in runs[1].items() if not torch.equal(runs[0][k], v)]
+    print(f"phase 23 pixel collector captured vs eager: {PIXEL_RUN_ENVS} walker episodes x "
+          f"{COMPARED_STEPS} steps, the full-width pixel DDPG policy with its noise; columns "
+          f"that differ: {unequal or 'none'}; observations {runs[0]['observation'].dtype}; "
+          f"generators in the same state after: "
+          f"{torch.equal(gens[0].get_state(), gens[1].get_state())}, on {card}")
+    if unequal or runs[0]["observation"].dtype != torch.uint8 \
+            or not torch.equal(gens[0].get_state(), gens[1].get_state()):
+        raise AssertionError("captured and eager pixel collectors disagree")
+    del agent, runs
+
+    env = make_pixel_env("walker_walk")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    for envs in env_step.PIXEL_SIZES:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t = env_step.step_timing(env, envs, gen)
+        peak = torch.cuda.max_memory_allocated() - held
+        print(f"phase 23 env.step walker pixels E={envs}: {t.launches} launches and "
+              f"{t.device_ms:.4f} ms of device time per eager step, {t.replay_ms:.4f} ms per "
+              f"replay of its graph ({t.steps_per_s:.0f} environment steps/s); captured equal "
+              f"to eager {t.bitwise}; peak {peak / 2**20:.1f} MiB above the held, on {card}")
+        if not t.bitwise:
+            raise AssertionError(f"the captured pixel step differs at E={envs}")
+
+
+def pixel_args(folder: str, frames: int) -> tp.List[str]:
+    """Phase 24's command line: pixel DDPG at the JAX defaults on the walker,
+    cut to PIXEL_RUN_ENVS environments and PIXEL_REPLAY_EPISODES episodes."""
+    return ["agent=ddpg", "obs_type=pixels", "task=walker_walk", f"num_envs={PIXEL_RUN_ENVS}",
+            f"replay_buffer_episodes={PIXEL_REPLAY_EPISODES}",
+            f"num_seed_frames={PIXEL_CYCLE_STEPS}", f"num_train_frames={frames}",
+            "eval_every_steps=0", f"num_eval_episodes={EVAL_EPISODES}",
+            f"final_tests={FINAL_TESTS}", f"folder={folder}", f"seed={SEED}"]
+
+
+def run_pixels(tmp: str, fb_rate: float) -> None:
+    """Phase 24: ``pretrain agent=ddpg obs_type=pixels`` at full width, its
+    evaluation, ``finalize()``, a resume of the folder, and the captured
+    pixel update against eager on a twin."""
+    card = card_name_and_power_limit()
+    folder, frames = f"{tmp}/pixels", 2 * PIXEL_CYCLE_STEPS
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    ws, wall = _timed(lambda: pretrain.main(pixel_args(folder, frames)))
+    peak = torch.cuda.max_memory_allocated()
+    cycles = report_cycles(ws, "phase 24")
+    cfg, storage = ws.agent.cfg, ws.buffer.state.storage
+    captures = ws.online_trainer.trainer.captures
+    print(f"phase 24 pretrain agent=ddpg obs_type=pixels task=walker_walk (hidden "
+          f"{cfg.hidden_dim}, batch {cfg.batch_size}, nstep {ws.buffer.cfg.nstep}, "
+          f"{cfg.compute_dtype}, frames {ws.spec.obs_shape}, aug_pad {cfg.aug_pad}; cut: "
+          f"{PIXEL_RUN_ENVS} environments, a replay of {PIXEL_REPLAY_EPISODES} episodes): a seed "
+          f"cycle and a cycle of {ws.agent.step} updates in {wall:.1f} s; the update captured "
+          f"{captures} time(s); the replay's observations {storage['observation'].dtype} "
+          f"{tuple(storage['observation'].shape)} ({replay_bytes(ws) / 2**30:.2f} GiB); peak "
+          f"device memory {peak / 2**20:.1f} MiB, {(peak - held) / 2**20:.1f} above the "
+          f"{held / 2**20:.1f} held, on {card}")
+    if captures != 1 or ws.agent.step != PIXEL_CYCLE_STEPS // 2 \
+            or storage["observation"].dtype != torch.uint8 or ws.global_step != frames \
+            or not all(math.isfinite(v) for v in ws.last_row.values()):
+        raise AssertionError(f"pixel run: captures {captures}, agent step {ws.agent.step}, "
+                             f"row {ws.last_row}")
+    print(f"phase 24 training cycle: collection {cycles[1]['collect_s']:.3f} s "
+          f"({cycles[1]['steps_per_s']:.0f} environment steps/s), {cycles[1]['updates_per_s']:.2f}"
+          f" updates/s with the capture, collection {cycles[1]['share']:.4f} of the cycle")
+
+    # a fresh workspace on the folder: the checkpoint of the run's end
+    resumed = build_workspace(pixel_args(folder, frames))
+    same = all(torch.equal(v.cpu(), ws.agent.train_state()[k].cpu())
+               for k, v in resumed.agent.train_state().items())
+    same_replay = torch.equal(resumed.buffer.state.storage["observation"][:len(ws.buffer)],
+                              storage["observation"][:len(ws.buffer)])
+    print(f"phase 24 resumed: a fresh workspace on the folder at step {resumed.global_step}, "
+          f"agent step {resumed.agent.step}, {len(resumed.buffer)} episodes; train state equal "
+          f"{same}, replay frames equal {same_replay}")
+    if not (same and same_replay and resumed.global_step == frames):
+        raise AssertionError("the resumed pixel workspace differs from the saved run")
+    del resumed
+    gc.collect()
+
+    # launches and device time per update under the profiler
+    trainer = ws.online_trainer.trainer
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        _, profiled_s = _timed(lambda: trainer(ws.buffer.state, ws.generator, steps=SF_PROFILED))
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = 1e-3 * sum(e.time_range.elapsed_us() for e in kernels) / SF_PROFILED
+    convs = [e for e in kernels if "conv" in e.name.lower() or "cudnn" in e.name.lower()
+             or "sm90_xmma" in e.name.lower() or "implicit" in e.name.lower()]
+    conv_ms = 1e-3 * sum(e.time_range.elapsed_us() for e in convs) / SF_PROFILED
+    print(f"phase 24 profile: {len(kernels) / SF_PROFILED:.1f} kernel launches and "
+          f"{busy_ms:.3f} ms of device time per update ({SF_PROFILED} replays, "
+          f"{1e3 * profiled_s / SF_PROFILED:.3f} ms of wall time each under the profiler; busy "
+          f"share {busy_ms * SF_PROFILED / (1e3 * profiled_s):.4f}); the convolutions' kernels "
+          f"by name {len(convs) / SF_PROFILED:.1f} per update, {conv_ms:.3f} ms, on {card}")
+
+    metrics, eval_s = _timed(ws.evaluate)
+    video = ws.work_dir / "eval_video" / f"{ws.global_step}.png"
+    battery, final_s = _timed(ws.finalize)
+    print(f"phase 24 evaluate: {EVAL_EPISODES} episodes x {EPISODE_LENGTH} steps of frames in "
+          f"{eval_s:.3f} s (the capture of the control step and the video included; "
+          f"{EVAL_EPISODES * EPISODE_LENGTH / eval_s:.0f} environment steps/s): episode_reward "
+          f"{metrics['episode_reward']:.2f}; video {video.stat().st_size} bytes; finalize() "
+          f"{battery} in {final_s:.3f} s (DDPG infers no z), on {card}")
+    if not (math.isfinite(metrics["episode_reward"])
+            and 0.0 <= metrics["episode_reward"] <= EPISODE_LENGTH
+            and video.stat().st_size > 0 and battery == {}
+            and not (ws.work_dir / "test_rewards.json").exists()):
+        raise AssertionError(f"pixel evaluation: {metrics}, {battery}")
+
+    # full-width pixel updates captured against eager on a twin, to the bit
+    buf, spec = ws.buffer, ws.spec
+    del ws
+    gc.collect()
+    torch.cuda.empty_cache()
+    make_agent = lambda: DDPGAgent(cfg, spec.obs_dim, ACTION_DIM, device="cuda",  # noqa: E731
+                                   seed=SEED, obs_shape=spec.obs_shape)
+    check_captured_agent("phase 24", "ddpg pixels", make_agent, cfg, buf, fb_rate, card,
+                         updates=PIXEL_COMPARED_UPDATES, first=PIXEL_FIRST, bitwise_only=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # cuDNN's TF32 default (True in PyTorch; the entry points leave it): the
+    # same captured updates with it off, as this script pins it, and on
+    rates, losses = {}, {}
+    for allow in (False, True):
+        torch.backends.cudnn.allow_tf32 = allow
+        agent = make_agent()
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 24)
+        trainer = make_offline_trainer(agent, buf.cfg, cfg.batch_size, TF32_TIMED)
+        trainer(buf.state, gen, steps=PIXEL_FIRST)  # captures
+        metrics, seconds = _timed(lambda: trainer(buf.state, gen))
+        rates[allow], losses[allow] = TF32_TIMED / seconds, float(metrics["critic_loss"])
+        del agent, trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"phase 24 cuDNN TF32 (matmul TF32 off both times): the captured pixel update "
+          f"{rates[False]:.2f} updates/s with it off, {rates[True]:.2f} with it on "
+          f"({rates[True] / rates[False]:.3f}x); critic_loss over {TF32_TIMED} updates "
+          f"{losses[False]:.6f} and {losses[True]:.6f}, on {card}")
+
+
+def skill_episodes(episodes: tp.List[tp.Dict[str, np.ndarray]], skills: int
+                   ) -> tp.List[tp.Dict[str, np.ndarray]]:
+    """The episodes with a one-hot ``skill`` column, one skill per episode."""
+    rng = np.random.RandomState(SEED)
+    eye = np.eye(skills, dtype=np.float32)
+    return [{**ep, "skill": np.repeat(eye[rng.randint(skills)][None], len(ep["reward"]), 0)}
+            for ep in episodes]
+
+
+def check_explorers(tmp: str, episodes: tp.List[tp.Dict[str, np.ndarray]],
+                    fb_rate: float) -> None:
+    """Phase 25: the five explorers at the JAX defaults, captured against
+    eager on a twin, and ``pretrain agent=diayn`` with the skill resampled
+    in the captured collector."""
+    card = card_name_and_power_limit()
+    out = []
+    for name in EXPLORERS:
+        cfg_cls, agent_cls = agent_classes(name)
+        cfg = cfg_cls()
+        data = skill_episodes(episodes, cfg.skill_dim) if name == "diayn" else episodes
+        buf = ReplayBuffer(EPISODES, discount=0.98, future=0.99, device="cuda")
+        buf.load_episodes(data)
+        buf.cfg = dataclasses.replace(buf.cfg, nstep=cfg.nstep)
+        out.append(check_captured_agent(
+            "phase 25", name, lambda: agent_cls(cfg, OBS_DIM, ACTION_DIM, device="cuda",
+                                                seed=SEED), cfg, buf, fb_rate, card,
+            updates=EXPLORER_UPDATES, bitwise_only=True))
+        del buf
+        gc.collect()
+        torch.cuda.empty_cache()
+    print("phase 25 summary: captured updates/s " + ", ".join(
+        f"{r['label']} {r['captured']:.1f} ({r['launches']:.0f} launches, {r['busy_ms']:.3f} ms)"
+        for r in out) + f"; all equal to eager to the bit; on {card}")
+
+    frames = 2 * CYCLE_STEPS
+    ws, wall = _timed(lambda: pretrain.main([
+        "agent=diayn", "task=walker_walk", f"num_envs={ONLINE_ENVS}",
+        f"num_seed_frames={CYCLE_STEPS}", f"num_train_frames={frames}", "eval_every_steps=0",
+        "final_tests=0", f"folder={tmp}/diayn", f"seed={SEED}"]))
+    report_cycles(ws, "phase 25 diayn")
+    skill = ws.buffer.state.storage["skill"][:len(ws.buffer)]
+    every = ws.agent.cfg.update_skill_every_step
+    # index i of an episode holds the skill of step i - 1, resampled where (i - 1) % every == 0
+    changed = (skill[:, 1:] != skill[:, :-1]).any(-1)  # [episodes, T]: between i and i + 1
+    where = changed.nonzero()[:, 1]
+    collector = ws.online_trainer.collector
+    row = ws.last_row
+    print(f"phase 25 pretrain agent=diayn: a seed cycle and a cycle of {ws.agent.step} updates "
+          f"in {wall:.1f} s; the collector captured {collector._program is not None}; the skill "
+          f"column {tuple(skill.shape)}, one-hot {bool((skill.sum(-1) == 1).all())}, changed at "
+          f"{int(changed.sum())} of {changed.numel()} step boundaries, all at multiples of "
+          f"{every} {bool((where % every == 0).all())}; diayn_acc {row['diayn_acc']:.4f}, "
+          f"diayn_loss {row['diayn_loss']:.4f}, intr_reward {row['intr_reward']:.4f}, on {card}")
+    if collector._program is None or not bool((skill.sum(-1) == 1).all()) \
+            or int(changed.sum()) == 0 or not bool((where % every == 0).all()) \
+            or not all(math.isfinite(v) for v in row.values()):
+        raise AssertionError(f"the DIAYN run: {row}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1888,7 +2234,26 @@ def main() -> int:
             row["launches_by_path"]["jaco, quadruped train_offline, fetch, escape (phase 22)"] = \
                 other_counts[row["wrapper"]]
 
-    print(f"total: {time.perf_counter() - started:.1f} s for phases 1-22, the build included")
+        # this slice's path: pixels and the explorers; no fused kernel is on it
+        gc.collect()
+        torch.cuda.empty_cache()
+        ff.reset_launches()
+        check_pixels()
+        run_pixels(tmp, fb_rate)
+        gc.collect()
+        torch.cuda.empty_cache()
+        check_explorers(tmp, synthetic_episodes(EPISODES, EPISODE_LENGTH, OBS_DIM, ACTION_DIM,
+                                                SEED), fb_rate)
+        pixel_counts, pixel_runs = dict(ff.launches), ff.device_runs()
+        print(f"phases 23-25: fused FB launches {pixel_counts} by the wrappers' counts, "
+              f"{pixel_runs} by the kernels' own")
+        if any(pixel_counts.values()) or any(pixel_runs.values()):
+            raise AssertionError(f"the pixel path launched fused FB kernels: {pixel_counts}")
+        for row in rows:
+            row["launches_by_path"]["pixels, explorers (phases 23-25)"] = \
+                pixel_counts[row["wrapper"]]
+
+    print(f"total: {time.perf_counter() - started:.1f} s for phases 1-25, the build included")
     print(json.dumps({"kernels": rows}))
     print(f"card: {card_name_and_power_limit()}")
     print(json.dumps({"ok": True, "device": {

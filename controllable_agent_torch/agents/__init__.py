@@ -8,7 +8,9 @@ import typing as tp
 from .ddpg import DDPGAgent, DDPGConfig, DDPGNoise
 from .discrete_fb import DiscreteFBAgent, DiscreteFBConfig
 from .discrete_sf import DiscreteSFAgent, DiscreteSFConfig
-from .exploration import IntrinsicDDPGAgent, RNDAgent, RNDConfig
+from .exploration import (DIAYNAgent, DIAYNConfig, DisagreementAgent, DisagreementConfig,
+                          ICMAgent, ICMAPTAgent, ICMAPTConfig, ICMConfig, IntrinsicDDPGAgent,
+                          MaxEntAgent, MaxEntConfig, RNDAgent, RNDConfig)
 from .fb_ddpg import FBDDPGAgent, FBDDPGConfig, UpdateNoise
 from .sf import FEATURE_LEARNERS, SFAgent, SFConfig, SFNoise
 from .sf_svd import SFSVDAgent, SFSVDConfig
@@ -17,6 +19,11 @@ AGENTS: tp.Dict[str, tp.Tuple[type, type]] = {
     "fb_ddpg": (FBDDPGConfig, FBDDPGAgent),
     "ddpg": (DDPGConfig, DDPGAgent),
     "rnd": (RNDConfig, RNDAgent),
+    "diayn": (DIAYNConfig, DIAYNAgent),
+    "icm": (ICMConfig, ICMAgent),
+    "icm_apt": (ICMAPTConfig, ICMAPTAgent),
+    "disagreement": (DisagreementConfig, DisagreementAgent),
+    "max_ent": (MaxEntConfig, MaxEntAgent),
     "sf": (SFConfig, SFAgent),
     "sf_svd": (SFSVDConfig, SFSVDAgent),
     "discrete_fb": (DiscreteFBConfig, DiscreteFBAgent),
@@ -24,8 +31,7 @@ AGENTS: tp.Dict[str, tp.Tuple[type, type]] = {
 }
 
 # the JAX registry's other names: their agents are ROADMAP Queue A item 13
-NOT_PORTED = ("aps", "new_aps", "diayn", "icm", "icm_apt", "disagreement", "max_ent",
-              "smm", "proto", "uvf", "goal_td3", "goal_sm")
+NOT_PORTED = ("aps", "new_aps", "smm", "proto", "uvf", "goal_td3", "goal_sm")
 
 
 def agent_classes(name: str) -> tp.Tuple[type, type]:
@@ -41,8 +47,10 @@ def agent_classes(name: str) -> tp.Tuple[type, type]:
     raise ValueError(f"Unknown agent {name!r}; known: {sorted(AGENTS)}")
 
 
-__all__ = ["AGENTS", "DDPGAgent", "DDPGConfig", "DDPGNoise", "DiscreteFBAgent",
-           "DiscreteFBConfig", "DiscreteSFAgent", "DiscreteSFConfig", "FBDDPGAgent",
-           "FBDDPGConfig", "FEATURE_LEARNERS", "IntrinsicDDPGAgent", "NOT_PORTED", "RNDAgent",
+__all__ = ["AGENTS", "DDPGAgent", "DDPGConfig", "DDPGNoise", "DIAYNAgent", "DIAYNConfig",
+           "DisagreementAgent", "DisagreementConfig", "DiscreteFBAgent", "DiscreteFBConfig",
+           "DiscreteSFAgent", "DiscreteSFConfig", "FBDDPGAgent", "FBDDPGConfig",
+           "FEATURE_LEARNERS", "ICMAgent", "ICMAPTAgent", "ICMAPTConfig", "ICMConfig",
+           "IntrinsicDDPGAgent", "MaxEntAgent", "MaxEntConfig", "NOT_PORTED", "RNDAgent",
            "RNDConfig", "SFAgent", "SFConfig", "SFNoise", "SFSVDAgent", "SFSVDConfig",
            "UpdateNoise", "agent_classes"]

@@ -24,7 +24,8 @@ class StepNoise:
     """Every random draw of one collector step for ``n`` environments, in
     the shapes the JAX collector draws them: the policy's noise and uniform
     exploration (``act``; a discrete policy's ε draw and random action
-    instead), and the draws of ``rollout_update_meta``."""
+    instead), and the draws of ``rollout_update_meta`` (a z's, or a skill's
+    index)."""
 
     act_normal: tp.Optional[Tensor] = None  # [n, action_dim]
     act_uniform: tp.Optional[Tensor] = None  # [n, action_dim], in [0, 1)
@@ -33,6 +34,7 @@ class StepNoise:
     z_uniform: tp.Optional[Tensor] = None  # [n, z_dim], norm_z=False only
     explore_uniform: tp.Optional[Tensor] = None  # [n], explore when < expl_eps (discrete)
     random_action: tp.Optional[Tensor] = None  # [n] int64 in [0, n_actions) (discrete)
+    skill_index: tp.Optional[Tensor] = None  # [n] int64, a resampled one-hot skill (DIAYN)
 
     @classmethod
     def draw(cls, n: int, action_dim: int, generator: torch.Generator,

@@ -11,8 +11,15 @@ target critic and optimizers and updates them in place, its step counter is
 a device tensor, and the update's draws are one ``DDPGNoise`` (``update``
 draws it from a ``torch.Generator``, ``_update`` takes it), so
 ``make_offline_trainer`` captures its update and a test can hand both
-packages the same noise. Pixel observations (the 4-conv encoder and DrQ
-augmentation) are not ported (ROADMAP Queue A item 12).
+packages the same noise.
+
+``obs_type="pixels"`` takes flat uint8 frames (``obs_shape`` is their (H,
+W, C)) through the 4-conv ``PixelEncoder``, with its own Adam, and DrQ's
+random shifts (``ops/augment.py``; the two [B, 2] draws are in
+``DDPGNoise``). As in the JAX update, the encoder's gradient comes from the
+critic loss alone, the target's features are taken without gradient, and
+the actor sees the critic's features detached: all three from the
+encoder's parameters before its step.
 """
 
 from __future__ import annotations
@@ -25,7 +32,8 @@ import torch
 from torch import nn
 
 from ..data.episode_batch import EpisodeBatch
-from ..models.networks import MLP, _Net
+from ..models.networks import MLP, PixelEncoder, _Net, conv_repr_dim
+from ..ops.augment import draw_shifts, random_shift_aug
 from ..optim import Adam
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.distributions import TruncatedNormal
@@ -102,16 +110,25 @@ class RewardModel(_Net):
 @dataclasses.dataclass
 class DDPGNoise:
     """The draws of one update: the target policy's noise (critic loss) and
-    the policy's noise in the actor loss, each [n, action_dim]."""
+    the policy's noise in the actor loss, each [n, action_dim]; on pixels
+    also the random shifts of the observations and of the next
+    observations, [n, 2] int64 each."""
 
     critic_normal: Tensor
     actor_normal: Tensor
+    obs_shifts: tp.Optional[Tensor] = None
+    next_obs_shifts: tp.Optional[Tensor] = None
 
     @classmethod
     def draw(cls, n: int, action_dim: int, generator: torch.Generator,
-             device: torch.device) -> "DDPGNoise":
-        return cls(*(torch.randn(n, action_dim, generator=generator, device=device)
-                     for _ in range(2)))
+             device: torch.device, aug_pad: tp.Optional[int] = None) -> "DDPGNoise":
+        """The draws of one update; ``aug_pad`` adds the shifts of the pixel
+        update."""
+        normals = [torch.randn(n, action_dim, generator=generator, device=device)
+                   for _ in range(2)]
+        if aug_pad is None:
+            return cls(*normals)
+        return cls(*normals, *(draw_shifts(n, aug_pad, generator, device) for _ in range(2)))
 
 
 def with_meta(obs: Tensor, meta: MetaDict) -> Tensor:
@@ -123,19 +140,25 @@ def with_meta(obs: Tensor, meta: MetaDict) -> Tensor:
 class DDPGAgent(nn.Module):
     """Networks, target critic and optimizers of one DDPG agent."""
 
+    # the workspace hands it the environment's frame shape
+    takes_obs_shape = True
+
     def __init__(self, cfg: DDPGConfig, obs_dim: int, action_dim: int,
                  goal_dim: tp.Optional[int] = None, device: DeviceLike = None,
-                 seed: int = 0, meta_dim: int = 0) -> None:
+                 seed: int = 0, meta_dim: int = 0,
+                 obs_shape: tp.Tuple[int, ...] = ()) -> None:
         super().__init__()
-        if cfg.obs_type == "pixels":
-            raise NotImplementedError(
-                "obs_type=pixels is not ported to controllable_agent_torch yet "
-                "(ROADMAP Queue A item 12)")
         self.cfg = cfg
-        self.obs_dim, self.action_dim, self.meta_dim = obs_dim, action_dim, meta_dim
+        self.pixels = cfg.obs_type == "pixels"
+        self.obs_shape = tuple(obs_shape)
+        if self.pixels and len(self.obs_shape) != 3:
+            raise ValueError(f"obs_type=pixels needs an (H, W, C) obs_shape, got {self.obs_shape}")
+        # on pixels the networks take the encoder's features
+        feature_dim = conv_repr_dim(*self.obs_shape[:2]) if self.pixels else obs_dim
+        self.obs_dim, self.action_dim, self.meta_dim = feature_dim, action_dim, meta_dim
         self.device = resolve_device(device)
         dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
-        in_dim = obs_dim + meta_dim
+        in_dim = feature_dim + meta_dim
         # weights are drawn on the CPU from the seed, then moved
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
@@ -143,10 +166,12 @@ class DDPGAgent(nn.Module):
             self.critic = DDPGCritic(in_dim, action_dim, cfg.hidden_dim, dtype)
             self.reward_model = (RewardModel(in_dim, cfg.hidden_dim, dtype)
                                  if cfg.reward_free else None)
+            self.encoder = PixelEncoder(self.obs_shape[2], dtype) if self.pixels else None
         self.target_critic = copy.deepcopy(self.critic).requires_grad_(False)
         self.to(self.device)
         self.actor_opt = Adam(self.actor, cfg.lr)
         self.critic_opt = Adam(self.critic, cfg.lr)
+        self.encoder_opt = Adam(self.encoder, cfg.lr) if self.encoder is not None else None
         # over the MLP itself: the JAX reward model is a bare MLP, so its Adam
         # state carries the MLP's own parameter names
         self.reward_opt = (Adam(self.reward_model.mlps[0], 1e-3)
@@ -167,6 +192,8 @@ class DDPGAgent(nn.Module):
         opts = {"actor_opt": self.actor_opt, "critic_opt": self.critic_opt}
         if self.reward_opt is not None:
             opts["reward_opt"] = self.reward_opt
+        if self.encoder_opt is not None:
+            opts["encoder_opt"] = self.encoder_opt
         return opts
 
     def train_state(self) -> tp.Dict[str, Tensor]:
@@ -202,12 +229,24 @@ class DDPGAgent(nn.Module):
         """Batched policy: the tanh mean in eval mode, else its truncated-normal
         sample, or a uniform action while ``step`` < num_expl_steps (selected
         on the device when ``step`` is a tensor)."""
+        if self.pixels:
+            obs = self._encode(obs)
         mu = self.actor(with_meta(obs, meta))
         if eval_mode:
             return mu
         normal, uniform = act_draws(noise, mu, generator)
         action = TruncatedNormal(mu, self._stddev(step)).sample(normal)
         return explore_until(action, uniform, step, self.cfg.num_expl_steps)
+
+    def _encode(self, obs: Tensor) -> Tensor:
+        """Flat frames [B, H*W*C] -> the encoder's features [B, D]."""
+        assert self.encoder is not None
+        return self.encoder(obs.reshape((obs.shape[0],) + self.obs_shape))
+
+    def _augment(self, obs: Tensor, shifts: tp.Optional[Tensor]) -> Tensor:
+        assert shifts is not None, "a pixel update takes its shifts in DDPGNoise"
+        return random_shift_aug(obs.reshape((obs.shape[0],) + self.obs_shape), shifts,
+                                self.cfg.aug_pad).reshape(obs.shape)
 
     # -- reward model (reward-free mode) ---------------------------------
     def train_reward(self, obs: Tensor, reward: Tensor, num_iters: int = 2000) -> None:
@@ -222,19 +261,44 @@ class DDPGAgent(nn.Module):
     # -- the update -----------------------------------------------------
     def update(self, batch: EpisodeBatch, generator: torch.Generator) -> Metrics:
         """One gradient step with noise drawn from ``generator``."""
-        return self._update(batch, DDPGNoise.draw(batch.obs.shape[0], self.action_dim,
-                                                  generator, self.device))
+        return self._update(batch, DDPGNoise.draw(
+            batch.obs.shape[0], self.action_dim, generator, self.device,
+            aug_pad=self.cfg.aug_pad if self.pixels else None))
 
     def _update(self, batch: EpisodeBatch, noise: DDPGNoise,
                 use_reward_model: tp.Optional[bool] = None) -> Metrics:
         """One gradient step. ``use_reward_model`` (default: reward_free)
         puts reward_model(next_obs) in place of the batch reward; the
-        intrinsic agents pass False, their batch carries their reward."""
+        intrinsic agents pass False, their batch carries their reward.
+
+        On pixels the step runs with cuDNN's deterministic algorithms: a
+        convolution's weight gradient may otherwise be summed with atomics
+        in any order, and a captured update would not repeat the eager one
+        to the bit."""
+        if not self.pixels:
+            return self._step(batch, noise, use_reward_model)
+        before = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            return self._step(batch, noise, use_reward_model)
+        finally:
+            torch.backends.cudnn.deterministic = before
+
+    def _step(self, batch: EpisodeBatch, noise: DDPGNoise,
+              use_reward_model: tp.Optional[bool]) -> Metrics:
         cfg = self.cfg
         if use_reward_model is None:
             use_reward_model = cfg.reward_free
-        obs = with_meta(batch.obs, batch.meta)
-        next_obs = with_meta(batch.next_obs, batch.meta)
+        if self.pixels:
+            obs_aug = self._augment(batch.obs, noise.obs_shifts)
+            with torch.no_grad():
+                next_obs = with_meta(self._encode(
+                    self._augment(batch.next_obs, noise.next_obs_shifts)), batch.meta)
+            # the encoder's gradient comes from the critic loss below
+            obs = with_meta(self._encode(obs_aug), batch.meta)
+        else:
+            obs = with_meta(batch.obs, batch.meta)
+            next_obs = with_meta(batch.next_obs, batch.meta)
         reward = batch.reward
         stddev = self._stddev(self.step_t)
         with torch.no_grad():
@@ -249,8 +313,17 @@ class DDPGAgent(nn.Module):
         q1, q2 = self.critic(obs, batch.action)
         q1, q2 = q1.float(), q2.float()
         critic_loss = (q1 - target_q).square().mean() + (q2 - target_q).square().mean()
-        self.critic_opt.step(torch.autograd.grad(critic_loss,
-                                                 list(self.critic_opt.params.values())))
+        critic_params = list(self.critic_opt.params.values())
+        encoder_params = (list(self.encoder_opt.params.values())
+                          if self.encoder_opt is not None and cfg.update_encoder else [])
+        grads = torch.autograd.grad(critic_loss, critic_params + encoder_params)
+        self.critic_opt.step(grads[:len(critic_params)])
+        if encoder_params:
+            assert self.encoder_opt is not None
+            self.encoder_opt.step(grads[len(critic_params):])
+        # the actor sees the critic's features detached: the encoder's
+        # parameters before its step, as in the JAX update
+        obs = obs.detach()
 
         # the actor step sees the freshly updated critic, as the JAX update does
         mu = self.actor(obs)

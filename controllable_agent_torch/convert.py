@@ -3,16 +3,19 @@
 A flax param tree (nested dicts of arrays, e.g. ``{"params": {"MLP_0":
 {"Dense_1": {"kernel", "bias"}, "LayerNorm_0": {"scale", "bias"}}}}``)
 becomes a state dict of the port's networks by name alone: ``MLP_i`` ->
-``mlps.i``; ``Dense_k.kernel`` [in, out] -> ``Dense_k.weight`` [out, in];
-``LayerNorm_k.scale`` -> ``LayerNorm_k.weight``; biases keep their name.
+``mlps.i``; ``Dense_k.kernel`` [in, out] -> ``Dense_k.weight`` [out, in]
+(a vmapped stack of them, [n, in, out] -> [n, out, in]); ``Conv_k.kernel``
+[3, 3, in, out] -> ``Conv_k.weight`` [out, in, 3, 3]; ``LayerNorm_k.scale``
+-> ``LayerNorm_k.weight``; biases keep their name.
 
 A whole ``FBTrainState`` (``controllable_agent_tpu/agents/fb_ddpg.py:102``)
 loads into an ``FBDDPGAgent``: the networks, the target networks, the step
 counter and the three Adam states (optax ``ScaleByAdamState`` mu, nu,
 count). A ``DDPGTrainState`` (``agents/ddpg.py:99``) loads into a
-``DDPGAgent`` the same way, and an ``IntrinsicTrainState``
-(``agents/exploration.py:48``: the DDPG state, the module, its Adam state
-and the running statistics) into an ``IntrinsicDDPGAgent`` such as RND, an
+``DDPGAgent`` the same way (on pixels with the encoder and its Adam
+state), and an ``IntrinsicTrainState`` (``agents/exploration.py:48``: the
+DDPG state, the module, its Adam state and the running statistics) into an
+``IntrinsicDDPGAgent`` (RND, DIAYN, ICM, ICM-APT, Disagreement, MaxEnt), an
 ``SFTrainState`` (``agents/sf.py:326``: the networks, the φ learner's tree
 with its target subtrees, three Adam states and ``inv_cov``) into an
 ``SFAgent``, an ``SFSVDTrainState`` (``agents/sf_svd.py:92``) into an
@@ -66,7 +69,9 @@ def flax_to_state_dict(tree: tp.Any) -> tp.Dict[str, torch.Tensor]:
             leaf = leaf.float().numpy()
         x = np.array(leaf, dtype=np.float32)  # a writable copy; bf16 widens exactly
         if leaf_name == "kernel":
-            leaf_name, x = "weight", x.T
+            # Dense [in, out], a vmapped stack [n, in, out], Conv [kh, kw, in, out]
+            axes = {2: (1, 0), 3: (0, 2, 1), 4: (3, 2, 0, 1)}[x.ndim]
+            leaf_name, x = "weight", x.transpose(axes)
         elif leaf_name == "scale":
             leaf_name = "weight"
         out[".".join(names + [leaf_name])] = torch.from_numpy(np.ascontiguousarray(x))
@@ -122,7 +127,8 @@ def load_fb_train_state(agent: FBDDPGAgent, state: tp.Any) -> None:
 
 def load_ddpg_train_state(agent: DDPGAgent, state: tp.Any) -> None:
     """Load a JAX ``DDPGTrainState``, or its decoded dict, into ``agent`` (in
-    place); the reward model and its Adam state when the agent has one."""
+    place); the reward model and the pixel encoder, with their Adam states,
+    when the agent has them."""
     for module, name in ((agent.actor, "actor_params"), (agent.critic, "critic_params"),
                          (agent.target_critic, "target_critic_params")):
         module.load_state_dict(flax_to_state_dict(_get(state, name)))
@@ -134,6 +140,10 @@ def load_ddpg_train_state(agent: DDPGAgent, state: tp.Any) -> None:
         agent.reward_model.mlps[0].load_state_dict(
             flax_to_state_dict(_get(state, "reward_params")))
         _load_adam(agent.reward_opt, _get(state, "reward_opt_state"))
+    if agent.encoder is not None:
+        assert agent.encoder_opt is not None
+        agent.encoder.load_state_dict(flax_to_state_dict(_get(state, "encoder_params")))
+        _load_adam(agent.encoder_opt, _get(state, "encoder_opt_state"))
 
 
 def load_intrinsic_train_state(agent: IntrinsicDDPGAgent, state: tp.Any) -> None:

@@ -79,6 +79,8 @@ class EnvSpec:
     # non-empty for image observations: the (H, W, C) the flat observation
     # reshapes to
     obs_shape: tp.Tuple[int, ...] = ()
+    # the observation's dtype: uint8 for pixel frames
+    obs_dtype: torch.dtype = torch.float32
     discrete_actions: bool = False
     n_actions: int = 0
     physics_dim: int = 0

@@ -2,7 +2,8 @@
 
 The string-spec ``MLP`` language, the two-tower ``Actor`` and twin-head
 ``ForwardMap``, the sqrt(d)-L2-normalized ``BackwardMap``, the
-``DiagGaussianActor`` and ``IdentityMap``.
+``DiagGaussianActor``, ``IdentityMap`` and the convolutional
+``PixelEncoder``.
 
 Conventions kept from the JAX package:
   * orthogonal weight init and zero bias; LayerNorm eps 1e-5;
@@ -76,6 +77,8 @@ class MLP(nn.Module):
                 self._plan.append(("dense", name))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not x.is_floating_point():  # uint8 frames, as flax's Dense promotes them
+            x = x.float()
         for kind, name in self._plan:
             if kind in ("dense", "layernorm"):
                 x = self.get_submodule(name)(x)
@@ -255,3 +258,45 @@ class BackwardMap(_Net):
 class IdentityMap(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x
+
+
+def conv_repr_dim(h: int, w: int) -> int:
+    """Width of ``PixelEncoder``'s output for h x w frames (3x3 VALID
+    convolutions, strides 2, 1, 1, 1): 39,200 for 84 x 84."""
+    oh, ow = (h - 3) // 2 + 1, (w - 3) // 2 + 1
+    return 32 * (oh - 6) * (ow - 6)
+
+
+class PixelEncoder(nn.Module):
+    """Four 3x3 VALID convolutions of 32 channels, strides 2, 1, 1, 1, a
+    ReLU after each, on raw pixels scaled to ``x / 255 - 0.5``; returns
+    float32 features.
+
+    The JAX encoder is NHWC and flattens height, width, channels in that
+    order, and the trunk after it is indexed in that order. Here the
+    convolutions run NCHW (cuDNN's layout), and the output is permuted back
+    to NHWC before it is flattened, so the features come in the JAX order
+    and the trunk's weights convert unchanged. The layers are named
+    ``Conv_k`` as flax names them; ``convert.py`` turns a flax kernel [3, 3,
+    in, out] into a weight [out, in, 3, 3].
+    """
+
+    def __init__(self, in_channels: int, dtype: torch.dtype = torch.float32) -> None:
+        super().__init__()
+        self.dtype = dtype
+        self.strides = (2, 1, 1, 1)
+        channels = in_channels
+        for k, stride in enumerate(self.strides):
+            conv = nn.Conv2d(channels, 32, 3, stride=stride)
+            nn.init.orthogonal_(conv.weight)
+            nn.init.zeros_(conv.bias)
+            self.add_module(f"Conv_{k}", conv)
+            channels = 32
+
+    def forward(self, imgs: torch.Tensor) -> torch.Tensor:
+        """imgs: [B, H, W, C] (uint8 or float, in [0, 255]) -> [B, D]."""
+        x = imgs.permute(0, 3, 1, 2).to(self.dtype) / 255.0 - 0.5
+        with _autocast(self.dtype, x.device):
+            for k in range(len(self.strides)):
+                x = torch.relu(self.get_submodule(f"Conv_{k}")(x))
+        return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1).float()

@@ -1,11 +1,12 @@
-"""Running mean and variance (mirror of ``rms_update`` in
+"""Particle-based entropy and running mean and variance (mirror of
 ``controllable_agent_tpu/ops/pbe.py``).
 
 RND divides its prediction error by the running standard deviation of that
-error. The state is three tensors on the device, and ``rms_update`` is a
-function of them, so an update captured in a CUDA graph advances it on
-every replay. The particle-based entropy reward (``pbe``) of APT/APS comes
-with those agents (ROADMAP Queue A item 13).
+error; ICM-APT and MaxEnt reward the distance to the k nearest neighbours
+in a batch (``pbe``), scaled by the running standard deviation of those
+distances. The running state is three tensors on the device, and both
+functions are functions of them, so an update captured in a CUDA graph
+advances it on every replay.
 """
 
 from __future__ import annotations
@@ -45,3 +46,33 @@ def rms_update(state: RMSState, x: Tensor) -> tp.Tuple[RMSState, Tensor, Tensor]
     new_var = (state.var * state.n + x.var(0, unbiased=False) * bs
                + delta.square() * state.n * bs / new_n) / new_n
     return RMSState(mean=new_mean, var=new_var, n=new_n), new_mean, new_var.sqrt()
+
+
+def pbe(rep: Tensor, rms: RMSState, knn_k: int = 16, knn_avg: bool = True,
+        knn_clip: float = 0.0005, knn_rms: bool = True) -> tp.Tuple[Tensor, RMSState]:
+    """The k-nearest-neighbour entropy reward of ``rep`` [batch, dim]:
+    distances from one float32 product (JAX asks for HIGHEST precision: on
+    a card this wants ``torch.backends.cuda.matmul.allow_tf32`` False,
+    PyTorch's default), the k smallest per row (each row's
+    zero distance to itself included), divided by the running standard
+    deviation (``knn_rms``), less ``knn_clip`` and floored at 0, averaged
+    over the k (``knn_avg``; else the k-th only), then log(1 + r). Returns
+    ([batch, 1], the new running state)."""
+    sq = rep.square().sum(1)
+    d2 = sq[:, None] + sq[None, :] - 2.0 * (rep @ rep.T)
+    dist = d2.clamp_min(0.0).sqrt()
+    nearest = -torch.topk(-dist, knn_k, dim=1).values  # [batch, k], ascending
+    if not knn_avg:  # only the k-th nearest
+        reward = nearest[:, -1:]
+        new_rms, _, std = rms_update(rms, reward.reshape(-1, 1))
+        if knn_rms:
+            reward = reward / std
+        reward = (reward - knn_clip).clamp_min(0.0)
+    else:
+        reward = nearest.reshape(-1, 1)  # [batch * k, 1]
+        new_rms, _, std = rms_update(rms, reward)
+        if knn_rms:
+            reward = reward / std
+        reward = (reward - knn_clip).clamp_min(0.0)
+        reward = reward.reshape(rep.shape[0], knn_k).mean(1, keepdim=True)
+    return torch.log(reward + 1.0), new_rms

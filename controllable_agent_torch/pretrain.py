@@ -7,9 +7,12 @@ the port's other entry points share.
 
     python -m controllable_agent_torch.pretrain agent=discrete_fb task=grid_simple
 
-``agent=NAME`` selects the agent (fb_ddpg, ddpg, rnd, sf, sf_svd, and on the
-gridworld's ``grid_simple``, ``grid_obstacle`` and ``grid_random_goal``
-tasks discrete_fb and discrete_sf; ``agent=sf`` and ``agent=discrete_sf``
+    python -m controllable_agent_torch.pretrain agent=ddpg obs_type=pixels task=walker_walk
+
+``agent=NAME`` selects the agent (fb_ddpg, ddpg, the explorers rnd, diayn,
+icm, icm_apt, disagreement and max_ent, sf, sf_svd, and on the gridworld's
+``grid_simple``, ``grid_obstacle`` and ``grid_random_goal`` tasks
+discrete_fb and discrete_sf; ``agent=sf`` and ``agent=discrete_sf``
 take one of thirteen φ learners as ``agent.feature_learner``, an unknown
 one raising ``ValueError`` with the known list); ``agent.*`` keys
 override the agent config; every other ``key=value`` overrides the workspace
@@ -18,10 +21,12 @@ config; ``--help`` lists them all. The run (``OnlineWorkspace``) collects
 ``train.csv``, ``eval.csv``, ``eval_video/``, ``models/latest`` and, at the
 end, ``test_rewards.json`` into ``folder``; the same command again resumes
 from that checkpoint. ``device=cpu`` runs on the CPU; the default is the
-card. Still raising ``NotImplementedError`` with their ROADMAP item: pixels
-and d4rl (12), the agents other than fb_ddpg,
-ddpg, rnd, sf, sf_svd, discrete_fb and discrete_sf (13), ``use_tb``,
-``use_wandb`` and ``profile_dir`` (15).
+card. ``obs_type=pixels`` renders 84 x 84 frames, a stack of
+``frame_stack``, of the point-mass maze and the planar walker, cheetah and
+hopper (DDPG encodes them; FB takes them as flat columns). Still raising
+``NotImplementedError`` with their ROADMAP item: d4rl (12), aps, new_aps,
+smm, proto, uvf, goal_td3 and goal_sm (13), ``use_tb``, ``use_wandb`` and
+``profile_dir`` (15).
 """
 
 from __future__ import annotations

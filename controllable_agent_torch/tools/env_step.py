@@ -6,7 +6,8 @@ trajectory buffers.
 For cheetah and hopper at 16 environments it prints the time of a ``reset``
 (the cheetah settles for 200 control steps first); for those two, the
 quadruped (stand, escape, fetch) and jaco at 10, 1,024 and 16,384
-environments, the kernel launches and device time of one eager
+environments, and the walker's rendered frames (``obs_type=pixels``) at 10,
+1,024 and 4,096, the kernel launches and device time of one eager
 ``env.step`` under ``torch.profiler``, the wall time per replay of the step
 as a ``CapturedProgram`` and the environment steps/s that makes, and whether
 the captured step equals the eager one to the bit; and the time of one copy
@@ -24,6 +25,8 @@ import typing as tp
 
 import torch
 
+from controllable_agent_torch.envs.pixels import make_pixel_env
+from controllable_agent_torch.train.loops import _tensors_of
 from controllable_agent_torch.train.workspace import make_env
 from controllable_agent_torch.utils.device import card_name_and_power_limit
 from controllable_agent_torch.utils.graphs import CapturedProgram
@@ -31,6 +34,9 @@ from controllable_agent_torch.utils.graphs import CapturedProgram
 ENVS, REPLAYS = 16, 100
 SIZES = (10, 1024, 16384)
 TASKS_3D = ("quadruped_stand", "quadruped_escape", "quadruped_fetch", "jaco_reach_top_left")
+# the walker's 84 x 84 frames, a stack of 3: 16,384 environments would hold
+# 1 GB of stacked uint8 frames and some 30 GB of the render's intermediates
+PIXEL_SIZES = (10, 1024, 4096)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,7 +55,7 @@ def step_timing(env: tp.Any, envs: int, generator: torch.Generator,
     state, _ = env.reset(generator, envs)
     action = torch.rand((envs, env.spec.action_dim), generator=generator,
                         device=generator.device) * 2 - 1
-    eager, _ = env.step(state, action)
+    eager = env.step(state, action)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         env.step(state, action)
@@ -63,8 +69,10 @@ def step_timing(env: tp.Any, envs: int, generator: torch.Generator,
     program.replay(replays)
     torch.cuda.synchronize()
     replay_ms = 1e3 * (time.perf_counter() - t0) / replays
-    captured = program.out[0]
-    same = torch.equal(captured.q, eager.q) and torch.equal(captured.qd, eager.qd)
+    # the new state and timestep, every tensor of both
+    same = all(torch.equal(a, b) for a, b in zip(
+        _tensors_of(program.out[0]) + _tensors_of(program.out[1]),
+        _tensors_of(eager[0]) + _tensors_of(eager[1])))
     return StepTiming(len(kernels), device_ms, replay_ms, 1e3 * envs / replay_ms, same)
 
 
@@ -108,6 +116,14 @@ def main() -> None:
             if not t.bitwise:
                 failed.append(f"{name} E={envs}")
     gen = torch.Generator(device="cuda").manual_seed(0)
+    env = make_pixel_env("walker_walk")
+    for envs in PIXEL_SIZES:
+        t = step_timing(env, envs, gen)
+        print(f"walker_walk pixels E={envs}: {t.launches} launches, {t.device_ms:.4f} ms of "
+              f"device time eager, {t.replay_ms:.4f} ms per replay ({t.steps_per_s:.0f} "
+              f"environment steps/s); captured equal to eager: {t.bitwise}")
+        if not t.bitwise:
+            failed.append(f"walker_walk pixels E={envs}")
     print(f"quadruped_escape E={SIZES[-1]}: one copy of the terrains "
           f"({SIZES[-1] * 101 * 101 * 4 / 1e6:.0f} MB) {terrain_copy_ms(SIZES[-1], gen):.4f} ms")
     if failed:

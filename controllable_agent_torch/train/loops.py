@@ -111,9 +111,13 @@ def _cloned(tree: tp.Any) -> tp.Any:
     return tree
 
 
-def _meta_key(agent: tp.Any) -> tp.Optional[str]:
-    """The meta key of an agent that takes a task vector, else None."""
-    return getattr(agent, "meta_key", None)
+def _meta_dims(agent: tp.Any) -> tp.Dict[str, int]:
+    """The width of each meta entry of ``agent``'s policy: its task vector's
+    (``meta_key``), or those its ``meta_dims`` names (DIAYN's skill)."""
+    key = getattr(agent, "meta_key", None)
+    if key is not None:
+        return {key: agent.cfg.z_dim}
+    return dict(getattr(agent, "meta_dims", {}))
 
 
 class Rollout:
@@ -130,11 +134,13 @@ class Rollout:
     ``capture=False``, the same function runs eagerly.
 
     ``rollout(z, state, timestep)`` takes z as [z_dim] or, for a task per
-    episode, [E, z_dim] (None for an agent without a task vector, such as
-    DDPG), and the state and first timestep of a ``reset`` of ``num_envs``
+    episode, [E, z_dim] (None for an agent without a meta, such as DDPG; a
+    meta dict for an agent whose meta is not a task vector, such as DIAYN's
+    skill), and the state and first timestep of a ``reset`` of ``num_envs``
     instances. It returns (totals [E], physics [E, T, P], observations
     [E, T, O]): the trajectories after each step, in buffers that the next
-    run overwrites.
+    run overwrites. Pixel observations are not kept (None), as in JAX: ten
+    episodes of 84 x 84 x 9 frames would be 6.4 GB.
     """
 
     def __init__(self, env: tp.Any, agent: tp.Any, num_envs: int,
@@ -146,14 +152,14 @@ class Rollout:
         self.env, self.agent, self.num_envs = env, agent, num_envs
         spec, device = env.spec, agent.device
         self.horizon = spec.episode_length
-        key = _meta_key(agent)
-        self.meta = ({} if key is None else
-                     {key: torch.zeros((num_envs, agent.cfg.z_dim), device=device)})
+        self.meta = {key: torch.zeros((num_envs, dim), device=device)
+                     for key, dim in _meta_dims(agent).items()}
         self.totals = torch.zeros(num_envs, device=device)
         self.physics = torch.zeros((num_envs, self.horizon, spec.physics_dim), device=device)
-        self.observations = torch.zeros((num_envs, self.horizon, spec.obs_dim), device=device)
+        self.observations = (None if spec.obs_shape else torch.zeros(
+            (num_envs, self.horizon, spec.obs_dim), device=device))
         self._index = torch.zeros(1, dtype=torch.int64, device=device)
-        self._obs = torch.zeros((num_envs, spec.obs_dim), device=device)
+        self._obs = torch.zeros((num_envs, spec.obs_dim), dtype=spec.obs_dtype, device=device)
         self._state: tp.Any = None
         self._program: tp.Optional[CapturedProgram] = None
 
@@ -166,21 +172,24 @@ class Rollout:
         self._obs.copy_(ts.observation)
         self.totals += ts.reward
         self.physics.index_copy_(1, self._index, ts.physics.unsqueeze(1))
-        self.observations.index_copy_(1, self._index, ts.observation.unsqueeze(1))
+        if self.observations is not None:
+            self.observations.index_copy_(1, self._index, ts.observation.unsqueeze(1))
         self._index += 1
 
-    def _set_inputs(self, z: tp.Optional[torch.Tensor], state: tp.Any, ts: tp.Any) -> None:
+    def _set_inputs(self, z: tp.Union[None, torch.Tensor, MetaDict], state: tp.Any,
+                    ts: tp.Any) -> None:
         for held, new in zip(_tensors_of(self._state), _tensors_of(state)):
             held.copy_(new)
         self._obs.copy_(ts.observation)
-        for held_z in self.meta.values():
-            assert z is not None, "this agent's policy takes a task vector"
-            held_z.copy_(z.expand_as(held_z))
+        metas = z if isinstance(z, dict) else {key: z for key in self.meta}
+        for key, held in self.meta.items():
+            assert metas.get(key) is not None, f"this agent's policy takes {key!r}"
+            held.copy_(metas[key].expand_as(held))
         self.totals.zero_()
         self._index.zero_()
 
-    def __call__(self, z: tp.Optional[torch.Tensor], state: tp.Any, ts: tp.Any
-                 ) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    def __call__(self, z: tp.Union[None, torch.Tensor, MetaDict], state: tp.Any, ts: tp.Any
+                 ) -> tp.Tuple[torch.Tensor, torch.Tensor, tp.Optional[torch.Tensor]]:
         if ts.observation.shape != self._obs.shape:
             raise ValueError(f"the rollout was built for observations {tuple(self._obs.shape)}, "
                              f"the reset gave {tuple(ts.observation.shape)}")
@@ -250,16 +259,17 @@ class EpisodeCollector:
         spec, device = env.spec, agent.device
         self.horizon = horizon = spec.episode_length
 
-        def buffer(*shape: int) -> torch.Tensor:
-            return torch.zeros((horizon + 1, num_envs) + shape, device=device)
+        def buffer(*shape: int, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+            return torch.zeros((horizon + 1, num_envs) + shape, dtype=dtype, device=device)
 
-        self.buffers = {"observation": buffer(spec.obs_dim),
+        # pixel frames stay uint8, so the replay stores them as uint8
+        self.buffers = {"observation": buffer(spec.obs_dim, dtype=spec.obs_dtype),
                         "action": buffer(spec.action_dim), "reward": buffer(1),
                         "discount": buffer(1), "physics": buffer(spec.physics_dim)}
         self.meta: MetaDict = {}  # the meta of the current step, [E, ...] per key
         self._t = torch.zeros((), dtype=torch.int64, device=device)
         self._step_t = torch.zeros((), dtype=torch.int64, device=device)
-        self._obs = torch.zeros((num_envs, spec.obs_dim), device=device)
+        self._obs = torch.zeros((num_envs, spec.obs_dim), dtype=spec.obs_dtype, device=device)
         self._state: tp.Any = None
         self._noise: tp.Optional[tp.Sequence[StepNoise]] = None
         self._program: tp.Optional[CapturedProgram] = None
@@ -287,7 +297,7 @@ class EpisodeCollector:
             self._write(name, value)
         for name, value in ts.to_buffer_dict().items():
             if name in self.buffers:
-                self._write(name, value.float())
+                self._write(name, value.to(self.buffers[name].dtype))
         self._t += 1
 
     def _set_inputs(self, meta: MetaDict, state: tp.Any, ts: tp.Any, step: int) -> None:

@@ -13,11 +13,17 @@ the same way (``loops.EpisodeCollector``) and commit them to the replay on
 the device; the collector draws from a generator of its own
 (``collect_generator``), saved in checkpoints beside the workspace's.
 
+``obs_type=pixels`` wraps the task's environment in rendered frames
+(``envs/pixels.py``) and sets ``obs_type="pixels"`` on any agent config
+that has the field, as the JAX workspace does: DDPG encodes the frames,
+FB takes them as flat columns, and an agent whose DDPG is built without the
+frames' shape (the intrinsic agents) raises JAX's ``ValueError``.
+
 Parts of the JAX workspace that are not ported raise ``NotImplementedError``
 naming the ROADMAP item that ports them, whenever a config would make them
-fire: TensorBoard/wandb and profiles (item 15), the agents other than
-fb_ddpg, ddpg, rnd, sf, sf_svd, discrete_fb and discrete_sf (13), pixels
-and d4rl (12).
+fire: TensorBoard/wandb and profiles (item 15), the agents of item 13 that
+are not ported (APS, NEWAPS, SMM, Proto, UVF and the goal agents), and
+d4rl (12).
 """
 
 from __future__ import annotations
@@ -151,7 +157,6 @@ class Workspace:
                  agent_cfg_overrides: tp.Sequence[str] = (),
                  agent_cfg_base: tp.Optional[tp.Dict[str, tp.Any]] = None) -> None:
         unported = [
-            (cfg.obs_type != "states", "obs_type=pixels", 12),
             (cfg.d4rl_dataset is not None, "d4rl_dataset", 12),
             (cfg.use_tb or cfg.use_wandb or cfg.profile_dir is not None,
              "use_tb/use_wandb/profile_dir", 15),
@@ -170,7 +175,12 @@ class Workspace:
         self.domain = cfg.task.split("_", 1)[0]
         if self.domain == "point":
             self.domain = "point_mass_maze"
-        self.env: Environment = make_env(cfg.task, cfg.episode_length)
+        if cfg.obs_type == "pixels":
+            from ..envs.pixels import make_pixel_env
+            self.env: Environment = make_pixel_env(cfg.task, frame_stack=cfg.frame_stack,
+                                                   episode_length=cfg.episode_length)
+        else:
+            self.env = make_env(cfg.task, cfg.episode_length)
 
         # goal space -> goal_fn over physics + goal dim
         self.goal_fn: tp.Optional[tp.Callable[[Tensor], Tensor]] = None
@@ -203,6 +213,10 @@ class Workspace:
                      for k, v in agent_cfg_base.items() if k in field_names}
             base_agent_cfg = dataclasses.replace(base_agent_cfg, **fixed)
         self.agent_cfg = apply_overrides(base_agent_cfg, list(agent_cfg_overrides))
+        if cfg.obs_type == "pixels":
+            if "obs_type" not in field_names:
+                raise ValueError(f"Agent {cfg.agent_name!r} has no pixels path")
+            self.agent_cfg = dataclasses.replace(self.agent_cfg, obs_type="pixels")
         # the discrete agents take the number of actions, the others the action's width
         discrete = getattr(agent_cls, "takes_n_actions", False)
         if discrete != spec.discrete_actions:
@@ -210,9 +224,12 @@ class Workspace:
                              f"{'discrete' if discrete else 'continuous'} action space; "
                              f"task {cfg.task!r} has a "
                              f"{'discrete' if spec.discrete_actions else 'continuous'} one")
+        # DDPG takes the frames' shape (the JAX registry hands it to DDPG alone)
+        shape = ({"obs_shape": spec.obs_shape} if getattr(agent_cls, "takes_obs_shape", False)
+                 else {})
         self.agent = agent_cls(self.agent_cfg, spec.obs_dim,
                                spec.n_actions if discrete else spec.action_dim,
-                               goal_dim=goal_dim, device=self.device, seed=cfg.seed)
+                               goal_dim=goal_dim, device=self.device, seed=cfg.seed, **shape)
         # sized by the first episode loaded: stored episodes may be longer or
         # shorter than the evaluation's episode_length
         self.buffer = ReplayBuffer(
@@ -326,12 +343,13 @@ class Workspace:
                     f"the loaded episodes have {storage[name].shape[-1]} {name} columns, "
                     f"the environment of task {self.cfg.task!r} has {size}")
 
-    def _eval_rollout(self, z: tp.Optional[Tensor], num_envs: int
-                      ) -> tp.Tuple[Tensor, Tensor, Tensor]:
+    def _eval_rollout(self, z: tp.Union[None, Tensor, MetaDict], num_envs: int
+                      ) -> tp.Tuple[Tensor, Tensor, tp.Optional[Tensor]]:
         """Fresh initial states from the workspace's generator, rolled out
         under ``z`` ([z_dim], or [E, z_dim] for a z per episode; None for an
-        agent without a task vector). The result lives in the rollout's
-        buffers until its next run."""
+        agent without a meta; the meta dict of an agent without a task
+        vector, such as DIAYN). The result lives in the rollout's buffers
+        until its next run; pixel observations are not kept (None)."""
         if num_envs not in self._rollouts:
             self._rollouts[num_envs] = Rollout(self.env, self.agent, num_envs)
         state, ts = self.env.reset(self.generator, num_envs)
@@ -363,7 +381,8 @@ class Workspace:
         meta = self._init_eval_meta()
         meta_key = getattr(self.agent, "meta_key", None)
         z = meta.get(meta_key) if meta_key is not None else None
-        totals, phys, obs = self._eval_rollout(z, self.cfg.num_eval_episodes)
+        totals, phys, obs = self._eval_rollout(meta if meta_key is None else z,
+                                               self.cfg.num_eval_episodes)
         if self.cfg.custom_reward is not None:
             reward = get_reward_function(self.cfg.custom_reward, self.cfg.seed)
             totals = reward.from_physics(phys).sum(1)
@@ -392,20 +411,25 @@ class Workspace:
         return metrics
 
     def _eval_diagnostics(self, meta: tp.Dict[str, Tensor], phys: Tensor,
-                          obs: Tensor) -> tp.Dict[str, float]:
+                          obs: tp.Optional[Tensor]) -> tp.Dict[str, float]:
         """FB health diagnostics over the whole eval rollout set (z_correl,
-        actor_success; gated by agent.cfg.additional_metric)."""
+        actor_success; gated by agent.cfg.additional_metric). Without the
+        observations (pixels), z_correl only with a goal space."""
         agent = self.agent
         if not (getattr(agent.cfg, "additional_metric", False)
                 and hasattr(agent, "compute_z_correl") and "z" in meta):
             return {}
         horizon = phys.shape[1]
-        obs_flat = obs.flatten(0, 1)
+        obs_flat = obs.flatten(0, 1) if obs is not None else None
         goals = self.goal_fn(phys.flatten(0, 1)) if self.goal_fn is not None else obs_flat
-        # one dot per step summed and divided by episodes: T x the per-step mean
-        return {"z_correl": float(agent.compute_z_correl(goals, meta["z"])) * horizon,
-                "actor_success": float(agent.compute_actor_success(
-                    obs_flat, meta["z"], self.generator))}
+        out: tp.Dict[str, float] = {}
+        if goals is not None:
+            # one dot per step summed and divided by episodes: T x the per-step mean
+            out["z_correl"] = float(agent.compute_z_correl(goals, meta["z"])) * horizon
+        if obs_flat is not None:
+            out["actor_success"] = float(agent.compute_actor_success(
+                obs_flat, meta["z"], self.generator))
+        return out
 
     def eval_maze_goals(self) -> tp.Dict[str, float]:
         """20-goal maze sweep, two episodes per goal, all rolled out at once:

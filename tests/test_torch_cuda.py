@@ -11,18 +11,21 @@ import pytest
 import torch
 
 from controllable_agent_torch import pretrain
-from controllable_agent_torch.agents import (DDPGAgent, DDPGConfig, DDPGNoise, DiscreteFBAgent,
-                                             DiscreteFBConfig, DiscreteSFAgent, DiscreteSFConfig,
-                                             FBDDPGAgent, FBDDPGConfig, RNDAgent, RNDConfig,
-                                             SFAgent, SFConfig, SFSVDAgent, SFSVDConfig,
-                                             UpdateNoise)
+from controllable_agent_torch.agents import (AGENTS, DDPGAgent, DDPGConfig, DDPGNoise,
+                                             DiscreteFBAgent, DiscreteFBConfig, DiscreteSFAgent,
+                                             DiscreteSFConfig, FBDDPGAgent, FBDDPGConfig,
+                                             RNDAgent, RNDConfig, SFAgent, SFConfig, SFSVDAgent,
+                                             SFSVDConfig, UpdateNoise)
 from controllable_agent_torch.data import ReplayBuffer
 from controllable_agent_torch.data import replay as replay_lib
+from controllable_agent_torch.data.episode_batch import EpisodeBatch
 from controllable_agent_torch.data.exorl import synthetic_episodes
 from controllable_agent_torch.envs import (build_gridworld_task, gridworld, jaco, locomotion,
                                            pointmass, quadruped)
+from controllable_agent_torch.envs.pixels import make_pixel_env
 from controllable_agent_torch.envs.wrappers import (ActionRepeatWrapper, FrameStackWrapper,
                                                     StatefulEnv)
+from controllable_agent_torch.models.networks import PixelEncoder
 from controllable_agent_torch.goals import get_reward_function
 from controllable_agent_torch.ops import fused_fb as ff
 from controllable_agent_torch.ops.linalg import lstsq
@@ -749,3 +752,121 @@ def test_captured_discrete_updates_equal_eager(cuda_device, case) -> None:
     assert torch.equal(gens[0].get_state(), gens[1].get_state())
     for k, v in metrics[1].items():
         assert torch.equal(metrics[0][k], v), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", ["walker_walk", "cheetah_run", "hopper_hop",
+                                  "point_mass_maze_reach_top_left"])
+def test_pixel_frames_on_the_card_match_the_cpu(cuda_device, task) -> None:
+    """84 x 84 frames, a stack of 3, over a reset and five steps on the card
+    against the CPU's render of the same physics rows: uint8 within 1, equal
+    on at least 99.9%."""
+    env = make_pixel_env(task)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    state, ts = env.reset(gen, 64)
+    for step in range(6):
+        if step:
+            action = torch.rand((64, env.spec.action_dim), generator=gen, device=cuda_device)
+            state, ts = env.step(state, action * 2 - 1)
+        assert ts.observation.dtype == torch.uint8
+        newest = ts.observation.reshape(64, 84, 84, 3, 3)[..., -1, :].cpu().int()
+        want = env.frame_fn(ts.physics.cpu()).to(torch.uint8).int()
+        diff = (newest - want).abs()
+        assert int(diff.max()) <= 1 and float((diff == 0).float().mean()) >= 0.999, step
+
+
+@pytest.mark.cuda
+def test_pixel_encoder_on_the_card_matches_the_cpu(cuda_device) -> None:
+    """The encoder's features on the card (cuDNN, TF32 off) against the CPU
+    at rtol 1e-4."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.manual_seed(0)
+    encoder = PixelEncoder(9)
+    frames = torch.randint(0, 256, (16, 84, 84, 9), dtype=torch.uint8)
+    with torch.no_grad():
+        want = encoder(frames)
+        got = encoder.to(cuda_device)(frames.to(cuda_device)).cpu()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_captured_pixel_update_equals_eager(cuda_device) -> None:
+    """Pixel DDPG updates (the shifts, the encoder's own Adam step, cuDNN's
+    deterministic algorithms) through a captured program and eagerly, from
+    the same state, batch and draws: equal to the bit."""
+    cfg = DDPGConfig(hidden_dim=64, batch_size=32, obs_type="pixels")
+    shape = (84, 84, 9)
+    agents = [DDPGAgent(cfg, 84 * 84 * 9, 6, device=cuda_device, seed=0, obs_shape=shape)
+              for _ in range(2)]
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    frames = lambda: torch.randint(0, 256, (32, 84 * 84 * 9), generator=gen,  # noqa: E731
+                                   device=cuda_device, dtype=torch.uint8)
+    batch = EpisodeBatch(
+        obs=frames(), next_obs=frames(), action=torch.rand(32, 6, device=cuda_device) * 2 - 1,
+        reward=torch.rand(32, 1, device=cuda_device),
+        discount=torch.full((32, 1), 0.98, device=cuda_device))
+    noise = DDPGNoise.draw(32, 6, gen, cuda_device, aug_pad=cfg.aug_pad)
+    program = CapturedProgram(lambda: agents[0]._update(batch, noise), cuda_device,
+                              agents[0].train_state().values())
+    program.replay(3)
+    for _ in range(3):
+        agents[1]._update(batch, noise)
+    torch.cuda.synchronize()
+    assert agents[0].step == agents[1].step == 3 and agents[0].encoder_opt.count == 3
+    for k, v in agents[1].train_state().items():
+        assert torch.equal(agents[0].train_state()[k], v), k
+
+
+EXPLORER_SMALL = dict(hidden_dim=64, batch_size=128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["diayn", "icm", "icm_apt", "disagreement", "max_ent"])
+def test_captured_explorer_updates_equal_eager(cuda_device, name) -> None:
+    """Four updates of each explorer through the captured trainer and
+    eagerly from the same generator state: equal to the bit (DIAYN on
+    episodes with a one-hot skill column)."""
+    cfg_cls, agent_cls = AGENTS[name]
+    cfg = cfg_cls(**EXPLORER_SMALL)
+    episodes = synthetic_episodes(8, 50, 24, 6, seed=0)
+    if name == "diayn":
+        eye = np.eye(cfg.skill_dim, dtype=np.float32)
+        episodes = [{**ep, "skill": np.repeat(eye[i % cfg.skill_dim][None], 51, 0)}
+                    for i, ep in enumerate(episodes)]
+    buf = ReplayBuffer(8, discount=0.98, future=0.99, device=cuda_device)
+    buf.load_episodes(episodes)
+    buf.cfg = replay_lib.SampleConfig(discount=0.98, future=0.99, nstep=3)
+    agents = [agent_cls(cfg, 24, 6, device=cuda_device, seed=0) for _ in range(2)]
+    gens = [torch.Generator(device=cuda_device).manual_seed(5) for _ in range(2)]
+    trainers = [make_offline_trainer(agents[0], buf.cfg, cfg.batch_size, 4),
+                make_offline_trainer(agents[1], buf.cfg, cfg.batch_size, 4, capture=False)]
+    metrics = [trainer(buf.state, gen) for trainer, gen in zip(trainers, gens)]
+    assert trainers[0]._program is not None and agents[0].step == agents[1].step == 4
+    for k, v in agents[1].train_state().items():
+        assert torch.equal(agents[0].train_state()[k], v), k
+    for k, v in metrics[1].items():
+        assert torch.equal(metrics[0][k], v), k
+    assert torch.equal(gens[0].get_state(), gens[1].get_state())
+
+
+@pytest.mark.cuda
+def test_captured_diayn_collector_resamples_the_skill(cuda_device) -> None:
+    """DIAYN's collector over 60 steps, captured and eager: equal to the
+    bit, the skill resampled from the registered generator at steps 0 and
+    50 and held between."""
+    cfg_cls, agent_cls = AGENTS["diayn"]
+    agent = agent_cls(cfg_cls(**EXPLORER_SMALL), 24, 6, device=cuda_device, seed=0)
+    env = locomotion.make("walker_walk", 60)
+    gens = [torch.Generator(device=cuda_device).manual_seed(6) for _ in range(2)]
+    runs = []
+    for collector, g in ((EpisodeCollector(env, agent, 16, gens[0]), gens[0]),
+                         (EpisodeCollector(env, agent, 16, gens[1], capture=False), gens[1])):
+        meta = init_meta_batched(agent, g, 16)
+        state, ts = env.reset(g, 16)
+        runs.append({k: v.clone() for k, v in collector(meta, state, ts, 0).items()})
+    for key, value in runs[1].items():
+        assert torch.equal(runs[0][key], value), key
+    skill = runs[0]["skill"]  # [T + 1, E, K]; index i holds the skill of step i - 1
+    changed = (skill[1:] != skill[:-1]).any(-1).any(-1).nonzero().flatten().tolist()
+    assert set(changed) <= {0, 50} and 50 in changed
+    assert torch.equal(gens[0].get_state(), gens[1].get_state())

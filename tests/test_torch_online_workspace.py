@@ -119,10 +119,11 @@ def test_the_explorers_pretrain_online(tmp_path, agent) -> None:
 
 
 def test_the_registry_names_what_is_ported() -> None:
-    ported = ["ddpg", "discrete_fb", "discrete_sf", "fb_ddpg", "rnd", "sf", "sf_svd"]
+    ported = ["ddpg", "diayn", "disagreement", "discrete_fb", "discrete_sf", "fb_ddpg", "icm",
+              "icm_apt", "max_ent", "rnd", "sf", "sf_svd"]
     assert sorted(AGENTS) == ported
     with pytest.raises(NotImplementedError, match="item 13"):
-        pretrain.build_workspace(["agent=diayn", "device=cpu"])
+        pretrain.build_workspace(["agent=aps", "device=cpu"])
     with pytest.raises(ValueError, match=re.escape(f"known: {ported}")):
         pretrain.build_workspace(["agent=nope", "device=cpu"])
 

@@ -47,7 +47,11 @@ def test_port_has_modules_to_check() -> None:
             "controllable_agent_torch/agents/discrete_sf.py",
             "controllable_agent_torch/envs/physics3d.py",
             "controllable_agent_torch/envs/quadruped.py",
-            "controllable_agent_torch/envs/jaco.py"} <= names
+            "controllable_agent_torch/envs/jaco.py",
+            "controllable_agent_torch/envs/pixels.py",
+            "controllable_agent_torch/ops/augment.py",
+            "controllable_agent_torch/ops/pbe.py",
+            "controllable_agent_torch/agents/exploration.py"} <= names
 
 
 def test_engine_differentiates_by_hand() -> None:
