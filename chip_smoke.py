@@ -1,9 +1,18 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (H100).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                    # every phase
+    python3 chip_smoke.py --phases 26-28     # a selection: ranges and lists
+    python3 chip_smoke.py --phases 4,11,21
 
 Drives ``controllable_agent_torch`` (and nothing of the JAX package) in
-twenty-five phases, each printed on its own line; any failure exits non-zero:
+twenty-eight phases, each printed on its own lines with its seconds; any
+failure exits non-zero. A selection always builds the kernels (phase 1),
+and builds the least of what its phases read from earlier ones: phase 4's
+workspace for phases 5-11 (by running phase 4), its episodes on disk for
+phase 15, phase 2's errors for phase 5, FB's captured updates/s (phase 4's,
+else a short run at its geometry) for phases 14, 18 and 24-26, a fresh
+full-width FB agent for phase 13, phase 15's workspaces for phase 16 (by
+running phase 15), one collected quadruped cycle for phase 22. The phases:
 
   1. build the CUDA kernels of ``controllable_agent_torch/csrc`` with nvcc;
   2. hold each of the two fused-FB-loss kernels (the forward's four sums,
@@ -70,7 +79,7 @@ twenty-five phases, each printed on its own line; any failure exits non-zero:
      one more cycle, continuing the step, the replay and the agent's step;
  13. the other online paths: ``train_online.main`` with half of each
      cycle's episodes directed by a task z (``task_episode_reward``);
-     ``pretrain.main agent=rnd`` at full width for two cycles; a captured
+     ``pretrain.main agent=rnd`` at full width, 2 environments, two cycles; a captured
      RND update, a captured collector step and two programs replayed in
      turns on one generator, each against its eager counterpart to the bit;
      the cheetah's reset with its settling steps captured against the same
@@ -78,7 +87,7 @@ twenty-five phases, each printed on its own line; any failure exits non-zero:
  14. successor features at the JAX defaults (hidden 1024, feature 512,
      backward hidden 512, z 100, batch 1024, float32): SF with each of its
      thirteen feature learners, with ``q_loss=false``, ``boltzmann=true``
-     and ``mix_ratio=0.5``, and SF-SVD, each 50 updates through the
+     and ``mix_ratio=0.5``, and SF-SVD, each 30 updates through the
      captured trainer and the same updates eagerly on a twin from the same
      generator state (held to the bit, else to phase 7's tolerance); per
      agent the updates/s both ways, the kernel launches and device time per
@@ -86,9 +95,10 @@ twenty-five phases, each printed on its own line; any failure exits non-zero:
      is captured (``mix_ratio`` > 0: two graphs with the pseudo-inverse run
      eagerly between them);
  15. SF (``lap``) and SF-SVD through ``train_offline.main`` at full width on
-     phase 4's episodes, relabeled, with two evaluations, ``finalize()`` into
-     ``test_rewards.json`` and a resumed run; ``pretrain.main agent=sf``
-     for a seed cycle and a training cycle, resumed for one more;
+     phase 4's episodes, relabeled, 300 updates with an evaluation,
+     ``finalize()`` into ``test_rewards.json`` and a resumed run;
+     ``pretrain.main agent=sf`` (2 environments) for a seed cycle and a
+     training cycle, resumed for one more;
  16. the SF agents' inference on 5,120 replay samples, float32 on the card
      against float64 on the CPU: SF's least squares with full rank and with
      a rank-deficient φ, SF-SVD's on φ(s, a), and ``get_goal_meta`` after
@@ -106,7 +116,7 @@ twenty-five phases, each printed on its own line; any failure exits non-zero:
  18. the discrete agents at the JAX defaults (discrete FB: hidden 1024, z 50,
      batch 1024, float32; its default, ``boltzmann=false`` and
      ``q_loss=true``, whose pseudo-inverse runs eagerly between two graphs;
-     discrete SF with icm, identity and lap), 50 updates each through the
+     discrete SF with icm, identity and lap), 30 updates each through the
      captured trainer against the same updates eagerly on a twin, as phase
      14;
  19. the entry points on the grid: ``pretrain.main agent=discrete_fb
@@ -133,7 +143,7 @@ twenty-five phases, each printed on its own line; any failure exits non-zero:
      ``agent=fb_ddpg task=quadruped_stand goal_space=quad_pos_speed`` at
      full width (hidden 1024, feature 512, backward hidden 526, z 50, batch
      1024) in bf16 with ``agent.use_pallas_loss=true``, two cycles of 4
-     episodes x 1,000 steps and 2,000 updates; per cycle the collection's
+     episodes x 1,000 steps and 1,000 updates; per cycle the collection's
      seconds and share and the updates/s; one capture of the update program;
      the fused kernels' launches by the wrappers' count and by the kernels'
      own, equal and > 0; then ``evaluate()`` (10 episodes, its video) and
@@ -145,7 +155,7 @@ twenty-five phases, each printed on its own line; any failure exits non-zero:
      on phase 21's replay relabeled for ``quadruped_walk`` (400 captured
      updates, the relabeled rewards against the reward function), and
      ``anytrain`` on ``quadruped_fetch`` and ``quadruped_escape`` for one
-     cycle of 2,000 updates each;
+     cycle of 2 environments x 1,000 steps and 1,000 updates each;
  23. pixels on the card: 84 x 84 frames with a stack of 3 of the walker,
      cheetah, hopper and point-mass maze, 1,024 environments x 20 steps,
      against the same physics rendered on the CPU (uint8 within 1, equal on
@@ -155,9 +165,9 @@ twenty-five phases, each printed on its own line; any failure exits non-zero:
      ``env.step`` on frames at 10, 1,024 and 4,096 environments;
  24. this slice's main path: ``pretrain agent=ddpg obs_type=pixels
      task=walker_walk`` at the JAX DDPG defaults (hidden 1024, batch 1024,
-     n-step 3, float32, 84 x 84 x 9 uint8 frames, pad 4), cut to 2
-     environments and a replay of 64 episodes: a seed cycle and a cycle of
-     1,000 updates, one capture of the update, a uint8 replay; a resumed
+     n-step 3, float32, 84 x 84 x 9 uint8 frames, pad 4), cut to 1
+     environment and a replay of 64 episodes: a seed cycle and a cycle of
+     500 updates, one capture of the update, a uint8 replay; a resumed
      workspace; the launches and device time of an update; ``evaluate()``
      (10 episodes, its video) and ``finalize()`` (``{}``); 20 full-width
      pixel updates captured against eager on a twin, to the bit; the
@@ -166,7 +176,29 @@ twenty-five phases, each printed on its own line; any failure exits non-zero:
      JAX defaults, 100 updates each captured against eager on a twin, to
      the bit; ``pretrain agent=diayn`` with the skill resampled in the
      captured collector. No fused FB kernel is on phases 23-25: their
-     launches must be 0 by both counts.
+     launches must be 0 by both counts;
+ 26. the last seven agents of the JAX registry at the JAX defaults (hidden
+     1024, batch 1024, float32; Proto's 2,048-row queue): APS, NEWAPS (and
+     with ``future_ratio=0.5``, two graphs around an eager pinv), SMM and
+     Proto on phase 4's walker-shaped episodes with the meta column each
+     reads (``task``, ``z``), UVF, GoalTD3 and GoalSM with
+     ``goal_space=simplified_point_mass_maze`` on maze-shaped episodes with
+     2-D goals and a ``g`` column; 100 updates each captured against eager
+     on a twin, to the bit, with updates/s both ways, launches and device
+     ms per update and the peak memory;
+ 27. ``pretrain agent={aps,new_aps,smm,proto} task=walker_walk`` at full
+     width, 4 environments, a seed cycle and a training cycle each: APS's
+     task changes in the replay only at multiples of 5 steps, SMM's one-hot
+     z only at multiples of 50, NEWAPS's ``test_rewards.json`` has the four
+     walker rows, and Proto, resumed from its folder, keeps its queue;
+ 28. ``pretrain agent={uvf,goal_td3,goal_sm}
+     task=point_mass_maze_reach_top_left
+     goal_space=simplified_point_mass_maze custom_reward=maze_multi_goal``,
+     a seed cycle, a training cycle and ``finalize()`` (the 20-goal sweep,
+     2 episodes each, one batch) into a finite ``test_rewards.json`` in [0,
+     1]; then ``train_offline agent=goal_td3`` on that run's replay. No
+     fused FB kernel is on phases 26-28: their launches must be 0 by both
+     counts.
 
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -201,6 +233,7 @@ from controllable_agent_torch.data.exorl import save_exorl_episodes, synthetic_e
 from controllable_agent_torch.envs import build_gridworld_task, gridworld, locomotion
 from controllable_agent_torch.envs.pixels import make_pixel_env
 from controllable_agent_torch.goals import get_reward_function
+from controllable_agent_torch.goals.rewards import MazeMultiGoal
 from controllable_agent_torch.models.networks import PixelEncoder, conv_repr_dim, l2_normalize
 from controllable_agent_torch.ops.augment import draw_shifts, random_shift_aug
 from controllable_agent_torch.ops.linalg import lstsq, pinv
@@ -240,13 +273,17 @@ ONLINE_ENVS, ONLINE_CYCLES = 4, 4  # phase 12: a seed cycle, then three of 2,000
 CYCLE_STEPS = ONLINE_ENVS * EPISODE_LENGTH  # environment steps of one cycle
 ONLINE_EVAL_EVERY = 8000  # crossed at 8,000 and 16,000 steps
 DIRECTED_CYCLES, DIRECTED_UPDATES = 3, 50  # phase 13's train_online run
-RND_CYCLES = 2  # phase 13: a seed cycle, then one of 2,000 updates
+RND_CYCLES, RND_ENVS = 2, 2  # phase 13: a seed cycle, then one of 1,000 updates
+RND_CYCLE_STEPS = RND_ENVS * EPISODE_LENGTH
 CHEETAH_RESETS = 10  # environments of phase 13's cheetah reset, an evaluation's
-SF_UPDATES, SF_FIRST = 50, 10  # phases 14, 18: updates per agent, in calls of 10 then 40
+SF_UPDATES, SF_FIRST = 30, 10  # phases 14, 18: updates per agent, in calls of 10 then 20
 SF_PROFILED = 5  # phase 14: updates under the profiler per agent (the launch count)
 # phase 14's variants beyond the thirteen learners at their defaults
 SF_VARIANTS = (("lap", "q_loss", False), ("icm", "boltzmann", True), ("svd_sr", "mix_ratio", 0.5))
 SF_RESUMED_STEPS = 100  # phase 15: updates of the resumed offline runs
+SF_OFFLINE_STEPS = 300  # phase 15: updates of the offline runs, one evaluation
+SF_ONLINE_ENVS = 2  # phase 15: pretrain agent=sf, cycles of 2 x 1,000 steps
+SF_CYCLE_STEPS = SF_ONLINE_ENVS * EPISODE_LENGTH
 INFERENCE_SAMPLES = 5120  # phase 16: the agents' num_inference_steps
 GRID_ENVS, GRID_LENGTH = 1024, 200  # phase 17: environments per pair; the JAX default episode
 GRID_FIELDS = ("observation", "reward", "discount", "physics", "step_type", "action")
@@ -260,7 +297,8 @@ QUAD_TASKS = tuple(f"quadruped_{t}" for t in ("stand", "walk", "run", "jump", "r
 QUAD_BATTERY = tuple(f"quadruped_{t}" for t in ("stand", "walk", "run", "jump"))
 QUAD_STEP_TASKS = ("quadruped_stand", "quadruped_escape", "quadruped_fetch")  # phase 20
 QUAD_PROFILED = QUAD_STEP_TASKS + ("jaco_reach_top_left",)
-QUAD_CYCLES, QUAD_UPDATES = 2, 2000  # phase 21
+QUAD_CYCLES, QUAD_UPDATES = 2, 1000  # phase 21
+QUAD_ANYTRAIN_ENVS = 2  # phase 22: anytrain on fetch and escape, one cycle of 2 x 1,000 steps
 QUAD_REPLAY_EPISODES = 2000  # results/quad_one's replay_buffer_episodes
 JACO_LENGTH = 250  # phase 22
 QUAD_OFFLINE_UPDATES = 400  # phase 22: train_offline on phase 21's replay
@@ -271,12 +309,21 @@ PIXEL_EQUAL_SHARE = 0.999  # uint8 frames: within 1 everywhere, equal on this sh
 AUG_PAD, ENCODER_BATCH = 4, 64  # phase 23: DrQ's pad (the JAX default); encoder's check
 # the encoder's features, card against CPU: float32 sums of 81 x 32 products in another order
 ENCODER_RTOL, ENCODER_ATOL = 1e-4, 1e-5
-PIXEL_RUN_ENVS, PIXEL_REPLAY_EPISODES = 2, 64  # phase 24's cuts (the recipe: 4, 5,000)
+PIXEL_RUN_ENVS, PIXEL_REPLAY_EPISODES = 1, 64  # phase 24's cuts (the recipe: 4, 5,000)
 PIXEL_CYCLE_STEPS = PIXEL_RUN_ENVS * EPISODE_LENGTH
 PIXEL_COMPARED_UPDATES, PIXEL_FIRST = 20, 5  # phase 24: captured vs eager, timed after 5
 EXPLORERS = ("diayn", "icm", "icm_apt", "disagreement", "max_ent")  # phase 25
 EXPLORER_UPDATES = 100  # phase 25: updates per explorer, captured and eager
 TF32_TIMED = 10  # phase 24: pixel updates timed with cuDNN's TF32 off and on
+# phase 26: the last seven agents at the JAX defaults, and NEWAPS's hindsight z
+ITEM13_AGENTS = ("aps", "new_aps", "new_aps future_ratio=0.5", "smm", "proto", "uvf",
+                 "goal_td3", "goal_sm")
+ITEM13_UPDATES = 100  # phase 26: updates per agent, captured and eager
+ITEM13_EXPLORERS = ("aps", "new_aps", "smm", "proto")  # phase 27, on walker_walk
+MAZE_AGENTS = ("uvf", "goal_td3", "goal_sm")  # phase 28, on the point-mass maze
+MAZE_GOAL_SPACE = "simplified_point_mass_maze"
+MAZE_OFFLINE_UPDATES = 400  # phase 28: train_offline agent=goal_td3
+LAST_PHASE = 28
 F32_EPS = float(torch.finfo(torch.float32).eps)
 HBM_BYTES_PER_S = 3.35e12
 FWD_RTOL = 2e-4  # as tests/test_pallas_fb.py: order of f32 sums over n^2
@@ -422,14 +469,20 @@ def check_test_rewards(ws: tp.Any, returned: tp.Any = None,
     return written
 
 
-def run_slice(tmp: str) -> tp.Tuple[tp.Dict[str, int], tp.Any]:
+def write_slice_episodes(tmp: str) -> int:
+    """Phase 4's episodes: synthetic walker-shaped ExORL episodes with walker
+    physics, written to ``tmp/episodes`` (phase 15 reads them too)."""
     episodes = synthetic_episodes(EPISODES, EPISODE_LENGTH, OBS_DIM, ACTION_DIM, SEED)
     gen = torch.Generator().manual_seed(SEED)
     for episode in episodes:
         episode["physics"] = walker_physics((EPISODE_LENGTH + 1,), gen, "cpu").numpy()
     store = ReplayBuffer(EPISODES, discount=0.98, future=0.99, device="cpu")
     store.load_episodes(episodes)
-    written = save_exorl_episodes(store.state, f"{tmp}/episodes")
+    return save_exorl_episodes(store.state, f"{tmp}/episodes")
+
+
+def run_slice(tmp: str) -> tp.Tuple[tp.Dict[str, int], tp.Any]:
+    written = write_slice_episodes(tmp)
     torch.cuda.reset_peak_memory_stats()
     ff.reset_launches()
     t0 = time.perf_counter()
@@ -1073,9 +1126,9 @@ def check_online_paths(tmp: str, fb_agent: tp.Any) -> None:
     del directed
 
     rnd, wall = _timed(lambda: pretrain.main([
-        "agent=rnd", "task=walker_walk", f"num_envs={ONLINE_ENVS}",
-        f"num_seed_frames={CYCLE_STEPS}", f"num_train_frames={RND_CYCLES * CYCLE_STEPS}",
-        f"eval_every_steps={RND_CYCLES * CYCLE_STEPS}", f"num_eval_episodes={EVAL_EPISODES}",
+        "agent=rnd", "task=walker_walk", f"num_envs={RND_ENVS}",
+        f"num_seed_frames={RND_CYCLE_STEPS}", f"num_train_frames={RND_CYCLES * RND_CYCLE_STEPS}",
+        f"eval_every_steps={RND_CYCLES * RND_CYCLE_STEPS}", f"num_eval_episodes={EVAL_EPISODES}",
         "final_tests=0", "save_eval_video=false", f"folder={tmp}/rnd", f"seed={SEED}"]))
     report_cycles(rnd, "phase 13 rnd")
     row, evals = rnd.last_row, read_csv(rnd.work_dir / "eval.csv")
@@ -1085,7 +1138,7 @@ def check_online_paths(tmp: str, fb_agent: tp.Any) -> None:
           f"{rnd.online_trainer.trainer.captures} time(s); intr_reward {row['intr_reward']:.4f}, "
           f"rnd_loss {row['rnd_loss']:.4f}, critic_loss {row['critic_loss']:.4f}; evaluation "
           f"episode_reward {float(evals[-1]['episode_reward']):.2f}")
-    if rnd.agent.step != (RND_CYCLES - 1) * CYCLE_STEPS // 2 \
+    if rnd.agent.step != (RND_CYCLES - 1) * RND_CYCLE_STEPS // 2 \
             or rnd.online_trainer.trainer.captures != 1 or rnd.buffer.cfg.nstep != 3 \
             or not all(math.isfinite(v) for v in row.values()) or len(evals) != 1:
         raise AssertionError(f"bad RND run: {row}, {evals}")
@@ -1279,14 +1332,14 @@ def run_sf_entry_points(tmp: str) -> tp.Dict[str, tp.Any]:
         folder = f"{tmp}/{name}"
         torch.cuda.reset_peak_memory_stats()
         ws, wall = _timed(lambda: train_offline.main(sf_offline_args(
-            folder, f"{tmp}/episodes", SLICE_STEPS, *agent)))
+            folder, f"{tmp}/episodes", SF_OFFLINE_STEPS, *agent)))
         peak = torch.cuda.max_memory_allocated()
         row, z = ws.last_row, ws.inferred_z
         evals = read_csv(ws.work_dir / "eval.csv")
         returns = [float(r["episode_reward"]) for r in evals]
         written = check_test_rewards(ws)
         print(f"phase 15 train_offline {' '.join(agent)}: {ws.global_step} updates in {wall:.1f} s "
-              f"(load, relabel, capture, two evaluations, finalize() and the checkpoint included), "
+              f"(load, relabel, capture, the evaluations, finalize() and the checkpoint included), "
               f"{row['fps']:.1f} updates/s over the last {STEPS_PER_CALL} (captured); sf_loss "
               f"{row['sf_loss']:.4f}, phi_loss {row['phi_loss']:.4f}, actor_loss "
               f"{row['actor_loss']:.4f}; evaluations at steps "
@@ -1295,21 +1348,21 @@ def run_sf_entry_points(tmp: str) -> tp.Dict[str, tp.Any]:
               + ", ".join(f"{t} {np.mean(written[t]):.2f}" for t in WALKER_TASKS)
               + f"; inferred z norm {float(z.norm()):.4f}; peak device memory "
               f"{peak / 2**20:.1f} MiB; on {card}")
-        if ws.global_step != SLICE_STEPS or ws.agent.step != SLICE_STEPS \
+        if ws.global_step != SF_OFFLINE_STEPS or ws.agent.step != SF_OFFLINE_STEPS \
                 or not all(math.isfinite(v) for v in row.values()) \
                 or [int(float(r["step"])) for r in evals] != list(
-                    range(EVAL_EVERY, SLICE_STEPS + 1, EVAL_EVERY)) \
+                    range(EVAL_EVERY, SF_OFFLINE_STEPS + 1, EVAL_EVERY)) \
                 or not all(math.isfinite(r) and 0.0 <= r <= ws.spec.episode_length
                            for r in returns) \
                 or abs(float(z.norm()) - math.sqrt(ws.agent.cfg.z_dim)) > 1e-3:
             raise AssertionError(f"bad {name} offline run: {row}, {evals}, {z}")
-        more = SLICE_STEPS + SF_RESUMED_STEPS
+        more = SF_OFFLINE_STEPS + SF_RESUMED_STEPS
         resumed, wall = _timed(lambda: train_offline.main(
             [a for a in sf_offline_args(folder, f"{tmp}/episodes", more, *agent)
              if not a.startswith(("final_tests=", "eval_every_steps="))]
             + ["final_tests=0", "eval_every_steps=0"]))
         print(f"phase 15 train_offline {' '.join(agent)} resumed: a fresh run on the folder "
-              f"continued from step {SLICE_STEPS} to {resumed.global_step} (agent step "
+              f"continued from step {SF_OFFLINE_STEPS} to {resumed.global_step} (agent step "
               f"{resumed.agent.step}) in {wall:.1f} s")
         if resumed.global_step != more or resumed.agent.step != more:
             raise AssertionError(f"the resumed {name} run did not continue the saved one")
@@ -1320,10 +1373,10 @@ def run_sf_entry_points(tmp: str) -> tp.Dict[str, tp.Any]:
 
     folder = f"{tmp}/sf_online"
     args = ["task=walker_walk", "agent=sf", "agent.feature_learner=lap",
-            f"num_envs={ONLINE_ENVS}", f"num_seed_frames={CYCLE_STEPS}",
-            f"eval_every_steps={2 * CYCLE_STEPS}", f"num_eval_episodes={EVAL_EPISODES}",
+            f"num_envs={SF_ONLINE_ENVS}", f"num_seed_frames={SF_CYCLE_STEPS}",
+            f"eval_every_steps={2 * SF_CYCLE_STEPS}", f"num_eval_episodes={EVAL_EPISODES}",
             "save_eval_video=false", f"folder={folder}", f"seed={SEED}"]
-    ws, wall = _timed(lambda: pretrain.main(args + [f"num_train_frames={2 * CYCLE_STEPS}",
+    ws, wall = _timed(lambda: pretrain.main(args + [f"num_train_frames={2 * SF_CYCLE_STEPS}",
                                                     f"final_tests={FINAL_TESTS}"]))
     report_cycles(ws, "phase 15 sf pretrain")
     written = check_test_rewards(ws)
@@ -1333,17 +1386,18 @@ def run_sf_entry_points(tmp: str) -> tp.Dict[str, tp.Any]:
           f"evaluation episode_reward {float(evals[-1]['episode_reward']):.2f}; "
           f"test_rewards.json mean returns "
           + ", ".join(f"{t} {np.mean(written[t]):.2f}" for t in WALKER_TASKS) + f"; on {card}")
-    if ws.agent.step != CYCLE_STEPS // 2 or ws.online_trainer.trainer.captures != 1 \
+    if ws.agent.step != SF_CYCLE_STEPS // 2 or ws.online_trainer.trainer.captures != 1 \
             or len(evals) != 1 or not all(math.isfinite(v) for v in ws.last_row.values()):
         raise AssertionError(f"bad sf pretrain run: {ws.last_row}, {evals}")
     del ws
-    resumed, wall = _timed(lambda: pretrain.main(args + [f"num_train_frames={3 * CYCLE_STEPS}",
+    resumed, wall = _timed(lambda: pretrain.main(args + [f"num_train_frames={3 * SF_CYCLE_STEPS}",
                                                          "final_tests=0"]))
     report_cycles(resumed, "phase 15 sf pretrain resumed")
-    print(f"phase 15 pretrain agent=sf resumed: step {2 * CYCLE_STEPS} -> {resumed.global_step}, "
-          f"agent step {resumed.agent.step}, buffer {len(resumed.buffer)} episodes, in {wall:.1f} s")
-    if resumed.global_step != 3 * CYCLE_STEPS or resumed.agent.step != CYCLE_STEPS \
-            or len(resumed.buffer) != 3 * ONLINE_ENVS:
+    print(f"phase 15 pretrain agent=sf resumed: step {2 * SF_CYCLE_STEPS} -> "
+          f"{resumed.global_step}, agent step {resumed.agent.step}, buffer "
+          f"{len(resumed.buffer)} episodes, in {wall:.1f} s")
+    if resumed.global_step != 3 * SF_CYCLE_STEPS or resumed.agent.step != SF_CYCLE_STEPS \
+            or len(resumed.buffer) != 3 * SF_ONLINE_ENVS:
         raise AssertionError("the resumed sf pretrain run did not continue the saved one")
     return out
 
@@ -1819,16 +1873,19 @@ def run_quadruped_paths(tmp: str) -> None:
 
     for task in ("quadruped_fetch", "quadruped_escape"):
         run, wall = _timed(lambda: anytrain.main(quad_args(
-            f"{tmp}/{task}", f"task={task}", f"num_envs={ONLINE_ENVS}", "num_seed_frames=0",
-            f"num_train_frames={CYCLE_STEPS}", "eval_every_steps=0", "final_tests=0")))
+            f"{tmp}/{task}", f"task={task}", f"num_envs={QUAD_ANYTRAIN_ENVS}",
+            "num_seed_frames=0", f"num_train_frames={QUAD_ANYTRAIN_ENVS * EPISODE_LENGTH}",
+            "eval_every_steps=0", "final_tests=0")))
         timing = run.cycle_timings[0]
         row = run.last_row
-        print(f"phase 22 anytrain task={task}: one cycle of {ONLINE_ENVS} x {EPISODE_LENGTH} "
+        print(f"phase 22 anytrain task={task}: one cycle of {QUAD_ANYTRAIN_ENVS} x "
+              f"{EPISODE_LENGTH} "
               f"steps (collection {timing['collect']:.3f} s, the capture included) and "
               f"{run.agent.step} updates ({timing['update']:.3f} s) in {wall:.1f} s; "
               f"episode_reward {row['episode_reward']:.2f}, fb_loss {row['fb_loss']:.4f}, "
               f"on {card}")
-        if run.agent.step != CYCLE_STEPS // 2 or not all(math.isfinite(v) for v in row.values()):
+        if run.agent.step != QUAD_ANYTRAIN_ENVS * EPISODE_LENGTH // 2 \
+                or not all(math.isfinite(v) for v in row.values()):
             raise AssertionError(f"{task}: agent step {run.agent.step}, row {row}")
         del run
 
@@ -2139,7 +2196,442 @@ def check_explorers(tmp: str, episodes: tp.List[tp.Dict[str, np.ndarray]],
         raise AssertionError(f"the DIAYN run: {row}")
 
 
-def main() -> int:
+def item13_episodes(name: str, cfg: tp.Any, maze: bool) -> tp.List[tp.Dict[str, np.ndarray]]:
+    """Phase 26's episodes for agent ``name``: phase 4's walker-shaped ones,
+    or point-mass-maze-shaped ones (obs 4, action 2, a 2-D ``goal``
+    column of positions in the maze) for the goal agents; with the
+    meta column that the agent's update reads, one value per episode:
+    APS's unit ``task``, NEWAPS's unit ``z``, SMM's one-hot ``z``, the goal
+    agents' ``g`` (one of the 20 maze goals)."""
+    rng = np.random.RandomState(SEED)
+    rows = EPISODE_LENGTH + 1
+    if maze:
+        episodes = synthetic_episodes(EPISODES, EPISODE_LENGTH, 4, 2, SEED)
+        goals = MazeMultiGoal().goals
+        for ep in episodes:
+            ep["goal"] = rng.uniform(-0.3, 0.3, (rows, 2)).astype(np.float32)
+            ep["g"] = np.repeat(goals[rng.randint(len(goals))][None], rows, 0)
+        return episodes
+    episodes = synthetic_episodes(EPISODES, EPISODE_LENGTH, OBS_DIM, ACTION_DIM, SEED)
+    for ep in episodes:
+        if name == "aps":
+            task = rng.randn(cfg.sf_dim).astype(np.float32)
+            ep["task"] = np.repeat((task / np.linalg.norm(task))[None], rows, 0)
+        elif name == "new_aps":
+            z = rng.randn(cfg.z_dim).astype(np.float32)
+            ep["z"] = np.repeat((z / np.linalg.norm(z))[None], rows, 0)
+        elif name == "smm":
+            ep["z"] = np.repeat(np.eye(cfg.z_dim, dtype=np.float32)[rng.randint(cfg.z_dim)][None],
+                                rows, 0)
+    return episodes
+
+
+def check_item13_agents(fb_rate: float) -> None:
+    """Phase 26: the last seven agents at the JAX defaults (hidden 1024,
+    batch 1024, float32; Proto's 2,048-row queue) and NEWAPS with
+    ``future_ratio=0.5``, 100 updates each captured against eager on a twin,
+    to the bit."""
+    card = card_name_and_power_limit()
+    out = []
+    for label in ITEM13_AGENTS:
+        name = label.split(" ")[0]
+        cfg_cls, agent_cls = agent_classes(name)
+        maze = name in MAZE_AGENTS
+        cfg = cfg_cls(**({"goal_space": MAZE_GOAL_SPACE} if maze else {}),
+                      **({"future_ratio": 0.5} if "future_ratio" in label else {}))
+        buf = ReplayBuffer(EPISODES, discount=0.98, future=0.99, device="cuda")
+        buf.load_episodes(item13_episodes(name, cfg, maze))
+        buf.cfg = dataclasses.replace(buf.cfg, nstep=int(getattr(cfg, "nstep", 1)))
+        obs_dim, action_dim = (4, 2) if maze else (OBS_DIM, ACTION_DIM)
+        goal_dim = 2 if maze else None
+        result = check_captured_agent(
+            "phase 26", label, lambda: agent_cls(cfg, obs_dim, action_dim, goal_dim=goal_dim,
+                                                 device="cuda", seed=SEED),
+            cfg, buf, fb_rate, card, updates=ITEM13_UPDATES, bitwise_only=True)
+        if ("future_ratio" in label) != (result["graphs"] == 2):
+            raise AssertionError(f"{label}: {result['graphs']} captured graphs")
+        out.append(result)
+        del buf
+        gc.collect()
+        torch.cuda.empty_cache()
+    print("phase 26 summary: captured updates/s " + ", ".join(
+        f"{r['label']} {r['captured']:.1f} (eager {r['eager']:.1f}; {r['launches']:.0f} "
+        f"launches, {r['busy_ms']:.3f} ms, peak {r['peak_mib']:.0f} MiB)" for r in out)
+        + f"; all equal to eager to the bit; FB in phase 4 {fb_rate:.1f}; on {card}")
+
+
+def item13_args(agent: str, folder: str, frames: int, *extra: str) -> tp.List[str]:
+    """Phases 27 and 28: ``pretrain`` at the JAX defaults, 4 environments,
+    a seed cycle, no evaluation."""
+    return [f"agent={agent}", f"num_envs={ONLINE_ENVS}", f"num_seed_frames={CYCLE_STEPS}",
+            f"num_train_frames={frames}", "eval_every_steps=0", f"folder={folder}",
+            f"seed={SEED}", *extra]
+
+
+def meta_changes(ws: tp.Any, key: str) -> tp.Tuple[int, int, torch.Tensor]:
+    """Where the replay's ``key`` column changes between steps: (changes,
+    step boundaries, the steps at which it changed). Index i of an episode
+    holds the meta of step i - 1."""
+    column = ws.buffer.state.storage[key][:len(ws.buffer)]
+    changed = (column[:, 1:] != column[:, :-1]).any(-1)
+    return int(changed.sum()), changed.numel(), changed.nonzero()[:, 1]
+
+
+def run_item13_explorers(tmp: str) -> None:
+    """Phase 27: ``pretrain`` with APS, NEWAPS, SMM and Proto on
+    ``walker_walk`` at full width, a seed cycle and a training cycle each;
+    the meta resampled in the captured collector; NEWAPS's final battery;
+    Proto resumed from its folder, its queue with it."""
+    card = card_name_and_power_limit()
+    frames = 2 * CYCLE_STEPS
+    updates = CYCLE_STEPS // 2
+    for agent in ITEM13_EXPLORERS:
+        folder = f"{tmp}/{agent}"
+        tests = [f"final_tests={FINAL_TESTS}"] if agent == "new_aps" else ["final_tests=0"]
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        ws, wall = _timed(lambda: pretrain.main(item13_args(agent, folder, frames,
+                                                            "task=walker_walk", *tests)))
+        peak = torch.cuda.max_memory_allocated() - held
+        cycles = report_cycles(ws, f"phase 27 {agent}")
+        row = ws.last_row
+        captures = ws.online_trainer.trainer.captures
+        collector = ws.online_trainer.collector
+        meta = ""
+        ok = captures == 1 and ws.agent.step == updates and collector._program is not None \
+            and all(math.isfinite(v) for v in row.values())
+        every = {"aps": getattr(ws.agent.cfg, "update_task_every_step", 0),
+                 "smm": getattr(ws.agent.cfg, "update_skill_every_step", 0)}.get(agent)
+        if every:
+            key = "task" if agent == "aps" else "z"
+            n, boundaries, where = meta_changes(ws, key)
+            at_multiples = bool((where % every == 0).all())
+            meta = (f"; the {key} column changed at {n} of {boundaries} step boundaries, all "
+                    f"at multiples of {every} {at_multiples}")
+            ok = ok and n > 0 and at_multiples
+        if agent == "new_aps":
+            written = check_test_rewards(ws)
+            meta = "; test_rewards.json mean returns " + ", ".join(
+                f"{t} {np.mean(written[t]):.2f}" for t in WALKER_TASKS)
+        if agent == "proto":
+            queue = ws.agent.queue
+            meta = (f"; the queue {tuple(queue.shape)} finite "
+                    f"{bool(torch.isfinite(queue).all())}, rows written "
+                    f"{int((queue != 0).any(1).sum())}, pointer {int(ws.agent.queue_ptr)}")
+            ok = ok and bool(torch.isfinite(queue).all()) and bool((queue != 0).any(1).all())
+        losses = ", ".join(f"{k} {v:.4f}" for k, v in row.items()
+                           if k.endswith("loss") or "reward" in k)
+        print(f"phase 27 pretrain agent={agent}: a seed cycle and a cycle of {ws.agent.step} "
+              f"updates in {wall:.1f} s; the update captured {captures} time(s), the collector "
+              f"captured {collector._program is not None}; training cycle "
+              f"{cycles[-1]['updates_per_s']:.1f} updates/s, collection "
+              f"{cycles[-1]['share']:.4f} of it; peak device memory {peak / 2**20:.1f} MiB "
+              f"above the {held / 2**20:.1f} held; {losses}{meta}, on {card}")
+        if not ok:
+            raise AssertionError(f"the {agent} run: captures {captures}, step {ws.agent.step}, "
+                                 f"{row}{meta}")
+        if agent == "proto":
+            args = item13_args(agent, folder, frames + CYCLE_STEPS, "task=walker_walk",
+                               "final_tests=0")
+            resumed = pretrain.build_workspace(args)
+            same = torch.equal(resumed.agent.queue, ws.agent.queue) \
+                and int(resumed.agent.queue_ptr) == int(ws.agent.queue_ptr) \
+                and resumed.agent.step == ws.agent.step
+            _, wall = _timed(resumed.train)
+            print(f"phase 27 proto resumed: the queue, its pointer and the agent's step as "
+                  f"saved {same}; continued from step {frames} to {resumed.global_step}, agent "
+                  f"step {ws.agent.step} -> {resumed.agent.step} in {wall:.1f} s")
+            if not same or resumed.global_step != frames + CYCLE_STEPS \
+                    or resumed.agent.step != 2 * updates:
+                raise AssertionError("the resumed Proto run did not continue the saved one")
+            del resumed
+        del ws
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def run_item13_goal_agents(tmp: str) -> None:
+    """Phase 28: ``pretrain`` with UVF, GoalTD3 and GoalSM on the point-mass
+    maze with the 20-goal ``maze_multi_goal`` battery, a seed cycle, a
+    training cycle and ``finalize()``; ``train_offline agent=goal_td3`` on
+    the GoalTD3 run's replay."""
+    card = card_name_and_power_limit()
+    frames = 2 * CYCLE_STEPS
+    maze = ["task=point_mass_maze_reach_top_left", f"goal_space={MAZE_GOAL_SPACE}",
+            "custom_reward=maze_multi_goal", "final_tests=2"]
+
+    def sweep(ws: tp.Any, what: str) -> None:
+        rewards = json.loads((ws.work_dir / "test_rewards.json").read_text())["rewards"]
+        evals = read_csv(ws.work_dir / "eval.csv")
+        _, final_s = _timed(ws.finalize)
+        print(f"{what}: the 20-goal sweep (finalize(), 20 goals x 2 episodes x "
+              f"{ws.spec.episode_length} steps in one batch, {final_s:.3f} s when run again): "
+              f"reward {rewards[0]:.4f}, distance {float(evals[-1]['distance']):.4f}, on {card}")
+        if len(rewards) != 1 or not (math.isfinite(rewards[0]) and 0.0 <= rewards[0] <= 1.0):
+            raise AssertionError(f"{what}: bad test_rewards.json {rewards}")
+
+    for agent in MAZE_AGENTS:
+        ws, wall = _timed(lambda: pretrain.main(item13_args(agent, f"{tmp}/{agent}", frames,
+                                                            *maze)))
+        cycles = report_cycles(ws, f"phase 28 {agent}")
+        row = ws.last_row
+        captures = ws.online_trainer.trainer.captures
+        key = ws.agent.meta_key  # UVF's z, the goal agents' g
+        meta = ws.buffer.state.storage[key][:len(ws.buffer)]
+        zeros = bool((meta == 0).all())
+        print(f"phase 28 pretrain agent={agent}: a seed cycle and a cycle of {ws.agent.step} "
+              f"updates in {wall:.1f} s, finalize() included; the update captured {captures} "
+              f"time(s); training cycle {cycles[-1]['updates_per_s']:.1f} updates/s, "
+              f"collection {cycles[-1]['share']:.4f} of it; the {key} column "
+              f"{tuple(meta.shape)}, all zeros {zeros} (GoalSM's init_meta is zeros); "
+              + ", ".join(f"{k} {v:.4f}" for k, v in row.items() if "loss" in k))
+        if captures != 1 or ws.agent.step != CYCLE_STEPS // 2 or zeros != (agent == "goal_sm") \
+                or not all(math.isfinite(v) for v in row.values()):
+            raise AssertionError(f"the {agent} run: captures {captures}, step {ws.agent.step}, "
+                                 f"g zeros {zeros}, {row}")
+        sweep(ws, f"phase 28 {agent}")
+        del ws
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    offline, wall = _timed(lambda: train_offline.main([
+        "agent=goal_td3", *maze, f"load_replay={tmp}/goal_td3/models/latest",
+        f"num_grad_steps={MAZE_OFFLINE_UPDATES}", f"steps_per_call={STEPS_PER_CALL}",
+        f"log_every_steps={STEPS_PER_CALL}", "eval_every_steps=0", "checkpoint_every=0",
+        f"folder={tmp}/goal_td3_offline", f"seed={SEED}"]))
+    windows = [float(r["fps"]) for r in read_csv(offline.work_dir / "train.csv")]
+    print(f"phase 28 train_offline agent=goal_td3 on that replay ({len(offline.buffer)} "
+          f"episodes, relabeled for point_mass_maze_reach_top_left): {offline.global_step} "
+          f"updates in {wall:.1f} s; updates/s by window " + ", ".join(f"{w:.1f}" for w in windows)
+          + f"; batch_reward {offline.last_row['batch_reward']:.4f}")
+    if offline.global_step != MAZE_OFFLINE_UPDATES or offline.agent.step != MAZE_OFFLINE_UPDATES \
+            or not all(math.isfinite(v) for v in offline.last_row.values()):
+        raise AssertionError(f"the offline GoalTD3 run: {offline.last_row}")
+    sweep(offline, "phase 28 train_offline agent=goal_td3")
+
+
+def measure_fb_rate() -> float:
+    """FB's captured updates/s at phase 4's geometry (bf16, the fused loss,
+    batch 1024) on its episodes, for a selection of phases without phase 4:
+    the rate that phases 14, 18, 24-26 print beside their own."""
+    cfg = FBDDPGConfig(use_pallas_loss=True, compute_dtype="bfloat16")
+    buf = ReplayBuffer(EPISODES, discount=0.98, future=0.99, device="cuda")
+    buf.load_episodes(synthetic_episodes(EPISODES, EPISODE_LENGTH, OBS_DIM, ACTION_DIM, SEED))
+    agent = FBDDPGAgent(cfg, OBS_DIM, ACTION_DIM, device="cuda", seed=SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    trainer = make_offline_trainer(agent, buf.cfg, cfg.batch_size, STEPS_PER_CALL)
+    trainer(buf.state, gen)  # the capture
+    torch.cuda.synchronize()
+    _, seconds = _timed(lambda: trainer(buf.state, gen))
+    rate = STEPS_PER_CALL / seconds
+    print(f"fb_rate: FB's captured trainer at phase 4's geometry {rate:.1f} updates/s over "
+          f"{STEPS_PER_CALL} updates (phase 4 not selected), on {card_name_and_power_limit()}")
+    return rate
+
+
+def quad_replay(tmp: str) -> None:
+    """Phase 21's replay for a selection of phases without phase 21: one
+    cycle of ``train_online`` on the quadruped, collected without updates."""
+    train_online.main(quad_args(
+        f"{tmp}/quad", "task=quadruped_stand", "goal_space=quad_pos_speed",
+        f"num_rollout_episodes={ONLINE_ENVS}", "num_agent_updates=0",
+        f"num_train_frames={CYCLE_STEPS}", "eval_every_steps=0", "final_tests=0",
+        f"replay_buffer_episodes={QUAD_REPLAY_EPISODES}"))
+
+
+def parse_phases(argv: tp.Sequence[str]) -> tp.List[int]:
+    """``--phases 26-28`` or ``--phases 4,11,21`` (ranges and lists mixed);
+    every phase without the option."""
+    if not argv:
+        return list(range(1, LAST_PHASE + 1))
+    if len(argv) != 2 or argv[0] != "--phases":
+        raise SystemExit(f"usage: python3 chip_smoke.py [--phases 1-{LAST_PHASE} | 4,11,21]")
+    phases = set()
+    for part in argv[1].split(","):
+        lo, _, hi = part.partition("-")
+        phases.update(range(int(lo), int(hi or lo) + 1))
+    if not phases or min(phases) < 1 or max(phases) > LAST_PHASE:
+        raise SystemExit(f"phases are numbered 1 to {LAST_PHASE}, got {argv[1]}")
+    return sorted(phases | {1})  # the kernels are built for every selection
+
+
+class SmokeRun:
+    """The selected phases in order. What a phase reads from an earlier one
+    is built on first use, by that phase when it is selected and by the
+    least that gives it otherwise: phase 4's workspace (phases 5-11), its
+    episodes on disk (15), FB's updates/s (14, 18, 24-26), phase 2's errors
+    (5), phase 12's FB agent (13), phase 15's workspaces (16) and phase
+    21's replay (22). Each phase prints its seconds."""
+
+    def __init__(self, tmp: str, phases: tp.Sequence[int]) -> None:
+        self.tmp, self.phases = tmp, set(phases)
+        self.rows: tp.Optional[tp.List[tp.Dict[str, tp.Any]]] = None  # the kernels line
+        self._errors: tp.Optional[tp.Dict[str, float]] = None
+        self._slice: tp.Optional[tp.Tuple[tp.Dict[str, int], tp.Any]] = None
+        self._fb_rate: tp.Optional[float] = None
+        self._episodes = False
+        self._sf_runs: tp.Optional[tp.Dict[str, tp.Any]] = None
+
+    def timed(self, phase: int, fn: tp.Callable[[], tp.Any]) -> tp.Any:
+        out, seconds = _timed(fn)
+        print(f"phase {phase} seconds: {seconds:.1f}")
+        return out
+
+    def errors(self) -> tp.Dict[str, float]:
+        if self._errors is None:
+            def phase2() -> tp.Dict[str, float]:
+                errors = check_kernels(N)
+                check_kernels(N_RAGGED)
+                return errors
+            self._errors = self.timed(2, phase2)
+        return self._errors
+
+    def slice(self) -> tp.Tuple[tp.Dict[str, int], tp.Any]:
+        if self._slice is None:
+            self._slice = self.timed(4, lambda: run_slice(self.tmp))
+            self._episodes = True
+            self._fb_rate = self._slice[1].last_row["fps"]
+        return self._slice
+
+    def fb_rate(self) -> float:
+        if self._fb_rate is None:
+            self._fb_rate = measure_fb_rate()
+        return self._fb_rate
+
+    def episodes_dir(self) -> str:
+        if not self._episodes:
+            write_slice_episodes(self.tmp)
+            self._episodes = True
+        return f"{self.tmp}/episodes"
+
+    def sf_runs(self) -> tp.Dict[str, tp.Any]:
+        if self._sf_runs is None:
+            self._sf_runs = run_sf_entry_points(self.tmp)
+        return self._sf_runs
+
+    def by_path(self, path: str, counts: tp.Dict[str, int]) -> None:
+        for row in self.rows or []:
+            row["launches_by_path"][path] = counts[row["wrapper"]]
+
+    def zero_launches(self, phases: tp.Sequence[int], path: str,
+                      group: tp.Sequence[tp.Tuple[int, tp.Callable[[], tp.Any]]]) -> None:
+        """The selected phases of a group that no fused FB kernel is on: the
+        wrappers' counts and the kernels' own must stay 0 over them."""
+        if not any(n in self.phases for n, _ in group):
+            return
+        ff.reset_launches()
+        for n, fn in group:
+            if n in self.phases:
+                self.timed(n, fn)
+        counts, runs = dict(ff.launches), ff.device_runs()
+        print(f"phases {phases}: fused FB launches {counts} by the wrappers' counts, {runs} by "
+              f"the kernels' own")
+        if any(counts.values()) or any(runs.values()):
+            raise AssertionError(f"phases {phases} launched fused FB kernels: {counts}, {runs}")
+        self.by_path(path, counts)
+
+    def run(self) -> None:
+        tmp, selected = self.tmp, self.phases
+        if 2 in selected:
+            self.errors()
+        if 3 in selected:
+            self.timed(3, lambda: check_update(synthetic_episodes(
+                EPISODES, EPISODE_LENGTH, OBS_DIM, ACTION_DIM, SEED)))
+        if selected & {4, 5, 6, 7, 9, 11}:
+            self.slice()
+        if 5 in selected:
+            errors, counts = self.errors(), self.slice()[0]
+            self.rows = self.timed(5, lambda: time_kernels(errors, counts))
+        for n, fn in ((6, lambda: profile_slice(self.slice()[1])),
+                      (7, lambda: check_capture(self.slice()[1])),
+                      (8, check_relabel),
+                      (9, lambda: check_task_z_and_checkpoint(self.slice()[1], tmp)),
+                      (10, check_dynamics),
+                      (11, lambda: check_evaluation(self.slice()[1]))):
+            if n in selected:
+                self.timed(n, fn)
+        if self._slice is not None:
+            # free the offline workspace (its rollouts of up to 16,384 environments
+            # included) so that the later phases' peak memory is their own
+            self._slice = (self._slice[0], None)
+            gc.collect()
+            torch.cuda.empty_cache()
+        if selected & {14, 18, 24, 25, 26}:
+            self.fb_rate()  # before the groups whose fused launches must stay 0
+
+        fb_agent = None
+        if 12 in selected:
+            # the online path: the kernels' launches of the online run
+            online_counts, online_ws = self.timed(12, lambda: run_online(tmp))
+            for row in self.rows or []:
+                row["launches"] = online_counts[row["wrapper"]]
+            self.by_path("pretrain (phase 12)", online_counts)
+            fb_agent = online_ws.agent
+            del online_ws
+        if 13 in selected:
+            if fb_agent is None:
+                fb_agent = FBDDPGAgent(FBDDPGConfig(use_pallas_loss=True,
+                                                    compute_dtype="bfloat16"),
+                                       OBS_DIM, ACTION_DIM, device="cuda", seed=SEED)
+            self.timed(13, lambda: check_online_paths(tmp, fb_agent))
+        del fb_agent
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        if 16 in selected:
+            selected.add(15)  # phase 16 reads phase 15's workspaces
+        if 15 in selected:
+            self.episodes_dir()
+        self.zero_launches((14, 15, 16), "sf, sf_svd (phases 14-16)", (
+            (14, lambda: check_sf_learners(synthetic_episodes(
+                EPISODES, EPISODE_LENGTH, OBS_DIM, ACTION_DIM, SEED), self.fb_rate())),
+            (15, self.sf_runs),
+            (16, lambda: check_sf_inference(self.sf_runs()["sf"], self.sf_runs()["sf_svd"]))))
+        self._sf_runs = None
+        self.zero_launches((17, 18, 19), "grid (phases 17-19)", (
+            (17, check_gridworld), (18, lambda: check_discrete_agents(self.fb_rate())),
+            (19, lambda: run_grid_entry_points(tmp))))
+
+        if 20 in selected:
+            self.timed(20, check_3d_engine)
+            gc.collect()
+            torch.cuda.empty_cache()
+        if 21 in selected:
+            quad_counts, quad_ws = self.timed(21, lambda: run_quadruped(tmp))
+            for row in self.rows or []:
+                row["launches"] = quad_counts[row["wrapper"]]
+            self.by_path("quadruped train_online (phase 21)", quad_counts)
+            del quad_ws
+            gc.collect()
+            torch.cuda.empty_cache()
+        elif 22 in selected:
+            quad_replay(tmp)
+        if 22 in selected:
+            ff.reset_launches()
+            self.timed(22, lambda: run_quadruped_paths(tmp))
+            other_counts, other_runs = dict(ff.launches), ff.device_runs()
+            print(f"phase 22: fused FB launches {other_counts} by the wrappers' counts, "
+                  f"{other_runs} by the kernels' own")
+            if other_runs != other_counts or not all(other_counts.values()):
+                raise AssertionError(f"phase 22's fused launches: {other_counts}, {other_runs}")
+            self.by_path("jaco, quadruped train_offline, fetch, escape (phase 22)", other_counts)
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        self.zero_launches((23, 24, 25), "pixels, explorers (phases 23-25)", (
+            (23, check_pixels), (24, lambda: run_pixels(tmp, self.fb_rate())),
+            (25, lambda: check_explorers(tmp, synthetic_episodes(
+                EPISODES, EPISODE_LENGTH, OBS_DIM, ACTION_DIM, SEED), self.fb_rate()))))
+        gc.collect()
+        torch.cuda.empty_cache()
+        self.zero_launches((26, 27, 28), "item-13 agents (phases 26-28)", (
+            (26, lambda: check_item13_agents(self.fb_rate())),
+            (27, lambda: run_item13_explorers(tmp)),
+            (28, lambda: run_item13_goal_agents(tmp))))
+
+
+def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
+    phases = parse_phases(sys.argv[1:] if argv is None else argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -2150,111 +2642,22 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}")
     started = time.perf_counter()
 
-    seconds, logs = _build.build()
-    for log in logs.values():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
-                print("phase 1 ptxas:", line.strip())
-    print(f"phase 1 build: {len(logs)} source(s) compiled in {seconds:.1f} s")
+    def build() -> None:
+        seconds, logs = _build.build()
+        for log in logs.values():
+            for line in log.splitlines():
+                if "registers" in line or "spill" in line or "Compiling" in line:
+                    print("phase 1 ptxas:", line.strip())
+        print(f"phase 1 build: {len(logs)} source(s) compiled in {seconds:.1f} s")
 
-    errors = check_kernels(N)
-    check_kernels(N_RAGGED)
-
-    check_update(synthetic_episodes(EPISODES, EPISODE_LENGTH, OBS_DIM, ACTION_DIM, SEED))
     with tempfile.TemporaryDirectory() as tmp:
-        counts, ws = run_slice(tmp)
-        fb_rate = ws.last_row["fps"]
-        rows = time_kernels(errors, counts)
-        profile_slice(ws)
-        check_capture(ws)
-        check_relabel()
-        check_task_z_and_checkpoint(ws, tmp)
-        check_dynamics()
-        check_evaluation(ws)
-        # free the offline workspace (its rollouts of up to 16,384 environments
-        # included) so that phase 12's peak memory is its own
-        del ws
-        gc.collect()
-        torch.cuda.empty_cache()
-        # this slice's main path: the kernels' launches of the online run
-        online_counts, online_ws = run_online(tmp)
-        for row in rows:
-            row["launches"] = online_counts[row["wrapper"]]
-            row["launches_by_path"]["pretrain (phase 12)"] = online_counts[row["wrapper"]]
-        check_online_paths(tmp, online_ws.agent)
-        del online_ws
-        gc.collect()
-        torch.cuda.empty_cache()
+        run = SmokeRun(tmp, phases)
+        run.timed(1, build)
+        run.run()
 
-        # this slice's path, SF and SF-SVD: none of the fused kernels is on it
-        ff.reset_launches()
-        check_sf_learners(synthetic_episodes(EPISODES, EPISODE_LENGTH, OBS_DIM, ACTION_DIM,
-                                             SEED), fb_rate)
-        sf_runs = run_sf_entry_points(tmp)
-        check_sf_inference(sf_runs["sf"], sf_runs["sf_svd"])
-        sf_counts = dict(ff.launches)
-        if any(sf_counts.values()) or any(ff.device_runs().values()):
-            raise AssertionError(f"the SF path launched fused FB kernels: {sf_counts}")
-        for row in rows:
-            row["launches_by_path"]["sf, sf_svd (phases 14-16)"] = sf_counts[row["wrapper"]]
-
-        # this slice's path, the gridworld and the discrete agents: no fused kernel is on it
-        ff.reset_launches()
-        check_gridworld()
-        check_discrete_agents(fb_rate)
-        run_grid_entry_points(tmp)
-        grid_counts, grid_runs = dict(ff.launches), ff.device_runs()
-        print(f"phases 17-19: fused FB launches {grid_counts} by the wrappers' counts, "
-              f"{grid_runs} by the kernels' own")
-        if any(grid_counts.values()) or any(grid_runs.values()):
-            raise AssertionError(f"the grid path launched fused FB kernels: {grid_counts}")
-        for row in rows:
-            row["launches_by_path"]["grid (phases 17-19)"] = grid_counts[row["wrapper"]]
-
-        # this slice's path: the 3-D engine, and FB trained online on the quadruped
-        check_3d_engine()
-        gc.collect()
-        torch.cuda.empty_cache()
-        quad_counts, quad_ws = run_quadruped(tmp)
-        for row in rows:
-            row["launches"] = quad_counts[row["wrapper"]]
-            row["launches_by_path"]["quadruped train_online (phase 21)"] = \
-                quad_counts[row["wrapper"]]
-        del quad_ws
-        gc.collect()
-        torch.cuda.empty_cache()
-        ff.reset_launches()
-        run_quadruped_paths(tmp)
-        other_counts, other_runs = dict(ff.launches), ff.device_runs()
-        print(f"phase 22: fused FB launches {other_counts} by the wrappers' counts, "
-              f"{other_runs} by the kernels' own")
-        if other_runs != other_counts or not all(other_counts.values()):
-            raise AssertionError(f"phase 22's fused launches: {other_counts}, {other_runs}")
-        for row in rows:
-            row["launches_by_path"]["jaco, quadruped train_offline, fetch, escape (phase 22)"] = \
-                other_counts[row["wrapper"]]
-
-        # this slice's path: pixels and the explorers; no fused kernel is on it
-        gc.collect()
-        torch.cuda.empty_cache()
-        ff.reset_launches()
-        check_pixels()
-        run_pixels(tmp, fb_rate)
-        gc.collect()
-        torch.cuda.empty_cache()
-        check_explorers(tmp, synthetic_episodes(EPISODES, EPISODE_LENGTH, OBS_DIM, ACTION_DIM,
-                                                SEED), fb_rate)
-        pixel_counts, pixel_runs = dict(ff.launches), ff.device_runs()
-        print(f"phases 23-25: fused FB launches {pixel_counts} by the wrappers' counts, "
-              f"{pixel_runs} by the kernels' own")
-        if any(pixel_counts.values()) or any(pixel_runs.values()):
-            raise AssertionError(f"the pixel path launched fused FB kernels: {pixel_counts}")
-        for row in rows:
-            row["launches_by_path"]["pixels, explorers (phases 23-25)"] = \
-                pixel_counts[row["wrapper"]]
-
-    print(f"total: {time.perf_counter() - started:.1f} s for phases 1-25, the build included")
-    print(json.dumps({"kernels": rows}))
+    print(f"total: {time.perf_counter() - started:.1f} s for phases {phases}, the build included")
+    if run.rows is not None:
+        print(json.dumps({"kernels": run.rows}))
     print(f"card: {card_name_and_power_limit()}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

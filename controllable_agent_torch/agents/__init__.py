@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import typing as tp
 
+from .aps import APSAgent, APSConfig, NEWAPSAgent, NEWAPSConfig, NEWAPSNoise
 from .ddpg import DDPGAgent, DDPGConfig, DDPGNoise
 from .discrete_fb import DiscreteFBAgent, DiscreteFBConfig
 from .discrete_sf import DiscreteSFAgent, DiscreteSFConfig
@@ -12,8 +13,12 @@ from .exploration import (DIAYNAgent, DIAYNConfig, DisagreementAgent, Disagreeme
                           ICMAgent, ICMAPTAgent, ICMAPTConfig, ICMConfig, IntrinsicDDPGAgent,
                           MaxEntAgent, MaxEntConfig, RNDAgent, RNDConfig)
 from .fb_ddpg import FBDDPGAgent, FBDDPGConfig, UpdateNoise
+from .goal_agents import GoalNoise, GoalSMAgent, GoalSMConfig, GoalTD3Agent, GoalTD3Config
+from .proto import ProtoAgent, ProtoConfig, ProtoNoise
 from .sf import FEATURE_LEARNERS, SFAgent, SFConfig, SFNoise
 from .sf_svd import SFSVDAgent, SFSVDConfig
+from .smm import SMMAgent, SMMConfig, SMMNoise
+from .uvf import UVFAgent, UVFConfig, UVFNoise
 
 AGENTS: tp.Dict[str, tp.Tuple[type, type]] = {
     "fb_ddpg": (FBDDPGConfig, FBDDPGAgent),
@@ -28,29 +33,35 @@ AGENTS: tp.Dict[str, tp.Tuple[type, type]] = {
     "sf_svd": (SFSVDConfig, SFSVDAgent),
     "discrete_fb": (DiscreteFBConfig, DiscreteFBAgent),
     "discrete_sf": (DiscreteSFConfig, DiscreteSFAgent),
+    "aps": (APSConfig, APSAgent),
+    "new_aps": (NEWAPSConfig, NEWAPSAgent),
+    "smm": (SMMConfig, SMMAgent),
+    "proto": (ProtoConfig, ProtoAgent),
+    "uvf": (UVFConfig, UVFAgent),
+    "goal_td3": (GoalTD3Config, GoalTD3Agent),
+    "goal_sm": (GoalSMConfig, GoalSMAgent),
 }
 
-# the JAX registry's other names: their agents are ROADMAP Queue A item 13
-NOT_PORTED = ("aps", "new_aps", "smm", "proto", "uvf", "goal_td3", "goal_sm")
+# the JAX registry's names that the port lacks: none
+NOT_PORTED: tp.Tuple[str, ...] = ()
 
 
 def agent_classes(name: str) -> tp.Tuple[type, type]:
-    """(config class, agent class) of ``name``; a name of the JAX package
-    that is not ported raises ``NotImplementedError``, any other unknown
-    name ``ValueError`` with the known ones."""
+    """(config class, agent class) of ``name``; an unknown name raises
+    ``ValueError`` with the known ones."""
     if name in AGENTS:
         return AGENTS[name]
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"agent {name!r} is not ported to controllable_agent_torch yet "
-            f"(ROADMAP Queue A item 13); ported: {sorted(AGENTS)}")
     raise ValueError(f"Unknown agent {name!r}; known: {sorted(AGENTS)}")
 
 
-__all__ = ["AGENTS", "DDPGAgent", "DDPGConfig", "DDPGNoise", "DIAYNAgent", "DIAYNConfig",
+__all__ = ["AGENTS", "APSAgent", "APSConfig", "DDPGAgent", "DDPGConfig", "DDPGNoise",
+           "DIAYNAgent", "DIAYNConfig",
            "DisagreementAgent", "DisagreementConfig", "DiscreteFBAgent", "DiscreteFBConfig",
            "DiscreteSFAgent", "DiscreteSFConfig", "FBDDPGAgent", "FBDDPGConfig",
-           "FEATURE_LEARNERS", "ICMAgent", "ICMAPTAgent", "ICMAPTConfig", "ICMConfig",
-           "IntrinsicDDPGAgent", "MaxEntAgent", "MaxEntConfig", "NOT_PORTED", "RNDAgent",
+           "FEATURE_LEARNERS", "GoalNoise", "GoalSMAgent", "GoalSMConfig", "GoalTD3Agent",
+           "GoalTD3Config", "ICMAgent", "ICMAPTAgent", "ICMAPTConfig", "ICMConfig",
+           "IntrinsicDDPGAgent", "MaxEntAgent", "MaxEntConfig", "NEWAPSAgent", "NEWAPSConfig",
+           "NEWAPSNoise", "NOT_PORTED", "ProtoAgent", "ProtoConfig", "ProtoNoise", "RNDAgent",
            "RNDConfig", "SFAgent", "SFConfig", "SFNoise", "SFSVDAgent", "SFSVDConfig",
+           "SMMAgent", "SMMConfig", "SMMNoise", "UVFAgent", "UVFConfig", "UVFNoise",
            "UpdateNoise", "agent_classes"]

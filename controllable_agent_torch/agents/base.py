@@ -30,7 +30,7 @@ class StepNoise:
     act_normal: tp.Optional[Tensor] = None  # [n, action_dim]
     act_uniform: tp.Optional[Tensor] = None  # [n, action_dim], in [0, 1)
     meta_uniform: tp.Optional[Tensor] = None  # [n, 1], resample when < update_z_proba
-    z_normal: tp.Optional[Tensor] = None  # [n, z_dim], the new z's normal draw
+    z_normal: tp.Optional[Tensor] = None  # [n, z_dim], the new z's normal draw (APS: task's)
     z_uniform: tp.Optional[Tensor] = None  # [n, z_dim], norm_z=False only
     explore_uniform: tp.Optional[Tensor] = None  # [n], explore when < expl_eps (discrete)
     random_action: tp.Optional[Tensor] = None  # [n] int64 in [0, n_actions) (discrete)
@@ -118,6 +118,11 @@ class ZMetaMixin:
     task vector under ``meta_key``."""
 
     meta_key: str = "z"
+
+    @property
+    def meta_dims(self) -> tp.Dict[str, int]:
+        """The width of each meta entry the policy takes: its task vector's."""
+        return {self.meta_key: self.cfg.z_dim}  # type: ignore[attr-defined]
 
     def policy_act(self, obs: Tensor, meta: MetaDict, step: tp.Union[int, Tensor],
                    generator: tp.Optional[torch.Generator] = None,

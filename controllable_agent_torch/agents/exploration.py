@@ -86,13 +86,19 @@ class IntrinsicDDPGAgent(nn.Module):
     def _make_module(self) -> tp.Optional[nn.Module]:
         return None
 
-    def _module_loss(self, batch: EpisodeBatch, goal: Tensor, next_goal: Tensor
-                     ) -> tp.Tuple[Tensor, Metrics]:
+    def _module_loss(self, batch: EpisodeBatch, goal: Tensor, next_goal: Tensor,
+                     noise: DDPGNoise) -> tp.Tuple[Tensor, Metrics]:
         raise NotImplementedError
 
     def _intrinsic_reward(self, batch: EpisodeBatch, goal: Tensor, next_goal: Tensor,
-                          rms: RMSState) -> tp.Tuple[Tensor, RMSState]:
+                          rms: RMSState, noise: DDPGNoise) -> tp.Tuple[Tensor, RMSState]:
         raise NotImplementedError
+
+    def _draw(self, n: int, generator: torch.Generator) -> DDPGNoise:
+        """The draws of one update: DDPG's, and those of the module's loss and
+        reward (SMM's VAE noise, Proto's candidates) in a subclass of
+        ``DDPGNoise``."""
+        return DDPGNoise.draw(n, self.action_dim, generator, self.device)
 
     # -- state -----------------------------------------------------------
     @property
@@ -155,8 +161,7 @@ class IntrinsicDDPGAgent(nn.Module):
     # -- the update ------------------------------------------------------
     def update(self, batch: EpisodeBatch, generator: torch.Generator) -> Metrics:
         """One gradient step with noise drawn from ``generator``."""
-        return self._update(batch, DDPGNoise.draw(batch.obs.shape[0], self.action_dim,
-                                                  generator, self.device))
+        return self._update(batch, self._draw(batch.obs.shape[0], generator))
 
     def _update(self, batch: EpisodeBatch, noise: DDPGNoise) -> Metrics:
         cfg = self.cfg
@@ -166,7 +171,7 @@ class IntrinsicDDPGAgent(nn.Module):
         metrics: Metrics = {}
         if self.module is not None:
             assert self.module_opt is not None
-            loss, module_metrics = self._module_loss(batch, goal, next_goal)
+            loss, module_metrics = self._module_loss(batch, goal, next_goal, noise)
             # a frozen part of the module (RND's target) gets a zero gradient,
             # so Adam leaves it where it is, as optax does
             self.module_opt.step(torch.autograd.grad(
@@ -176,7 +181,7 @@ class IntrinsicDDPGAgent(nn.Module):
         reward = batch.reward
         if cfg.reward_free:
             with torch.no_grad():
-                reward, rms = self._intrinsic_reward(batch, goal, next_goal, self.rms)
+                reward, rms = self._intrinsic_reward(batch, goal, next_goal, self.rms, noise)
                 for name in ("mean", "var", "n"):
                     getattr(self, f"rms_{name}").copy_(getattr(rms, name))
             metrics["intr_reward"] = reward.mean()
@@ -219,13 +224,13 @@ class RNDAgent(IntrinsicDDPGAgent):
         pred, target = self.module(goal)
         return (target - pred).square().mean(-1, keepdim=True)
 
-    def _module_loss(self, batch: EpisodeBatch, goal: Tensor, next_goal: Tensor
-                     ) -> tp.Tuple[Tensor, Metrics]:
+    def _module_loss(self, batch: EpisodeBatch, goal: Tensor, next_goal: Tensor,
+                     noise: DDPGNoise) -> tp.Tuple[Tensor, Metrics]:
         err = self._pred_error(goal).mean()
         return err, {"rnd_loss": err}
 
     def _intrinsic_reward(self, batch: EpisodeBatch, goal: Tensor, next_goal: Tensor,
-                          rms: RMSState) -> tp.Tuple[Tensor, RMSState]:
+                          rms: RMSState, noise: DDPGNoise) -> tp.Tuple[Tensor, RMSState]:
         err = self._pred_error(goal)
         rms, _, std = rms_update(rms, err)
         return self.cfg.rnd_scale * err / (std + 1e-8), rms
@@ -241,26 +246,27 @@ class DIAYNConfig(IntrinsicConfig):
     update_skill_every_step: int = 50
 
 
-class DIAYNAgent(IntrinsicDDPGAgent):
-    cfg: DIAYNConfig
+class SkillMetaMixin:
+    """A one-hot skill of width ``meta_dim`` in the meta under ``skill_key``
+    (DIAYN's ``skill``, SMM's ``z``): drawn uniformly, resampled every
+    ``update_skill_every_step`` steps; the collector's draw of it is
+    ``StepNoise.skill_index``."""
 
-    @property
-    def meta_dim(self) -> int:  # type: ignore[override]
-        return self.cfg.skill_dim
+    skill_key: str = "skill"
+    # what the agent that takes this mixin provides
+    cfg: tp.Any
+    ddpg: DDPGAgent
+    device: torch.device
+    meta_dim: int
 
     @property
     def meta_dims(self) -> tp.Dict[str, int]:
-        return {"skill": self.cfg.skill_dim}
-
-    def _make_module(self) -> nn.Module:
-        hidden = self.cfg.hidden_dim
-        return MLP(self.obs_dim, (hidden, "irelu", hidden, "irelu", self.cfg.skill_dim))
+        return {self.skill_key: self.meta_dim}
 
     def init_meta(self, generator: torch.Generator) -> MetaDict:
-        """A uniform skill, one-hot [skill_dim]."""
-        idx = torch.randint(self.cfg.skill_dim, (), generator=generator,
-                            device=generator.device)
-        return {"skill": torch.nn.functional.one_hot(idx, self.cfg.skill_dim).float()}
+        """A uniform skill, one-hot [meta_dim]."""
+        idx = torch.randint(self.meta_dim, (), generator=generator, device=generator.device)
+        return {self.skill_key: torch.nn.functional.one_hot(idx, self.meta_dim).float()}
 
     def update_meta(self, meta: MetaDict, global_step: int,
                     generator: torch.Generator) -> MetaDict:
@@ -271,22 +277,34 @@ class DIAYNAgent(IntrinsicDDPGAgent):
     def step_noise(self, n: int, generator: torch.Generator) -> StepNoise:
         """The policy's draws and each environment's skill index."""
         noise = self.ddpg.step_noise(n, generator)
-        noise.skill_index = torch.randint(self.cfg.skill_dim, (n,), generator=generator,
+        noise.skill_index = torch.randint(self.meta_dim, (n,), generator=generator,
                                           device=self.device)
         return noise
+
+
+class DIAYNAgent(SkillMetaMixin, IntrinsicDDPGAgent):
+    cfg: DIAYNConfig
+
+    @property
+    def meta_dim(self) -> int:  # type: ignore[override]
+        return self.cfg.skill_dim
+
+    def _make_module(self) -> nn.Module:
+        hidden = self.cfg.hidden_dim
+        return MLP(self.obs_dim, (hidden, "irelu", hidden, "irelu", self.cfg.skill_dim))
 
     def _logits(self, batch: EpisodeBatch) -> tp.Tuple[Tensor, Tensor]:
         return self.module(batch.next_obs), batch.meta["skill"].argmax(1)
 
-    def _module_loss(self, batch: EpisodeBatch, goal: Tensor, next_goal: Tensor
-                     ) -> tp.Tuple[Tensor, Metrics]:
+    def _module_loss(self, batch: EpisodeBatch, goal: Tensor, next_goal: Tensor,
+                     noise: DDPGNoise) -> tp.Tuple[Tensor, Metrics]:
         logits, z_hat = self._logits(batch)
         loss = torch.nn.functional.cross_entropy(logits, z_hat)
         acc = (logits.argmax(1) == z_hat).float().mean()
         return loss, {"diayn_loss": loss, "diayn_acc": acc}
 
     def _intrinsic_reward(self, batch: EpisodeBatch, goal: Tensor, next_goal: Tensor,
-                          rms: RMSState) -> tp.Tuple[Tensor, RMSState]:
+                          rms: RMSState, noise: DDPGNoise) -> tp.Tuple[Tensor, RMSState]:
         logits, z_hat = self._logits(batch)
         log_q = torch.log_softmax(logits, 1).gather(1, z_hat[:, None])
         return self.cfg.diayn_scale * (log_q - math.log(1.0 / self.cfg.skill_dim)), rms
@@ -328,14 +346,14 @@ class ICMAgent(IntrinsicDDPGAgent):
     def _make_module(self) -> nn.Module:
         return _ICMNets(self.obs_dim, self.action_dim, self.cfg.hidden_dim)
 
-    def _module_loss(self, batch: EpisodeBatch, goal: Tensor, next_goal: Tensor
-                     ) -> tp.Tuple[Tensor, Metrics]:
+    def _module_loss(self, batch: EpisodeBatch, goal: Tensor, next_goal: Tensor,
+                     noise: DDPGNoise) -> tp.Tuple[Tensor, Metrics]:
         fwd, bwd = self.module(batch.obs, batch.action, batch.next_obs)
         loss = fwd.mean() + bwd.mean()
         return loss, {"icm_loss": loss}
 
     def _intrinsic_reward(self, batch: EpisodeBatch, goal: Tensor, next_goal: Tensor,
-                          rms: RMSState) -> tp.Tuple[Tensor, RMSState]:
+                          rms: RMSState, noise: DDPGNoise) -> tp.Tuple[Tensor, RMSState]:
         fwd, _ = self.module(batch.obs, batch.action, batch.next_obs)
         return self.cfg.icm_scale * fwd, rms
 
@@ -381,14 +399,14 @@ class ICMAPTAgent(IntrinsicDDPGAgent):
         return _APTNets(self.obs_dim, self.action_dim, self.cfg.hidden_dim,
                         self.cfg.icm_rep_dim)
 
-    def _module_loss(self, batch: EpisodeBatch, goal: Tensor, next_goal: Tensor
-                     ) -> tp.Tuple[Tensor, Metrics]:
+    def _module_loss(self, batch: EpisodeBatch, goal: Tensor, next_goal: Tensor,
+                     noise: DDPGNoise) -> tp.Tuple[Tensor, Metrics]:
         fwd, bwd = self.module(batch.obs, batch.action, batch.next_obs)
         loss = fwd.mean() + bwd.mean()
         return loss, {"icm_loss": loss}
 
     def _intrinsic_reward(self, batch: EpisodeBatch, goal: Tensor, next_goal: Tensor,
-                          rms: RMSState) -> tp.Tuple[Tensor, RMSState]:
+                          rms: RMSState, noise: DDPGNoise) -> tp.Tuple[Tensor, RMSState]:
         rep = batch.obs if self.module is None else self.module.rep(batch.obs)
         cfg = self.cfg
         return pbe(rep, rms, knn_k=cfg.knn_k, knn_avg=cfg.knn_avg, knn_clip=cfg.knn_clip,
@@ -453,14 +471,14 @@ class DisagreementAgent(IntrinsicDDPGAgent):
     def _make_module(self) -> nn.Module:
         return _Ensemble(self.obs_dim, self.action_dim, self.cfg.hidden_dim, self.cfg.n_models)
 
-    def _module_loss(self, batch: EpisodeBatch, goal: Tensor, next_goal: Tensor
-                     ) -> tp.Tuple[Tensor, Metrics]:
+    def _module_loss(self, batch: EpisodeBatch, goal: Tensor, next_goal: Tensor,
+                     noise: DDPGNoise) -> tp.Tuple[Tensor, Metrics]:
         preds = self.module(batch.obs, batch.action)
         loss = torch.linalg.vector_norm(batch.next_obs[None] - preds, dim=-1).mean()
         return loss, {"disagreement_loss": loss}
 
     def _intrinsic_reward(self, batch: EpisodeBatch, goal: Tensor, next_goal: Tensor,
-                          rms: RMSState) -> tp.Tuple[Tensor, RMSState]:
+                          rms: RMSState, noise: DDPGNoise) -> tp.Tuple[Tensor, RMSState]:
         preds = self.module(batch.obs, batch.action)
         return preds.var(0, unbiased=False).mean(-1, keepdim=True), rms
 
@@ -477,7 +495,7 @@ class MaxEntAgent(IntrinsicDDPGAgent):
     cfg: MaxEntConfig
 
     def _intrinsic_reward(self, batch: EpisodeBatch, goal: Tensor, next_goal: Tensor,
-                          rms: RMSState) -> tp.Tuple[Tensor, RMSState]:
+                          rms: RMSState, noise: DDPGNoise) -> tp.Tuple[Tensor, RMSState]:
         cfg = self.cfg
         return pbe(next_goal, rms, knn_k=cfg.knn_k, knn_avg=cfg.knn_avg,
                    knn_clip=cfg.knn_clip, knn_rms=cfg.knn_rms)

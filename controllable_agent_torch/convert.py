@@ -21,8 +21,15 @@ with its target subtrees, three Adam states and ``inv_cov``) into an
 ``SFAgent``, an ``SFSVDTrainState`` (``agents/sf_svd.py:92``) into an
 ``SFSVDAgent``, a ``DiscreteFBTrainState`` (``agents/discrete_fb.py:69``)
 into a ``DiscreteFBAgent`` and a ``DiscreteSFTrainState``
-(``agents/discrete_sf.py:40``) into a ``DiscreteSFAgent``;
-``load_train_state`` picks by the agent's class. This module reads those
+(``agents/discrete_sf.py:40``) into a ``DiscreteSFAgent``, an
+``APSTrainState`` and a ``NEWAPSTrainState`` (``agents/aps.py:88``,
+``:312``) into an ``APSAgent`` and a ``NEWAPSAgent``, a ``UVFTrainState``
+(``agents/uvf.py:65``) into a ``UVFAgent``, a ``GoalTrainState``
+(``agents/goal_agents.py:82``) into a ``GoalTD3Agent`` or ``GoalSMAgent``;
+SMM's and Proto's are ``IntrinsicTrainState``s, Proto's ``module_params``
+holding the nets under ``"net"`` beside the candidate queue and its pointer
+(``agents/proto.py:125-130``). ``load_train_state`` picks by the agent's
+class. This module reads those
 objects by attribute, or by key when the
 state is the nested dict of a decoded checkpoint
 (``train/jax_checkpoint.py``: fields by name, tuples by position), and
@@ -37,13 +44,17 @@ import typing as tp
 import numpy as np
 import torch
 
+from .agents.aps import APSAgent, NEWAPSAgent
 from .agents.ddpg import DDPGAgent
 from .agents.discrete_fb import DiscreteFBAgent
 from .agents.discrete_sf import DiscreteSFAgent
 from .agents.exploration import IntrinsicDDPGAgent
 from .agents.fb_ddpg import FBDDPGAgent
+from .agents.goal_agents import GoalTD3Agent
+from .agents.proto import ProtoAgent
 from .agents.sf import SFAgent
 from .agents.sf_svd import SFSVDAgent
+from .agents.uvf import UVFAgent
 from .optim import Adam
 
 
@@ -146,19 +157,76 @@ def load_ddpg_train_state(agent: DDPGAgent, state: tp.Any) -> None:
         _load_adam(agent.encoder_opt, _get(state, "encoder_opt_state"))
 
 
-def load_intrinsic_train_state(agent: IntrinsicDDPGAgent, state: tp.Any) -> None:
-    """Load a JAX ``IntrinsicTrainState``, or its decoded dict, into
-    ``agent`` (in place): the DDPG state, the module and its Adam state, and
-    the running statistics."""
-    load_ddpg_train_state(agent.ddpg, _get(state, "ddpg"))
-    if agent.module is not None:
-        assert agent.module_opt is not None
-        agent.module.load_state_dict(flax_to_state_dict(_get(state, "module_params")))
-        _load_adam(agent.module_opt, _get(state, "module_opt_state"))
-    rms = _get(state, "rms")
+def _load_rms(agent: tp.Any, rms: tp.Any) -> None:
     with torch.no_grad():
         for name in ("mean", "var", "n"):
             getattr(agent, f"rms_{name}").copy_(_tensor(_get(rms, name)))
+
+
+def load_intrinsic_train_state(agent: IntrinsicDDPGAgent, state: tp.Any) -> None:
+    """Load a JAX ``IntrinsicTrainState``, or its decoded dict, into
+    ``agent`` (in place): the DDPG state, the module and its Adam state, and
+    the running statistics; Proto's candidate queue and pointer too."""
+    load_ddpg_train_state(agent.ddpg, _get(state, "ddpg"))
+    if agent.module is not None:
+        assert agent.module_opt is not None
+        params = _get(state, "module_params")
+        if isinstance(agent, ProtoAgent):
+            with torch.no_grad():
+                agent.queue.copy_(_tensor(_get(params, "queue")))
+                agent.queue_ptr.fill_(int(np.asarray(_get(params, "queue_ptr"))))
+            params = _get(params, "net")
+        agent.module.load_state_dict(flax_to_state_dict(params))
+        _load_adam(agent.module_opt, _get(state, "module_opt_state"))
+    _load_rms(agent, _get(state, "rms"))
+
+
+def _load_networks(agent: tp.Any, state: tp.Any, networks: tp.Mapping[str, str],
+                   optimizers: tp.Mapping[str, str]) -> None:
+    """The networks (attribute -> state field), the step and the Adam
+    states (attribute -> state field) of a JAX train state."""
+    for module, name in networks.items():
+        getattr(agent, module).load_state_dict(flax_to_state_dict(_get(state, name)))
+    agent.step = int(np.asarray(_get(state, "step")))
+    for opt, name in optimizers.items():
+        _load_adam(getattr(agent, opt), _get(state, name))
+
+
+def load_aps_train_state(agent: APSAgent, state: tp.Any) -> None:
+    """Load a JAX ``APSTrainState``, or its decoded dict, into ``agent``."""
+    _load_networks(agent, state, {"actor": "actor_params", "critic": "critic_params",
+                                  "target_critic": "target_critic_params",
+                                  "aps_net": "aps_params"},
+                   {"actor_opt": "actor_opt_state", "critic_opt": "critic_opt_state",
+                    "aps_opt": "aps_opt_state"})
+    _load_rms(agent, _get(state, "rms"))
+
+
+def load_new_aps_train_state(agent: NEWAPSAgent, state: tp.Any) -> None:
+    """Load a JAX ``NEWAPSTrainState``, or its decoded dict, into ``agent``."""
+    _load_networks(agent, state, {"actor": "actor_params", "successor_net": "sf_params",
+                                  "target_successor_net": "target_sf_params",
+                                  "phi_net": "phi_params"},
+                   {"actor_opt": "actor_opt_state", "sf_opt": "sf_opt_state",
+                    "phi_opt": "phi_opt_state"})
+    _load_rms(agent, _get(state, "rms"))
+
+
+def load_uvf_train_state(agent: UVFAgent, state: tp.Any) -> None:
+    """Load a JAX ``UVFTrainState``, or its decoded dict, into ``agent``."""
+    _load_networks(agent, state, {"actor": "actor_params", "forward_net": "forward_params",
+                                  "backward_net": "backward_params",
+                                  "target_forward_net": "target_forward_params"},
+                   {"actor_opt": "actor_opt_state", "fw_opt": "fw_opt_state",
+                    "bw_opt": "bw_opt_state"})
+
+
+def load_goal_train_state(agent: GoalTD3Agent, state: tp.Any) -> None:
+    """Load a JAX ``GoalTrainState`` (GoalTD3's or GoalSM's), or its decoded
+    dict, into ``agent``."""
+    _load_networks(agent, state, {"actor": "actor_params", "critic": "critic_params",
+                                  "target_critic": "target_critic_params"},
+                   {"actor_opt": "actor_opt_state", "critic_opt": "critic_opt_state"})
 
 
 def load_sf_train_state(agent: SFAgent, state: tp.Any) -> None:
@@ -230,6 +298,14 @@ def load_train_state(agent: tp.Any, state: tp.Any) -> None:
         load_sf_svd_train_state(agent, state)
     elif isinstance(agent, FBDDPGAgent):
         load_fb_train_state(agent, state)
+    elif isinstance(agent, APSAgent):
+        load_aps_train_state(agent, state)
+    elif isinstance(agent, NEWAPSAgent):
+        load_new_aps_train_state(agent, state)
+    elif isinstance(agent, UVFAgent):
+        load_uvf_train_state(agent, state)
+    elif isinstance(agent, GoalTD3Agent):
+        load_goal_train_state(agent, state)
     elif isinstance(agent, IntrinsicDDPGAgent):
         load_intrinsic_train_state(agent, state)
     elif isinstance(agent, DDPGAgent):

@@ -136,8 +136,9 @@ def restore(data: bytes) -> tp.Any:
 def load_agent(path: tp.Union[str, Path], agent: tp.Any) -> tp.Dict[str, int]:
     """Load ``path/agent.msgpack`` (the train state of the agent's kind:
     ``FBTrainState``, ``DDPGTrainState``, ``IntrinsicTrainState``,
-    ``SFTrainState``, ``SFSVDTrainState``, ``DiscreteFBTrainState`` or
-    ``DiscreteSFTrainState``) into
+    ``SFTrainState``, ``SFSVDTrainState``, ``DiscreteFBTrainState``,
+    ``DiscreteSFTrainState``, ``APSTrainState``, ``NEWAPSTrainState``,
+    ``UVFTrainState`` or ``GoalTrainState``) into
     ``agent`` in place; returns the counters of ``meta.json``."""
     path = Path(path)
     meta = json.loads((path / "meta.json").read_text())

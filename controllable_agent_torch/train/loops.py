@@ -112,11 +112,9 @@ def _cloned(tree: tp.Any) -> tp.Any:
 
 
 def _meta_dims(agent: tp.Any) -> tp.Dict[str, int]:
-    """The width of each meta entry of ``agent``'s policy: its task vector's
-    (``meta_key``), or those its ``meta_dims`` names (DIAYN's skill)."""
-    key = getattr(agent, "meta_key", None)
-    if key is not None:
-        return {key: agent.cfg.z_dim}
+    """The width of each meta entry of ``agent``'s policy, as the agent names
+    them (``meta_dims``: a task vector's, DIAYN's skill, APS's task, a goal
+    agent's ``g``); none for an agent without a meta (DDPG)."""
     return dict(getattr(agent, "meta_dims", {}))
 
 

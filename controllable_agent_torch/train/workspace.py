@@ -21,9 +21,8 @@ frames' shape (the intrinsic agents) raises JAX's ``ValueError``.
 
 Parts of the JAX workspace that are not ported raise ``NotImplementedError``
 naming the ROADMAP item that ports them, whenever a config would make them
-fire: TensorBoard/wandb and profiles (item 15), the agents of item 13 that
-are not ported (APS, NEWAPS, SMM, Proto, UVF and the goal agents), and
-d4rl (12).
+fire: TensorBoard/wandb and profiles (item 15), and d4rl (12). Every agent
+of the JAX registry is ported.
 """
 
 from __future__ import annotations

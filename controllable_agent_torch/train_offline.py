@@ -129,8 +129,10 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> tp.Optional[OfflineWorks
                         for ep in episodes)
         ws.buffer.load_episodes(episodes)
     ws.train()
-    if cfg.custom_reward != "maze_multi_goal":  # a battery of goals has no one z
-        ws.inferred_z = ws._init_eval_meta()[ws.agent.meta_key]
+    meta_key = getattr(ws.agent, "meta_key", None)
+    # a battery of goals has no one z, and an agent without a task vector none
+    if cfg.custom_reward != "maze_multi_goal" and meta_key is not None:
+        ws.inferred_z = ws._init_eval_meta()[meta_key]
         print("inferred z: " + " ".join(f"{v:.4f}" for v in ws.inferred_z.tolist()),
               flush=True)
     return ws

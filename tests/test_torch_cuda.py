@@ -870,3 +870,68 @@ def test_captured_diayn_collector_resamples_the_skill(cuda_device) -> None:
     changed = (skill[1:] != skill[:-1]).any(-1).any(-1).nonzero().flatten().tolist()
     assert set(changed) <= {0, 50} and 50 in changed
     assert torch.equal(gens[0].get_state(), gens[1].get_state())
+
+
+ITEM13_SMALL = {"aps": dict(sf_dim=5), "new_aps": dict(backward_hidden_dim=64, feature_dim=32),
+                "smm": dict(code_dim=16), "proto": dict(num_protos=64, queue_size=200),
+                "uvf": dict(backward_hidden_dim=64, feature_dim=32, z_dim=16,
+                            goal_space="simplified_point_mass_maze"),
+                "goal_td3": dict(goal_space="simplified_point_mass_maze"),
+                "goal_sm": dict(goal_space="simplified_point_mass_maze")}
+
+
+def _item13_episodes(name: str, cfg) -> list:
+    """Walker-shaped episodes with the columns the agent's update reads: its
+    meta (``task``, ``z``, ``g``), and for the goal agents 2-D goals."""
+    rng = np.random.RandomState(1)
+    episodes = synthetic_episodes(8, 50, 24, 6, seed=0)
+    for ep in episodes:
+        if name == "aps":
+            task = rng.randn(cfg.sf_dim).astype(np.float32)
+            ep["task"] = np.repeat((task / np.linalg.norm(task))[None], 51, 0)
+        elif name == "new_aps":
+            z = rng.randn(cfg.z_dim).astype(np.float32)
+            ep["z"] = np.repeat((z / np.linalg.norm(z))[None], 51, 0)
+        elif name == "smm":
+            ep["z"] = np.repeat(np.eye(cfg.z_dim, dtype=np.float32)[rng.randint(cfg.z_dim)][None],
+                                51, 0)
+        if name in ("uvf", "goal_td3", "goal_sm"):
+            ep["goal"] = rng.uniform(-0.3, 0.3, (51, 2)).astype(np.float32)
+        if name in ("goal_td3", "goal_sm"):
+            ep["g"] = np.repeat(rng.uniform(-0.3, 0.3, (1, 2)).astype(np.float32), 51, 0)
+    return episodes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["aps", "new_aps", "new_aps_future", "smm", "proto", "uvf",
+                                  "goal_td3", "goal_sm"])
+def test_captured_item13_updates_equal_eager(cuda_device, name) -> None:
+    """Four updates of each of the last seven agents through the captured
+    trainer and eagerly from the same generator state: equal to the bit,
+    metrics and Proto's candidate queue included; NEWAPS with
+    ``future_ratio=0.5`` as two graphs with the pseudo-inverse between."""
+    agent = name.replace("_future", "")
+    cfg_cls, agent_cls = AGENTS[agent]
+    overrides = dict(ITEM13_SMALL[agent], future_ratio=0.5) if name.endswith("_future") \
+        else ITEM13_SMALL[agent]
+    cfg = cfg_cls(hidden_dim=64, batch_size=128, **overrides)
+    buf = ReplayBuffer(8, discount=0.98, future=0.99, device=cuda_device)
+    buf.load_episodes(_item13_episodes(agent, cfg))
+    goal_dim = 2 if "goal_space" in overrides else None
+    agents = [agent_cls(cfg, 24, 6, goal_dim=goal_dim, device=cuda_device, seed=0)
+              for _ in range(2)]
+    gens = [torch.Generator(device=cuda_device).manual_seed(5) for _ in range(2)]
+    trainers = [make_offline_trainer(agents[0], buf.cfg, cfg.batch_size, 4),
+                make_offline_trainer(agents[1], buf.cfg, cfg.batch_size, 4, capture=False)]
+    metrics = [trainer(buf.state, gen) for trainer, gen in zip(trainers, gens)]
+    torch.cuda.synchronize()
+    program = trainers[0]._program
+    assert program is not None and len(program.graphs) == (2 if name.endswith("_future") else 1)
+    assert agents[0].step == agents[1].step == 4
+    for k, v in agents[1].train_state().items():
+        assert torch.equal(agents[0].train_state()[k], v), k
+    for k, v in metrics[1].items():
+        assert torch.equal(metrics[0][k], v), k
+    assert torch.equal(gens[0].get_state(), gens[1].get_state())
+    if agent == "proto":
+        assert int(agents[0].queue_ptr) == 4 * cfg.num_protos % cfg.queue_size

@@ -263,7 +263,8 @@ def test_train_offline_cli(replay_dir, tmp_path, capsys, fused) -> None:
     # videos are written; their sinks beyond the file (wandb, TensorBoard) are not ported
     (["eval_every_steps=2", "save_eval_video=true", "use_wandb=true"], "item 15"),
     (["use_tb=true"], "item 15"),
-    (["agent=uvf"], "item 13"),
+    # every agent is ported: this case holds an option that is not
+    (["profile_dir=profiles"], "item 15"),
     (["d4rl_dataset=hopper-medium-v2"], "item 12"),
 ], ids=["eval_video", "tensorboard", "other_agent", "other_environment"])
 def test_unported_options_raise(replay_dir, tmp_path, args, item) -> None:

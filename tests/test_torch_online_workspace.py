@@ -119,11 +119,13 @@ def test_the_explorers_pretrain_online(tmp_path, agent) -> None:
 
 
 def test_the_registry_names_what_is_ported() -> None:
-    ported = ["ddpg", "diayn", "disagreement", "discrete_fb", "discrete_sf", "fb_ddpg", "icm",
-              "icm_apt", "max_ent", "rnd", "sf", "sf_svd"]
+    ported = ["aps", "ddpg", "diayn", "disagreement", "discrete_fb", "discrete_sf", "fb_ddpg",
+              "goal_sm", "goal_td3", "icm", "icm_apt", "max_ent", "new_aps", "proto", "rnd",
+              "sf", "sf_svd", "smm", "uvf"]
     assert sorted(AGENTS) == ported
-    with pytest.raises(NotImplementedError, match="item 13"):
-        pretrain.build_workspace(["agent=aps", "device=cpu"])
+    # every agent is ported; an option that is not still raises with its item
+    with pytest.raises(NotImplementedError, match="item 12"):
+        pretrain.build_workspace(["d4rl_dataset=hopper-medium-v2", "device=cpu"])
     with pytest.raises(ValueError, match=re.escape(f"known: {ported}")):
         pretrain.build_workspace(["agent=nope", "device=cpu"])
 

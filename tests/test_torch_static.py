@@ -51,7 +51,10 @@ def test_port_has_modules_to_check() -> None:
             "controllable_agent_torch/envs/pixels.py",
             "controllable_agent_torch/ops/augment.py",
             "controllable_agent_torch/ops/pbe.py",
-            "controllable_agent_torch/agents/exploration.py"} <= names
+            "controllable_agent_torch/agents/exploration.py",
+            "controllable_agent_torch/agents/aps.py", "controllable_agent_torch/agents/smm.py",
+            "controllable_agent_torch/agents/proto.py", "controllable_agent_torch/agents/uvf.py",
+            "controllable_agent_torch/agents/goal_agents.py"} <= names
 
 
 def test_engine_differentiates_by_hand() -> None:
