@@ -5,11 +5,11 @@
     python3 chip_smoke.py --phases 4,11,21
 
 Drives ``controllable_agent_torch`` (and nothing of the JAX package) in
-twenty-eight phases, each printed on its own lines with its seconds; any
+thirty phases, each printed on its own lines with its seconds; any
 failure exits non-zero. A selection always builds the kernels (phase 1),
 and builds the least of what its phases read from earlier ones: phase 4's
 workspace for phases 5-11 (by running phase 4), its episodes on disk for
-phase 15, phase 2's errors for phase 5, FB's captured updates/s (phase 4's,
+phases 15 and 30, phase 2's errors for phase 5, FB's captured updates/s (phase 4's,
 else a short run at its geometry) for phases 14, 18 and 24-26, a fresh
 full-width FB agent for phase 13, phase 15's workspaces for phase 16 (by
 running phase 15), one collected quadruped cycle for phase 22. The phases:
@@ -68,13 +68,13 @@ running phase 15), one collected quadruped cycle for phase 22. The phases:
 
  12. online FB pretraining through its entry point, ``pretrain.main``, at
      full width in bf16 with ``agent.use_pallas_loss=true``: ``walker_walk``,
-     4 environments, one seed cycle of 4,000 steps, then three cycles of
+     4 environments, one seed cycle of 4,000 steps, then two cycles of
      4,000 steps and 2,000 updates each; per cycle the collection's seconds
      and environment steps/s (the captured control step), the updates/s and
      the buffer's size; the update program captured once across the cycles'
      commits; each fused wrapper's launches, by its count and by the
      kernels' own, equal to the updates plus the capture's warm-up runs;
-     two evaluations (``eval.csv``, videos) and ``test_rewards.json``; the
+     an evaluation (``eval.csv``, its video) and ``test_rewards.json``; the
      run's peak device memory; then a fresh run on the folder resumes for
      one more cycle, continuing the step, the replay and the agent's step;
  13. the other online paths: ``train_online.main`` with half of each
@@ -87,7 +87,7 @@ running phase 15), one collected quadruped cycle for phase 22. The phases:
  14. successor features at the JAX defaults (hidden 1024, feature 512,
      backward hidden 512, z 100, batch 1024, float32): SF with each of its
      thirteen feature learners, with ``q_loss=false``, ``boltzmann=true``
-     and ``mix_ratio=0.5``, and SF-SVD, each 30 updates through the
+     and ``mix_ratio=0.5``, and SF-SVD, each 20 updates through the
      captured trainer and the same updates eagerly on a twin from the same
      generator state (held to the bit, else to phase 7's tolerance); per
      agent the updates/s both ways, the kernel launches and device time per
@@ -116,7 +116,7 @@ running phase 15), one collected quadruped cycle for phase 22. The phases:
  18. the discrete agents at the JAX defaults (discrete FB: hidden 1024, z 50,
      batch 1024, float32; its default, ``boltzmann=false`` and
      ``q_loss=true``, whose pseudo-inverse runs eagerly between two graphs;
-     discrete SF with icm, identity and lap), 30 updates each through the
+     discrete SF with icm, identity and lap), 20 updates each through the
      captured trainer against the same updates eagerly on a twin, as phase
      14;
  19. the entry points on the grid: ``pretrain.main agent=discrete_fb
@@ -136,8 +136,8 @@ running phase 15), one collected quadruped cycle for phase 22. The phases:
      replays of one captured control step against eager, to the bit; the
      kernel launches and device ms per control step of stand, escape, fetch
      and jaco under the profiler; ``env.step`` alone at 10, 1,024 and 16,384
-     environments for stand, escape and fetch (``tools/env_step.py``), and
-     one copy of 16,384 escape terrains beside escape's step;
+     environments for stand, at 10 and 1,024 for escape and fetch
+     (``tools/env_step.py``), and one copy of 16,384 escape terrains;
  21. this slice's main path, the recipe of ``results/quad_one`` with only
      the cycles and the cycle's size short: ``train_online.main``
      ``agent=fb_ddpg task=quadruped_stand goal_space=quad_pos_speed`` at
@@ -166,8 +166,8 @@ running phase 15), one collected quadruped cycle for phase 22. The phases:
  24. this slice's main path: ``pretrain agent=ddpg obs_type=pixels
      task=walker_walk`` at the JAX DDPG defaults (hidden 1024, batch 1024,
      n-step 3, float32, 84 x 84 x 9 uint8 frames, pad 4), cut to 1
-     environment and a replay of 64 episodes: a seed cycle and a cycle of
-     500 updates, one capture of the update, a uint8 replay; a resumed
+     environment, episodes of 500 steps and a replay of 64 episodes: a seed
+     cycle and a cycle of 250 updates, one capture of the update, a uint8 replay; a resumed
      workspace; the launches and device time of an update; ``evaluate()``
      (10 episodes, its video) and ``finalize()`` (``{}``); 20 full-width
      pixel updates captured against eager on a twin, to the bit; the
@@ -187,7 +187,7 @@ running phase 15), one collected quadruped cycle for phase 22. The phases:
      on a twin, to the bit, with updates/s both ways, launches and device
      ms per update and the peak memory;
  27. ``pretrain agent={aps,new_aps,smm,proto} task=walker_walk`` at full
-     width, 4 environments, a seed cycle and a training cycle each: APS's
+     width, 2 environments, a seed cycle and a training cycle each: APS's
      task changes in the replay only at multiples of 5 steps, SMM's one-hot
      z only at multiples of 50, NEWAPS's ``test_rewards.json`` has the four
      walker rows, and Proto, resumed from its folder, keeps its queue;
@@ -198,7 +198,31 @@ running phase 15), one collected quadruped cycle for phase 22. The phases:
      2 episodes each, one batch) into a finite ``test_rewards.json`` in [0,
      1]; then ``train_offline agent=goal_td3`` on that run's replay. No
      fused FB kernel is on phases 26-28: their launches must be 0 by both
-     counts.
+     counts;
+ 29. d4rl, this slice's main path: a synthetic dataset of
+     halfcheetah-medium-v2's shape (1,000 episodes x 1,000 rows, timeouts,
+     observations 17, actions 6) written as ``.npz``;
+     ``train_offline.main task=d4rl_halfcheetah d4rl_dataset=...`` at the
+     JAX FB defaults in bf16 with ``agent.use_pallas_loss=true``, 300
+     captured updates, ``profile_dir`` set: the fused launches equal the
+     updates + 2 by both counts, the Chrome trace of the cycle after the
+     seed frames names the fused kernels, the run's evaluation and one more
+     have a ``normalized_score`` equal to d4rl's score, on the host, of the
+     dataset's returns of the episodes the resets drew; the replay
+     environment's captured control step against eager, to the bit;
+     updates/s, the load's seconds (printed by ``train_offline``), the
+     evaluation's seconds and the peak memory;
+ 30. data parallelism on the card at world size 1, through a one-process
+     NCCL group (``tcp://127.0.0.1``): the captured data-parallel FB update
+     (fused loss, bf16, the JAX defaults) against the plain captured
+     update from the same state, batches and noise, to the bit; the fused
+     launches of the data-parallel run by both counts; a profiler trace of
+     replays of each (NCCL's kernels and copies per update); both updates/s
+     in turns; ``train_multihost.main`` with one NCCL process on phase 4's
+     episodes (300 updates, one evaluation and a checkpoint from process 0,
+     one capture); one ``OnlineTrainer`` cycle with the group on the walker
+     (4 x 1,000 steps collected, 1,000 data-parallel updates). A failed
+     NCCL start or capture fails the phase; there is no gloo on the card.
 
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -212,15 +236,20 @@ import dataclasses
 import gc
 import json
 import math
+import socket
 import sys
 import tempfile
 import time
 import typing as tp
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from controllable_agent_torch import _build, anytrain, pretrain, train_offline, train_online
+import torch.distributed as dist
+
+from controllable_agent_torch import (_build, anytrain, pretrain, train_multihost, train_offline,
+                                      train_online)
 from controllable_agent_torch.agents import (FEATURE_LEARNERS, DDPGAgent, DDPGConfig, DDPGNoise,
                                              DiscreteFBAgent, DiscreteFBConfig, DiscreteSFAgent,
                                              DiscreteSFConfig, FBDDPGAgent, FBDDPGConfig, RNDAgent,
@@ -229,6 +258,7 @@ from controllable_agent_torch.agents import (FEATURE_LEARNERS, DDPGAgent, DDPGCo
 from controllable_agent_torch.agents.sf import normalized_solution
 from controllable_agent_torch.data import ReplayBuffer
 from controllable_agent_torch.data import replay as replay_lib
+from controllable_agent_torch.data.d4rl import normalized_score
 from controllable_agent_torch.data.exorl import save_exorl_episodes, synthetic_episodes
 from controllable_agent_torch.envs import build_gridworld_task, gridworld, locomotion
 from controllable_agent_torch.envs.pixels import make_pixel_env
@@ -238,12 +268,13 @@ from controllable_agent_torch.models.networks import PixelEncoder, conv_repr_dim
 from controllable_agent_torch.ops.augment import draw_shifts, random_shift_aug
 from controllable_agent_torch.ops.linalg import lstsq, pinv
 from controllable_agent_torch.ops import fused_fb as ff
+from controllable_agent_torch.parallel import make_dp_offline_trainer, make_group, multihost
 from controllable_agent_torch.pretrain import build_workspace
 from controllable_agent_torch.train.workspace import OfflineWorkspace, make_env
 from controllable_agent_torch.tools import dynamics_check, env_step
 from controllable_agent_torch.train.loops import (WARMUP_RUNS, CapturedProgram,
-                                                  EpisodeCollector, Rollout, init_meta_batched,
-                                                  make_offline_trainer)
+                                                  EpisodeCollector, OnlineTrainer, Rollout,
+                                                  init_meta_batched, make_offline_trainer)
 from controllable_agent_torch.utils.device import card_name_and_power_limit, query_card
 
 SEED = 0
@@ -262,6 +293,7 @@ EVAL_EPISODES, FINAL_TESTS = 10, 10  # phases 4 and 11
 WALKER_TASKS = tuple(f"walker_{t}" for t in ("stand", "walk", "run", "flip"))
 COMPARED_STEPS = 20  # captured against eager, and the profiled window
 ROLLOUT_SIZES = (10, 1024, 16384)  # environments advanced together
+QUAD_STEP_SIZES = {"quadruped_stand": ROLLOUT_SIZES}  # phase 20; the other tasks to 1,024 (a cut)
 # device kernels of each wrapper, as the profiler names them
 KERNEL_NAMES = {"fwd": ("fb_fwd_tile_kernel", "fb_fwd_reduce_kernel"),
                 "bwd": ("fb_bwd_tile_kernel", "fb_bwd_reduce_kernel")}
@@ -269,14 +301,16 @@ KERNEL_NAMES = {"fwd": ("fb_fwd_tile_kernel", "fb_fwd_reduce_kernel"),
 # the rate of float32-accurate products on the tensor cores: 3xTF32 does
 # three TF32 products per product, so a third of the 495 TFLOP/s TF32 peak.
 F32_ACCURATE_TC_FLOP_PER_S = 495e12 / 3
-ONLINE_ENVS, ONLINE_CYCLES = 4, 4  # phase 12: a seed cycle, then three of 2,000 updates
+# phase 12: a seed cycle, then two of 2,000 updates (cut from three)
+ONLINE_ENVS, ONLINE_CYCLES = 4, 3
 CYCLE_STEPS = ONLINE_ENVS * EPISODE_LENGTH  # environment steps of one cycle
-ONLINE_EVAL_EVERY = 8000  # crossed at 8,000 and 16,000 steps
+ONLINE_EVAL_EVERY = 8000  # crossed at 8,000 steps (16,000 by the resumed run)
 DIRECTED_CYCLES, DIRECTED_UPDATES = 3, 50  # phase 13's train_online run
 RND_CYCLES, RND_ENVS = 2, 2  # phase 13: a seed cycle, then one of 1,000 updates
 RND_CYCLE_STEPS = RND_ENVS * EPISODE_LENGTH
 CHEETAH_RESETS = 10  # environments of phase 13's cheetah reset, an evaluation's
-SF_UPDATES, SF_FIRST = 30, 10  # phases 14, 18: updates per agent, in calls of 10 then 20
+# phases 14, 18: updates per agent, in calls of 5 then 15 (cut from 30)
+SF_UPDATES, SF_FIRST = 20, 5
 SF_PROFILED = 5  # phase 14: updates under the profiler per agent (the launch count)
 # phase 14's variants beyond the thirteen learners at their defaults
 SF_VARIANTS = (("lap", "q_loss", False), ("icm", "boltzmann", True), ("svd_sr", "mix_ratio", 0.5))
@@ -309,8 +343,9 @@ PIXEL_EQUAL_SHARE = 0.999  # uint8 frames: within 1 everywhere, equal on this sh
 AUG_PAD, ENCODER_BATCH = 4, 64  # phase 23: DrQ's pad (the JAX default); encoder's check
 # the encoder's features, card against CPU: float32 sums of 81 x 32 products in another order
 ENCODER_RTOL, ENCODER_ATOL = 1e-4, 1e-5
-PIXEL_RUN_ENVS, PIXEL_REPLAY_EPISODES = 1, 64  # phase 24's cuts (the recipe: 4, 5,000)
-PIXEL_CYCLE_STEPS = PIXEL_RUN_ENVS * EPISODE_LENGTH
+# phase 24's cuts (the recipe: 4 environments, 5,000 episodes of 1,000 steps)
+PIXEL_RUN_ENVS, PIXEL_REPLAY_EPISODES, PIXEL_EPISODE_LENGTH = 1, 64, 500
+PIXEL_CYCLE_STEPS = PIXEL_RUN_ENVS * PIXEL_EPISODE_LENGTH
 PIXEL_COMPARED_UPDATES, PIXEL_FIRST = 20, 5  # phase 24: captured vs eager, timed after 5
 EXPLORERS = ("diayn", "icm", "icm_apt", "disagreement", "max_ent")  # phase 25
 EXPLORER_UPDATES = 100  # phase 25: updates per explorer, captured and eager
@@ -320,10 +355,19 @@ ITEM13_AGENTS = ("aps", "new_aps", "new_aps future_ratio=0.5", "smm", "proto", "
                  "goal_td3", "goal_sm")
 ITEM13_UPDATES = 100  # phase 26: updates per agent, captured and eager
 ITEM13_EXPLORERS = ("aps", "new_aps", "smm", "proto")  # phase 27, on walker_walk
+ITEM13_ENVS = 2  # phase 27's environments (cut from 4)
 MAZE_AGENTS = ("uvf", "goal_td3", "goal_sm")  # phase 28, on the point-mass maze
 MAZE_GOAL_SPACE = "simplified_point_mass_maze"
 MAZE_OFFLINE_UPDATES = 400  # phase 28: train_offline agent=goal_td3
-LAST_PHASE = 28
+# phase 29: a synthetic dataset of halfcheetah-medium-v2's shape, and its run
+D4RL_DOMAIN, D4RL_EPISODES, D4RL_ROWS, D4RL_OBS, D4RL_ACTION = "halfcheetah", 1000, 1000, 17, 6
+D4RL_STEPS, D4RL_SEED_FRAMES = 300, 100  # updates; the profiled call starts at step 100
+# phase 30: data parallelism on one card
+DP_UPDATES, DP_TIMED = 100, 200  # updates held to the plain ones to the bit; timed, in turns
+DP_GATHERS = 9  # all-gathers per DP update: goals, then F1, F2, B, TF1, TF2, TB, z, discount
+MH_STEPS = 300  # train_multihost's updates
+DP_ONLINE_UPDATES = 1000  # the online cycle with a group: 4 x 1,000 steps, 1,000 updates
+LAST_PHASE = 30
 F32_EPS = float(torch.finfo(torch.float32).eps)
 HBM_BYTES_PER_S = 3.35e12
 FWD_RTOL = 2e-4  # as tests/test_pallas_fb.py: order of f32 sums over n^2
@@ -1036,7 +1080,7 @@ def run_online(tmp: str) -> tp.Tuple[tp.Dict[str, int], tp.Any]:
     captures = ws.online_trainer.trainer.captures
     expected = updates + WARMUP_RUNS
     print(f"phase 12 pretrain: {ONLINE_CYCLES} cycles, {ws.global_step} environment steps, "
-          f"{updates} updates in {wall:.1f} s (two evaluations with their videos, finalize() "
+          f"{updates} updates in {wall:.1f} s (the evaluations with their videos, finalize() "
           f"and the checkpoint included); the update program captured {captures} time(s) "
           f"across {len(ws.buffer)} committed episodes; launches {counts} = {updates} replayed "
           f"updates + {WARMUP_RUNS} eager warm-up runs; runs counted on the device by the "
@@ -1737,7 +1781,7 @@ def check_3d_engine() -> None:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     for task in QUAD_STEP_TASKS:
         env = make_env(task)
-        for envs in ROLLOUT_SIZES:
+        for envs in QUAD_STEP_SIZES.get(task, ROLLOUT_SIZES[:2]):
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             t = env_step.step_timing(env, envs, gen)
@@ -2022,9 +2066,11 @@ def check_pixels() -> None:
 
 def pixel_args(folder: str, frames: int) -> tp.List[str]:
     """Phase 24's command line: pixel DDPG at the JAX defaults on the walker,
-    cut to PIXEL_RUN_ENVS environments and PIXEL_REPLAY_EPISODES episodes."""
+    cut to PIXEL_RUN_ENVS environments and PIXEL_REPLAY_EPISODES episodes of
+    PIXEL_EPISODE_LENGTH steps."""
     return ["agent=ddpg", "obs_type=pixels", "task=walker_walk", f"num_envs={PIXEL_RUN_ENVS}",
             f"replay_buffer_episodes={PIXEL_REPLAY_EPISODES}",
+            f"episode_length={PIXEL_EPISODE_LENGTH}",
             f"num_seed_frames={PIXEL_CYCLE_STEPS}", f"num_train_frames={frames}",
             "eval_every_steps=0", f"num_eval_episodes={EVAL_EPISODES}",
             f"final_tests={FINAL_TESTS}", f"folder={folder}", f"seed={SEED}"]
@@ -2046,7 +2092,8 @@ def run_pixels(tmp: str, fb_rate: float) -> None:
     print(f"phase 24 pretrain agent=ddpg obs_type=pixels task=walker_walk (hidden "
           f"{cfg.hidden_dim}, batch {cfg.batch_size}, nstep {ws.buffer.cfg.nstep}, "
           f"{cfg.compute_dtype}, frames {ws.spec.obs_shape}, aug_pad {cfg.aug_pad}; cut: "
-          f"{PIXEL_RUN_ENVS} environments, a replay of {PIXEL_REPLAY_EPISODES} episodes): a seed "
+          f"{PIXEL_RUN_ENVS} environments, episodes of {PIXEL_EPISODE_LENGTH} steps, a replay of "
+          f"{PIXEL_REPLAY_EPISODES} episodes): a seed "
           f"cycle and a cycle of {ws.agent.step} updates in {wall:.1f} s; the update captured "
           f"{captures} time(s); the replay's observations {storage['observation'].dtype} "
           f"{tuple(storage['observation'].shape)} ({replay_bytes(ws) / 2**30:.2f} GiB); peak "
@@ -2094,13 +2141,13 @@ def run_pixels(tmp: str, fb_rate: float) -> None:
     metrics, eval_s = _timed(ws.evaluate)
     video = ws.work_dir / "eval_video" / f"{ws.global_step}.png"
     battery, final_s = _timed(ws.finalize)
-    print(f"phase 24 evaluate: {EVAL_EPISODES} episodes x {EPISODE_LENGTH} steps of frames in "
+    print(f"phase 24 evaluate: {EVAL_EPISODES} episodes x {PIXEL_EPISODE_LENGTH} steps of frames in "
           f"{eval_s:.3f} s (the capture of the control step and the video included; "
-          f"{EVAL_EPISODES * EPISODE_LENGTH / eval_s:.0f} environment steps/s): episode_reward "
+          f"{EVAL_EPISODES * PIXEL_EPISODE_LENGTH / eval_s:.0f} environment steps/s): episode_reward "
           f"{metrics['episode_reward']:.2f}; video {video.stat().st_size} bytes; finalize() "
           f"{battery} in {final_s:.3f} s (DDPG infers no z), on {card}")
     if not (math.isfinite(metrics["episode_reward"])
-            and 0.0 <= metrics["episode_reward"] <= EPISODE_LENGTH
+            and 0.0 <= metrics["episode_reward"] <= PIXEL_EPISODE_LENGTH
             and video.stat().st_size > 0 and battery == {}
             and not (ws.work_dir / "test_rewards.json").exists()):
         raise AssertionError(f"pixel evaluation: {metrics}, {battery}")
@@ -2260,10 +2307,11 @@ def check_item13_agents(fb_rate: float) -> None:
         + f"; all equal to eager to the bit; FB in phase 4 {fb_rate:.1f}; on {card}")
 
 
-def item13_args(agent: str, folder: str, frames: int, *extra: str) -> tp.List[str]:
-    """Phases 27 and 28: ``pretrain`` at the JAX defaults, 4 environments,
-    a seed cycle, no evaluation."""
-    return [f"agent={agent}", f"num_envs={ONLINE_ENVS}", f"num_seed_frames={CYCLE_STEPS}",
+def item13_args(agent: str, folder: str, frames: int, *extra: str,
+                envs: int = ONLINE_ENVS) -> tp.List[str]:
+    """Phases 27 and 28: ``pretrain`` at the JAX defaults, ``envs``
+    environments, a seed cycle, no evaluation."""
+    return [f"agent={agent}", f"num_envs={envs}", f"num_seed_frames={envs * EPISODE_LENGTH}",
             f"num_train_frames={frames}", "eval_every_steps=0", f"folder={folder}",
             f"seed={SEED}", *extra]
 
@@ -2283,15 +2331,17 @@ def run_item13_explorers(tmp: str) -> None:
     the meta resampled in the captured collector; NEWAPS's final battery;
     Proto resumed from its folder, its queue with it."""
     card = card_name_and_power_limit()
-    frames = 2 * CYCLE_STEPS
-    updates = CYCLE_STEPS // 2
+    cycle = ITEM13_ENVS * EPISODE_LENGTH
+    frames = 2 * cycle
+    updates = cycle // 2
     for agent in ITEM13_EXPLORERS:
         folder = f"{tmp}/{agent}"
         tests = [f"final_tests={FINAL_TESTS}"] if agent == "new_aps" else ["final_tests=0"]
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()
         ws, wall = _timed(lambda: pretrain.main(item13_args(agent, folder, frames,
-                                                            "task=walker_walk", *tests)))
+                                                            "task=walker_walk", *tests,
+                                                            envs=ITEM13_ENVS)))
         peak = torch.cuda.max_memory_allocated() - held
         cycles = report_cycles(ws, f"phase 27 {agent}")
         row = ws.last_row
@@ -2331,8 +2381,8 @@ def run_item13_explorers(tmp: str) -> None:
             raise AssertionError(f"the {agent} run: captures {captures}, step {ws.agent.step}, "
                                  f"{row}{meta}")
         if agent == "proto":
-            args = item13_args(agent, folder, frames + CYCLE_STEPS, "task=walker_walk",
-                               "final_tests=0")
+            args = item13_args(agent, folder, frames + cycle, "task=walker_walk",
+                               "final_tests=0", envs=ITEM13_ENVS)
             resumed = pretrain.build_workspace(args)
             same = torch.equal(resumed.agent.queue, ws.agent.queue) \
                 and int(resumed.agent.queue_ptr) == int(ws.agent.queue_ptr) \
@@ -2341,7 +2391,7 @@ def run_item13_explorers(tmp: str) -> None:
             print(f"phase 27 proto resumed: the queue, its pointer and the agent's step as "
                   f"saved {same}; continued from step {frames} to {resumed.global_step}, agent "
                   f"step {ws.agent.step} -> {resumed.agent.step} in {wall:.1f} s")
-            if not same or resumed.global_step != frames + CYCLE_STEPS \
+            if not same or resumed.global_step != frames + cycle \
                     or resumed.agent.step != 2 * updates:
                 raise AssertionError("the resumed Proto run did not continue the saved one")
             del resumed
@@ -2410,6 +2460,250 @@ def run_item13_goal_agents(tmp: str) -> None:
     sweep(offline, "phase 28 train_offline agent=goal_td3")
 
 
+def write_d4rl_dataset(path: str) -> tp.Dict[str, np.ndarray]:
+    """Phase 29's dataset: halfcheetah-medium-v2's shape (1,000 episodes of
+    1,000 rows, a timeout on every 1,000th row, observations of 17, actions
+    of 6), drawn from the seed."""
+    rng = np.random.RandomState(SEED)
+    n = D4RL_EPISODES * D4RL_ROWS
+    timeouts = np.zeros(n, bool)
+    timeouts[D4RL_ROWS - 1::D4RL_ROWS] = True
+    dataset = {"observations": rng.randn(n, D4RL_OBS).astype(np.float32),
+               "actions": rng.uniform(-1, 1, (n, D4RL_ACTION)).astype(np.float32),
+               "rewards": (4.0 + rng.randn(n)).astype(np.float32),
+               "terminals": np.zeros(n, bool), "timeouts": timeouts}
+    np.savez(path, **dataset)
+    return dataset
+
+
+def check_d4rl_score(ws: tp.Any, dataset: tp.Dict[str, np.ndarray], row: tp.Dict[str, str],
+                     what: str) -> float:
+    """The ``normalized_score`` of an ``eval.csv`` row against d4rl's score,
+    on the host, of the stored returns of the episodes its resets drew."""
+    episodes = ws._rollouts[EVAL_EPISODES]._state.episode.cpu().numpy()
+    rewards = dataset["rewards"].astype(np.float64).reshape(D4RL_EPISODES, D4RL_ROWS)
+    returns = rewards[episodes, :D4RL_ROWS - 1].sum(1)  # an episode's last row has no reward
+    want = float(np.mean([normalized_score(D4RL_DOMAIN, r) for r in returns]))
+    got = float(row["normalized_score"])
+    print(f"phase 29 {what}: normalized_score {got:.6f} in eval.csv, {want:.6f} from the "
+          f"dataset's returns of the episodes the resets drew ({sorted(episodes.tolist())})")
+    if not (math.isfinite(got) and abs(got - want) <= 1e-5 * max(1.0, abs(want))):
+        raise AssertionError(f"{what}: normalized_score {got} against {want} on the host")
+    return got
+
+
+def run_d4rl(tmp: str) -> tp.Tuple[tp.Dict[str, int], tp.Any]:
+    """Phase 29: ``train_offline task=d4rl_halfcheetah`` at full width."""
+    card = card_name_and_power_limit()
+    path = f"{tmp}/d4rl_halfcheetah.npz"
+    dataset, write_s = _timed(lambda: write_d4rl_dataset(path))
+    print(f"phase 29 dataset: {D4RL_EPISODES} x {D4RL_ROWS} rows of halfcheetah-medium-v2's "
+          f"shape (observations {D4RL_OBS}, actions {D4RL_ACTION}) written in {write_s:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    ff.reset_launches()
+    profiles = f"{tmp}/d4rl_profile"
+    ws, wall = _timed(lambda: train_offline.main([
+        f"task=d4rl_{D4RL_DOMAIN}", f"d4rl_dataset={path}", "agent=fb_ddpg",
+        "agent.use_pallas_loss=true", "agent.compute_dtype=bfloat16",
+        f"num_grad_steps={D4RL_STEPS}", f"steps_per_call={STEPS_PER_CALL}",
+        f"log_every_steps={STEPS_PER_CALL}", f"eval_every_steps={D4RL_STEPS}",
+        f"num_eval_episodes={EVAL_EPISODES}", "checkpoint_every=0", "final_tests=0",
+        "save_eval_video=false", f"replay_buffer_episodes={D4RL_EPISODES}",
+        f"num_seed_frames={D4RL_SEED_FRAMES}", f"profile_dir={profiles}",
+        f"folder={tmp}/d4rl", f"seed={SEED}"]))
+    counts, ran = dict(ff.launches), ff.device_runs()
+    peak = torch.cuda.max_memory_allocated()
+    expected = D4RL_STEPS + WARMUP_RUNS
+    print(f"phase 29 train_offline task=d4rl_{D4RL_DOMAIN}: {len(ws.buffer)} episodes of "
+          f"{ws.buffer.state.max_episode_length} transitions in the replay, {ws.global_step} "
+          f"updates as replays of one captured graph in {wall:.1f} s (the load, the capture, "
+          f"an evaluation and z's inference included); fused launches {counts} by the "
+          f"wrappers' counts, {ran} by the kernels' own (expected {expected} each); "
+          f"{ws.last_row['fps']:.1f} updates/s over the last {STEPS_PER_CALL}; peak device "
+          f"memory {peak / 2**20:.1f} MiB; on {card}")
+    if len(ws.buffer) != D4RL_EPISODES or ws.buffer.state.max_episode_length != D4RL_ROWS - 1 \
+            or ws.spec.obs_dim != D4RL_OBS or ws.global_step != D4RL_STEPS \
+            or any(c != expected for c in counts.values()) or ran != counts \
+            or not all(math.isfinite(v) for v in ws.last_row.values()):
+        raise AssertionError(f"the d4rl run: {len(ws.buffer)} episodes, {counts}, {ran}, "
+                             f"{ws.last_row}")
+    evals = read_csv(ws.work_dir / "eval.csv")
+    if [int(float(r["step"])) for r in evals] != [D4RL_STEPS]:
+        raise AssertionError(f"expected one evaluation at step {D4RL_STEPS}: {evals}")
+    check_d4rl_score(ws, dataset, evals[-1], "the run's evaluation")
+    metrics, eval_s = _timed(ws.evaluate)
+    print(f"phase 29 evaluate(): {EVAL_EPISODES} episodes x {ws.spec.episode_length} replayed "
+          f"steps in {eval_s:.3f} s ({EVAL_EPISODES * ws.spec.episode_length / eval_s:.0f} "
+          f"environment steps/s), episode_reward {metrics['episode_reward']:.2f}, on {card}")
+    check_d4rl_score(ws, dataset, read_csv(ws.work_dir / "eval.csv")[-1], "a second evaluation")
+
+    traces = sorted(Path(profiles).iterdir())
+    text = traces[0].read_text() if len(traces) == 1 else ""
+    found = {part: text.count(part) for parts in KERNEL_NAMES.values() for part in parts}
+    print(f"phase 29 profile_dir: {[t.name for t in traces]}, {len(text) / 1e6:.1f} MB; "
+          f"mentions of the fused kernels: {found}")
+    if len(traces) != 1 or traces[0].name != f"trace_{D4RL_SEED_FRAMES}.json" \
+            or not all(found.values()):
+        raise AssertionError("expected one Chrome trace of the cycle after the seed frames, "
+                             "with the fused kernels in it")
+
+    env, agent, gen = ws.env, ws.agent, torch.Generator(device="cuda").manual_seed(SEED)
+    state, ts = env.reset(gen, EVAL_EPISODES)
+    captured = Rollout(env, agent, EVAL_EPISODES)
+    eager = Rollout(env, agent, EVAL_EPISODES, capture=False)
+    got = [x.clone() for x in captured(ws.inferred_z, state, ts)]
+    want = eager(ws.inferred_z, state, ts)
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, want))
+    print(f"phase 29 replay environment: {EVAL_EPISODES} episodes x {env.spec.episode_length} "
+          f"steps, the captured control step against eager: equal to the bit {bitwise}")
+    if not bitwise:
+        raise AssertionError("the d4rl replay's captured control step differs from eager")
+    return counts, ws
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _profile_updates(trainer: tp.Any, buf: tp.Any, gen: torch.Generator
+                     ) -> tp.Tuple[int, int, int]:
+    """Kernels per update, NCCL kernels and device-to-device copies in
+    PROFILE_STEPS replayed updates."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        trainer(buf.state, gen, steps=PROFILE_STEPS)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    nccl = sum("nccl" in e.name.lower() for e in kernels)
+    copies = sum("memcpy dtod" in e.name.lower() for e in kernels)
+    return len(kernels), nccl, copies
+
+
+def check_data_parallel(tmp: str, episodes_dir: str) -> tp.Dict[str, tp.Dict[str, int]]:
+    """Phase 30: a one-process NCCL group on the card; the fused kernels'
+    launches of each path, by path."""
+    card = card_name_and_power_limit()
+    by_path: tp.Dict[str, tp.Dict[str, int]] = {}
+    cfg = FBDDPGConfig(use_pallas_loss=True, compute_dtype="bfloat16")
+    buf = ReplayBuffer(EPISODES, discount=0.98, future=0.99, device="cuda")
+    buf.load_episodes(synthetic_episodes(EPISODES, EPISODE_LENGTH, OBS_DIM, ACTION_DIM, SEED))
+    if not multihost.initialize(f"127.0.0.1:{_free_port()}", 1, 0, device="cuda"):
+        raise AssertionError("no process group was started")
+    try:
+        group = make_group()
+        print(f"phase 30 group: backend {dist.get_backend(group)}, world size "
+              f"{dist.get_world_size(group)}")
+        plain_agent, dp_agent = (FBDDPGAgent(cfg, OBS_DIM, ACTION_DIM, device="cuda", seed=SEED)
+                                 for _ in range(2))
+        plain = make_offline_trainer(plain_agent, buf.cfg, cfg.batch_size, DP_UPDATES)
+        dp = make_dp_offline_trainer(dp_agent, buf.cfg, cfg.batch_size, DP_UPDATES, group)
+        plain_gen, dp_gen = (torch.Generator(device="cuda").manual_seed(SEED) for _ in range(2))
+        want = {k: v.clone() for k, v in plain(buf.state, plain_gen).items()}
+        ff.reset_launches()
+        got = dp(buf.state, dp_gen)
+        torch.cuda.synchronize()
+        counts, ran = dict(ff.launches), ff.device_runs()
+        by_path["data-parallel update, 1 process (phase 30)"] = counts
+        states = plain_agent.train_state(), dp_agent.train_state()
+        bitwise = all(torch.equal(states[1][k], v) for k, v in states[0].items()) \
+            and all(torch.equal(got[k], v) for k, v in want.items()) \
+            and torch.equal(plain_gen.get_state(), dp_gen.get_state())
+        print(f"phase 30 data-parallel update: {DP_UPDATES} captured updates through a one-process "
+              f"NCCL group against the plain captured trainer from the same state, batches and "
+              f"noise: equal to the bit {bitwise}; captures {dp.captures}; fused launches "
+              f"{counts} by the wrappers' counts, {ran} by the kernels' own")
+        if not bitwise or dp.captures != 1 or ran != counts \
+                or any(c != DP_UPDATES + WARMUP_RUNS for c in counts.values()):
+            raise AssertionError("the data-parallel update at world size 1 differs from the plain")
+
+        seen = {name: _profile_updates(t, buf, g)
+                for name, t, g in (("plain", plain, plain_gen), ("dp", dp, dp_gen))}
+        for name, (kernels, nccl, copies) in seen.items():
+            print(f"phase 30 profile {name}: {PROFILE_STEPS} replayed updates, "
+                  f"{kernels / PROFILE_STEPS:.1f} kernels per update, {nccl} NCCL kernels, "
+                  f"{copies / PROFILE_STEPS:.1f} device-to-device copies per update")
+        extra_copies = (seen["dp"][2] - seen["plain"][2]) / PROFILE_STEPS
+        if seen["dp"][1] == 0 and extra_copies < DP_GATHERS:
+            raise AssertionError("the replays of the data-parallel update show no collective")
+
+        rates: tp.Dict[str, tp.List[float]] = {"plain": [], "dp": []}
+        for name in ("plain", "dp", "dp", "plain"):
+            trainer, gen = (plain, plain_gen) if name == "plain" else (dp, dp_gen)
+            _, seconds = _timed(lambda: trainer(buf.state, gen, steps=DP_TIMED))
+            rates[name].append(DP_TIMED / seconds)
+        print(f"phase 30 updates/s, {DP_TIMED} captured updates a turn (plain, dp, dp, plain): "
+              f"plain {', '.join(f'{r:.1f}' for r in rates['plain'])}, data-parallel "
+              f"{', '.join(f'{r:.1f}' for r in rates['dp'])}, on {card}")
+        del plain, dp, plain_agent, dp_agent
+        gc.collect()  # the graphs that hold the group's collectives go before the group
+        torch.cuda.synchronize()
+    finally:
+        multihost.shutdown()
+
+    torch.cuda.reset_peak_memory_stats()
+    ff.reset_launches()
+    folder = f"{tmp}/multihost"
+    ws, wall = _timed(lambda: train_multihost.main([
+        f"coordinator=127.0.0.1:{_free_port()}", "num_processes=1", "process_id=0",
+        *slice_args(folder, episodes_dir), f"num_grad_steps={MH_STEPS}",
+        f"eval_every_steps={MH_STEPS}", f"checkpoint_every={MH_STEPS}", "final_tests=0"]))
+    counts, ran = dict(ff.launches), ff.device_runs()
+    by_path["train_multihost, 1 process (phase 30)"] = counts
+    evals = read_csv(ws.work_dir / "eval.csv")
+    meta = json.loads((ws.work_dir / "models" / "latest" / "meta.json").read_text())
+    trainer = ws.mh_trainer
+    print(f"phase 30 train_multihost: one NCCL process, {len(ws.buffer)} episodes (its shard), "
+          f"{ws.global_step} updates in {wall:.1f} s (the load, relabeling, the capture, an "
+          f"evaluation and the checkpoint included), {ws.last_row['fps']:.1f} updates/s over the "
+          f"last {STEPS_PER_CALL}; group world size {trainer.shard.world}, captures "
+          f"{trainer.captures}; evaluations at {[int(float(r['step'])) for r in evals]}, "
+          f"episode_reward {float(evals[-1]['episode_reward']):.2f}; checkpoint at step "
+          f"{meta['global_step']}; fused launches {counts}, {ran} by the kernels' own; peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, on {card}")
+    if trainer.group is None or trainer.captures != 1 or meta["global_step"] != MH_STEPS \
+            or [int(float(r["step"])) for r in evals] != [MH_STEPS] or ran != counts \
+            or any(c != MH_STEPS + WARMUP_RUNS for c in counts.values()) \
+            or dist.is_initialized():
+        raise AssertionError(f"train_multihost: {counts}, {ran}, {meta}, {evals}")
+    del ws, trainer
+
+    if not multihost.initialize(f"127.0.0.1:{_free_port()}", 1, 0, device="cuda"):
+        raise AssertionError("no process group was started")
+    try:
+        env = make_env("walker_walk")
+        agent = FBDDPGAgent(cfg, OBS_DIM, ACTION_DIM, device="cuda", seed=SEED)
+        buffer = ReplayBuffer(4 * ONLINE_ENVS, discount=0.98, future=0.99, device="cuda")
+        online = OnlineTrainer(env, agent, buffer, num_envs=ONLINE_ENVS,
+                               updates_per_step=DP_ONLINE_UPDATES / CYCLE_STEPS,
+                               group=make_group())
+        ff.reset_launches()
+        metrics, seconds = _timed(lambda: online.run_cycle(
+            torch.Generator(device="cuda").manual_seed(SEED),
+            torch.Generator(device="cuda").manual_seed(SEED + 1)))
+        counts, ran = dict(ff.launches), ff.device_runs()
+        by_path["online cycle with a group, 1 process (phase 30)"] = counts
+        timing = online.timings
+        print(f"phase 30 online cycle with the group: walker_walk, {ONLINE_ENVS} x "
+              f"{EPISODE_LENGTH} steps collected in {timing['collect']:.3f} s, "
+              f"{len(buffer)} episodes committed, {timing['updates']} data-parallel updates in "
+              f"{timing['update']:.3f} s (the captures included), {seconds:.1f} s in all; "
+              f"fb_loss {metrics.get('fb_loss', float('nan')):.4f}, episode_reward "
+              f"{metrics['episode_reward']:.2f}; fused launches {counts}, {ran} by the "
+              f"kernels' own, on {card}")
+        if len(buffer) != ONLINE_ENVS or ran != counts \
+                or any(c != DP_ONLINE_UPDATES + WARMUP_RUNS for c in counts.values()) \
+                or not all(math.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"the online cycle with a group: {metrics}, {counts}, {ran}")
+        del online
+        gc.collect()
+        torch.cuda.synchronize()
+    finally:
+        multihost.shutdown()
+    return by_path
+
+
 def measure_fb_rate() -> float:
     """FB's captured updates/s at phase 4's geometry (bf16, the fused loss,
     batch 1024) on its episodes, for a selection of phases without phase 4:
@@ -2459,7 +2753,7 @@ class SmokeRun:
     """The selected phases in order. What a phase reads from an earlier one
     is built on first use, by that phase when it is selected and by the
     least that gives it otherwise: phase 4's workspace (phases 5-11), its
-    episodes on disk (15), FB's updates/s (14, 18, 24-26), phase 2's errors
+    episodes on disk (15, 30), FB's updates/s (14, 18, 24-26), phase 2's errors
     (5), phase 12's FB agent (13), phase 15's workspaces (16) and phase
     21's replay (22). Each phase prints its seconds."""
 
@@ -2628,6 +2922,21 @@ class SmokeRun:
             (26, lambda: check_item13_agents(self.fb_rate())),
             (27, lambda: run_item13_explorers(tmp)),
             (28, lambda: run_item13_goal_agents(tmp))))
+        gc.collect()
+        torch.cuda.empty_cache()
+        if 29 in selected:
+            # this slice's main path: the kernels' launches of the d4rl run
+            d4rl_counts, d4rl_ws = self.timed(29, lambda: run_d4rl(tmp))
+            for row in self.rows or []:
+                row["launches"] = d4rl_counts[row["wrapper"]]
+            self.by_path("train_offline task=d4rl_halfcheetah (phase 29)", d4rl_counts)
+            del d4rl_ws
+            gc.collect()
+            torch.cuda.empty_cache()
+        if 30 in selected:
+            paths = self.timed(30, lambda: check_data_parallel(tmp, self.episodes_dir()))
+            for path, counts in paths.items():
+                self.by_path(path, counts)
 
 
 def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:

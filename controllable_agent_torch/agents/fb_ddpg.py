@@ -19,7 +19,8 @@ An update touches no host state: the step counter is a device tensor
 its counts and moments in fixed tensors, and the noise is drawn with
 operations that a CUDA graph can capture. ``train/loops.py`` captures
 sample -> update as one program; the generator it draws from has to be
-registered with that graph.
+registered with that graph. With ``q_loss`` the inverse of Cov(B) runs
+eagerly between two graphs (``utils/graphs.py:eager_step``).
 """
 
 from __future__ import annotations
@@ -39,7 +40,9 @@ from ..ops.fb import fb_loss_terms, orthonormality_loss, sample_z
 from ..ops.fused_fb import fb_loss_terms_fused
 from ..optim import Adam
 from ..utils.device import DeviceLike, resolve_device
+from ..utils.dist import Shard
 from ..utils.distributions import SquashedNormal, TruncatedNormal
+from ..utils.graphs import eager_step
 from ..utils.schedules import schedule
 from ..utils.tree import soft_update
 from .base import (MetaDict, StepNoise, ZMetaMixin, act_draws, explore_until,
@@ -133,6 +136,19 @@ class UpdateNoise:
             w_scale=uniform(n, 1) if rand_weight else None,
             future_uniform=uniform(n, 1) if cfg.future_ratio > 0 else None)
 
+    def rows(self, rows: slice) -> "UpdateNoise":
+        """The draws of the rows ``rows`` of the batch: every per-row draw
+        sliced, the permutation (over the global batch) kept whole."""
+        def part(x: tp.Optional[Tensor]) -> tp.Optional[Tensor]:
+            return None if x is None else x[rows]
+
+        return dataclasses.replace(
+            self, z_normal=self.z_normal[rows], mix_uniform=self.mix_uniform[rows],
+            next_action_normal=part(self.next_action_normal),
+            actor_normal=part(self.actor_normal), z_uniform=part(self.z_uniform),
+            w_uniform=part(self.w_uniform), w_scale=part(self.w_scale),
+            future_uniform=part(self.future_uniform))
+
 
 def _dot(x: Tensor, z: Tensor) -> Tensor:
     """Row-wise x·z in float32 (einsum "sd,sd->s")."""
@@ -141,16 +157,18 @@ def _dot(x: Tensor, z: Tensor) -> Tensor:
 
 @torch.no_grad()
 def build_train_z(cfg: tp.Any, backward_net: nn.Module, batch: EpisodeBatch,
-                  noise: UpdateNoise) -> Tensor:
+                  noise: UpdateNoise, shard: Shard = Shard()) -> Tensor:
     """The z of each sample of an update (FB and discrete FB alike): sampled,
     replaced with probability mix_ratio by B of permuted goals (random
     convex-ish mixtures of them with rand_weight), and with probability
-    future_ratio by B of the sampled future goal."""
+    future_ratio by B of the sampled future goal. Data-parallel, ``batch``
+    and ``noise`` are this process's rows (``UpdateNoise.rows``) and the
+    permutation and the mixtures range over the goals of every process."""
     z = sample_z(noise.z_normal, noise.z_uniform, cfg.norm_z)
     backward_input = batch.goal if cfg.goal_space is not None else batch.obs
     future_goal = (batch.future_goal if cfg.goal_space is not None
                    else batch.future_obs)
-    backward_input = backward_input[noise.perm]
+    backward_input = shard.gather(backward_input)[noise.perm]
 
     if cfg.mix_ratio > 0:
         b_all = backward_net(backward_input).float()
@@ -160,7 +178,7 @@ def build_train_z(cfg: tp.Any, backward_net: nn.Module, batch: EpisodeBatch,
             w = w / torch.linalg.vector_norm(w, dim=1, keepdim=True).clamp_min(1e-12)
             mix_z = (noise.w_scale * w) @ b_all
         else:
-            mix_z = b_all
+            mix_z = b_all[shard.rows(b_all.shape[0])]
         if cfg.norm_z:
             mix_z = l2_normalize(mix_z)
         z = torch.where(noise.mix_uniform < cfg.mix_ratio, mix_z, z)
@@ -233,6 +251,9 @@ class FBMetaMixin(ZMetaMixin):
 
 class FBDDPGAgent(FBMetaMixin, nn.Module):
     """Networks, target networks and optimizers of one FB agent."""
+
+    # ``update`` and ``_update`` take a process group (utils/dist.py)
+    data_parallel = True
 
     def __init__(self, cfg: FBDDPGConfig, obs_dim: int, action_dim: int,
                  goal_dim: tp.Optional[int] = None, device: DeviceLike = None,
@@ -347,8 +368,9 @@ class FBDDPGAgent(FBMetaMixin, nn.Module):
         return explore_until(action, uniform, step, self.cfg.num_expl_steps)
 
     # -- z construction for the update ----------------------------------
-    def _build_train_z(self, batch: EpisodeBatch, noise: UpdateNoise) -> Tensor:
-        return build_train_z(self.cfg, self.backward_net, batch, noise)
+    def _build_train_z(self, batch: EpisodeBatch, noise: UpdateNoise,
+                       shard: Shard = Shard()) -> Tensor:
+        return build_train_z(self.cfg, self.backward_net, batch, noise, shard)
 
     # -- losses ---------------------------------------------------------
     @torch.no_grad()
@@ -369,18 +391,25 @@ class FBDDPGAgent(FBMetaMixin, nn.Module):
         return tf1.float(), tf2.float(), tb.float()
 
     def _fb_loss(self, batch: EpisodeBatch, z: Tensor, next_goal: Tensor,
-                 normal: Tensor) -> tp.Tuple[Tensor, Metrics]:
+                 normal: Tensor, shard: Shard = Shard()) -> tp.Tuple[Tensor, Metrics]:
+        """The FB loss (with the Q-loss and the orthonormality loss) and its
+        metrics. Data-parallel, every process computes the loss of the whole
+        batch from the rows of every process (``shard.gather``), and its
+        gradient reaches each process's own rows."""
         cfg = self.cfg
         target_f1, target_f2, target_b = self._targets(batch, z, next_goal, normal)
-        if cfg.use_pallas_loss:
-            return self._fb_loss_fused(batch, z, next_goal, target_f1, target_f2,
-                                       target_b)
-        target_m = torch.minimum(target_f1 @ target_b.T, target_f2 @ target_b.T)
-
         f1, f2 = self.forward_net(batch.obs, z, batch.action)
         b = self.backward_net(next_goal)
-        fb_loss, fb_diag, fb_offdiag = fb_loss_terms(f1, f2, b, target_m,
-                                                     batch.discount)
+        discount = batch.discount
+        if shard.group is not None:
+            target_f1, target_f2, target_b, f1, f2, b, z, discount = (
+                shard.gather(x) for x in (target_f1, target_f2, target_b, f1, f2, b, z,
+                                          discount))
+        if cfg.use_pallas_loss:
+            return self._fb_loss_fused(f1, f2, b, z, discount, target_f1, target_f2,
+                                       target_b)
+        target_m = torch.minimum(target_f1 @ target_b.T, target_f2 @ target_b.T)
+        fb_loss, fb_diag, fb_offdiag = fb_loss_terms(f1, f2, b, target_m, discount)
         metrics: Metrics = {
             "target_M": target_m.mean(),
             "F1": f1.mean(),
@@ -396,9 +425,11 @@ class FBDDPGAgent(FBMetaMixin, nn.Module):
             # Q-regularizer with implicit reward B·Cov⁻¹·z, in float32 (the
             # JAX path inverts in the compute dtype; the two agree in f32)
             next_q = torch.minimum(_dot(target_f1, z), _dot(target_f2, z))
-            cov = bf.T @ bf / bf.shape[0]
-            implicit_reward = ((bf @ torch.linalg.inv(cov)) * z).sum(1)
-            target_q = (implicit_reward + batch.discount[:, 0] * next_q).detach()
+            # the inverse is checked on the host, so it runs eagerly between
+            # two captured graphs, as discrete FB's pseudo-inverse does
+            cov = (bf.T @ bf / bf.shape[0]).detach()
+            implicit_reward = ((bf @ eager_step(lambda: torch.linalg.inv(cov))) * z).sum(1)
+            target_q = (implicit_reward + discount[:, 0] * next_q).detach()
             q_loss = ((_dot(f1, z) - target_q).square().mean()
                       + (_dot(f2, z) - target_q).square().mean())
             fb_loss = fb_loss + cfg.q_loss_coef * q_loss
@@ -414,19 +445,17 @@ class FBDDPGAgent(FBMetaMixin, nn.Module):
         metrics["orth_l2"] = torch.linalg.norm(eye_diff) / math.sqrt(bf.shape[1])
         return fb_loss, metrics
 
-    def _fb_loss_fused(self, batch: EpisodeBatch, z: Tensor, next_goal: Tensor,
+    def _fb_loss_fused(self, f1: Tensor, f2: Tensor, b: Tensor, z: Tensor, discount: Tensor,
                        target_f1: Tensor, target_f2: Tensor, target_b: Tensor
                        ) -> tp.Tuple[Tensor, Metrics]:
         """FB + orthonormality losses through the CUDA kernels
         (ops/fused_fb.py; the JAX ``_fb_loss_pallas``); same math as the
         unfused path minus the full-matrix diagnostics."""
         cfg = self.cfg
-        n = batch.obs.shape[0]
-        f1, f2 = self.forward_net(batch.obs, z, batch.action)
-        b = self.backward_net(next_goal)
+        n = f1.shape[0]
         off_sum, diag_sum, cov_off_sum, cov_diag_sum = fb_loss_terms_fused(
             f1.float(), f2.float(), b.float(), target_f1, target_f2, target_b,
-            batch.discount.float())
+            discount.float())
         denom = n * (n - 1)
         fb_offdiag = 0.5 * off_sum / denom
         fb_diag = -diag_sum / n
@@ -465,32 +494,51 @@ class FBDDPGAgent(FBMetaMixin, nn.Module):
                             "actor_logprob": log_prob.mean()}
 
     # -- the update -----------------------------------------------------
-    def update(self, batch: EpisodeBatch, generator: torch.Generator) -> Metrics:
-        """One gradient step with noise drawn from ``generator``."""
-        noise = UpdateNoise.draw(self.cfg, batch.obs.shape[0], self.action_dim,
-                                 generator, self.device)
-        return self._update(batch, noise)
+    def update(self, batch: EpisodeBatch, generator: torch.Generator,
+               group: tp.Any = None) -> Metrics:
+        """One gradient step with noise drawn from ``generator``. With a
+        process group (``torch.distributed``), ``batch`` is this process's
+        rows of the global batch and the noise is drawn for the global batch
+        (the generator seeded alike on every process), as ``_update`` takes
+        it."""
+        n = batch.obs.shape[0] * Shard(group).world
+        noise = UpdateNoise.draw(self.cfg, n, self.action_dim, generator, self.device)
+        return self._update(batch, noise, group)
 
-    def _update(self, batch: EpisodeBatch, noise: UpdateNoise) -> Metrics:
+    def _update(self, batch: EpisodeBatch, noise: UpdateNoise, group: tp.Any = None) -> Metrics:
+        """One gradient step. With ``group``, a data-parallel one: ``batch``
+        holds this process's rows and ``noise`` the global batch's draws. The
+        FB loss is computed on every process from the gathered rows, scaled by
+        1/world since each process differentiates it; the actor's per-row loss
+        is this process's part of the global mean; gradients are summed over
+        the group before each Adam step, so every process takes the step of
+        the whole batch. Metrics are the global batch's."""
         cfg = self.cfg
+        shard = Shard(group)
+        if group is not None:
+            noise = noise.rows(shard.rows(noise.perm.shape[0]))
         next_goal = batch.next_goal if cfg.goal_space is not None else batch.next_obs
-        z = self._build_train_z(batch, noise)
+        z = self._build_train_z(batch, noise, shard)
 
-        fb_loss, metrics = self._fb_loss(batch, z, next_goal, noise.next_action_normal)
+        fb_loss, metrics = self._fb_loss(batch, z, next_goal, noise.next_action_normal, shard)
         fw_params = list(self.fw_opt.params.values())
         bw_params = list(self.bw_opt.params.values())
-        grads = torch.autograd.grad(fb_loss, fw_params + bw_params)
+        grads = torch.autograd.grad(fb_loss if group is None else fb_loss * shard.share,
+                                    fw_params + bw_params)
+        grads = shard.sum(grads)
         self.fw_opt.step(grads[:len(fw_params)])
         self.bw_opt.step(grads[len(fw_params):])
 
         # the actor step uses the freshly updated forward net, as the JAX
         # update does (fb_ddpg.py:471-476)
         actor_loss, actor_metrics = self._actor_loss(batch.obs, z, noise.actor_normal)
-        self.actor_opt.step(torch.autograd.grad(
-            actor_loss, list(self.actor_opt.params.values())))
+        actor_grads = torch.autograd.grad(
+            actor_loss if group is None else actor_loss * shard.share,
+            list(self.actor_opt.params.values()))
+        self.actor_opt.step(shard.sum(actor_grads))
 
         soft_update(self.forward_net, self.target_forward_net, cfg.fb_target_tau)
         soft_update(self.backward_net, self.target_backward_net, cfg.fb_target_tau)
         self.step_t += 1
-        metrics.update(actor_metrics)
+        metrics.update(shard.mean(actor_metrics))
         return {k: v.detach() for k, v in metrics.items()}

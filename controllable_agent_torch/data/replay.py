@@ -221,6 +221,10 @@ class ReplayBuffer:
         return 0 if self.state is None else self.state.n_episodes
 
     @property
+    def max_episodes(self) -> int:
+        return self._max_episodes
+
+    @property
     def avg_episode_length(self) -> int:
         if self.state is None or len(self) == 0:
             return 0

@@ -23,10 +23,10 @@ end, ``test_rewards.json`` into ``folder``; the same command again resumes
 from that checkpoint. ``device=cpu`` runs on the CPU; the default is the
 card. ``obs_type=pixels`` renders 84 x 84 frames, a stack of
 ``frame_stack``, of the point-mass maze and the planar walker, cheetah and
-hopper (DDPG encodes them; FB takes them as flat columns). Still raising
-``NotImplementedError`` with their ROADMAP item: d4rl (12), aps, new_aps,
-smm, proto, uvf, goal_td3 and goal_sm (13), ``use_tb``, ``use_wandb`` and
-``profile_dir`` (15).
+hopper (DDPG encodes them; FB takes them as flat columns). ``use_tb=true``
+adds TensorBoard event files (``folder/tb``), ``use_wandb=true`` a wandb run
+(the package must be installed), and ``profile_dir=DIR`` a Chrome trace of
+the first cycle after the seed frames.
 """
 
 from __future__ import annotations

@@ -1,0 +1,159 @@
+"""A data-parallel dry run at world size N: the port's analogue of the JAX
+package's ``__graft_entry__.dryrun_multichip``.
+
+    python -m controllable_agent_torch.tools.dryrun_multichip 2 device=cpu
+    python -m controllable_agent_torch.tools.dryrun_multichip 4
+
+It starts N processes joined by ``torch.distributed`` (gloo with
+``device=cpu``, NCCL with one card per process, the default), rendezvous
+through a file in a fresh temporary folder. Each process runs one
+data-parallel FB update (``make_dp_trainer``) of a small agent on a fixed
+batch, then one ``OnlineTrainer`` cycle with the group on the point-mass
+maze (each process steps its share of the environments, every process
+commits all episodes, the updates are data-parallel). It checks that the
+metrics are finite and that every process ends with the same parameters,
+prints one line per process, and exits 0 when all passed. A process that
+does not finish within ``timeout=`` seconds (240 by default) fails the run,
+and every process is stopped.
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+import tempfile
+import typing as tp
+from pathlib import Path
+
+import numpy as np
+import torch
+
+OBS_DIM, ACTION_DIM = 24, 6
+WORKER_MODULE = "controllable_agent_torch.tools.dryrun_multichip"
+
+
+def _small_cfg(batch_size: int, **overrides: tp.Any) -> tp.Any:
+    from controllable_agent_torch.agents import FBDDPGConfig
+    return FBDDPGConfig(hidden_dim=64, backward_hidden_dim=64, feature_dim=32, z_dim=16,
+                        batch_size=batch_size, **overrides)
+
+
+def worker(rank: int, world: int, init_method: str, device: str) -> str:
+    """One process of the dry run; returns its report line."""
+    from controllable_agent_torch.agents import FBDDPGAgent
+    from controllable_agent_torch.data import ReplayBuffer
+    from controllable_agent_torch.data.episode_batch import EpisodeBatch
+    from controllable_agent_torch.envs.pointmass import PointMassMaze
+    from controllable_agent_torch.parallel import make_dp_trainer, make_group, multihost
+    from controllable_agent_torch.train.loops import OnlineTrainer
+    from controllable_agent_torch.utils.dist import Shard
+
+    def progress(what: str) -> None:
+        print(f"rank {rank}: {what}", flush=True)
+
+    torch.set_num_threads(1)
+    multihost.initialize(init_method, world, rank, device=device)
+    progress("joined the group")
+    try:
+        dev = torch.device("cuda") if device == "cuda" else torch.device(device)
+        group = make_group()
+        batch_size = max(16, 2 * world)
+        agent = FBDDPGAgent(_small_cfg(batch_size, mix_ratio=0.5, future_ratio=0.2),
+                            OBS_DIM, ACTION_DIM, device=dev, seed=0)
+        rng = np.random.RandomState(0)
+
+        def rows(*shape: int, uniform: bool = False) -> torch.Tensor:
+            x = rng.uniform(-1, 1, shape) if uniform else rng.randn(*shape)
+            return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+        batch = EpisodeBatch(obs=rows(batch_size, OBS_DIM),
+                             action=rows(batch_size, ACTION_DIM, uniform=True),
+                             reward=rows(batch_size, 1), next_obs=rows(batch_size, OBS_DIM),
+                             discount=torch.full((batch_size, 1), 0.98, device=dev),
+                             future_obs=rows(batch_size, OBS_DIM))
+        generator = torch.Generator(device=dev).manual_seed(1)
+        metrics = make_dp_trainer(agent, group)(batch, generator)
+        fb_loss = float(metrics["fb_loss"])
+        progress("took the data-parallel update")
+
+        env = PointMassMaze("reach_top_left", episode_length=8)
+        agent2 = FBDDPGAgent(_small_cfg(batch_size), 4, 2, device=dev, seed=2)
+        buffer = ReplayBuffer(max_episodes=2 * world, discount=0.98, future=0.99, device=dev)
+        trainer = OnlineTrainer(env, agent2, buffer, num_envs=world, updates_per_step=0.25,
+                                group=group)
+        collect = torch.Generator(device=dev).manual_seed(3 + rank)
+        cycle = trainer.run_cycle(torch.Generator(device=dev).manual_seed(4), collect)
+        trainer.trainer.release()  # its graphs hold the group's collectives
+        progress("ran the online cycle")
+
+        flat = torch.cat([p.detach().reshape(-1).float() for a in (agent, agent2)
+                          for p in a.parameters()])
+        every = Shard(group).gather(flat[None])
+        same = bool((every == flat).all())
+        ok = (np.isfinite(fb_loss) and np.isfinite(cycle["episode_reward"])
+              and "fb_loss" in cycle and len(buffer) == world and same)
+        return (f"rank {rank} of {world}: fb_loss {fb_loss:.6f}, cycle episode_reward "
+                f"{cycle['episode_reward']:.6f}, {cycle.get('fb_loss', float('nan')):.6f} "
+                f"fb_loss, {len(buffer)} episodes committed, parameters equal on every "
+                f"process: {same} -> {'ok' if ok else 'FAILED'}")
+    finally:
+        multihost.shutdown()
+
+
+def run(world: int, device: str = "cuda", timeout: float = 240.0) -> tp.List[str]:
+    """The dry run at ``world`` processes; their report lines, in rank order.
+    Raises if a process fails or does not finish in ``timeout`` seconds."""
+    root = str(Path(__file__).resolve().parents[2])
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(filter(None, [root, os.environ.get("PYTHONPATH")])))
+    with tempfile.TemporaryDirectory() as tmp:
+        init = f"file://{tmp}/rendezvous"
+        procs = [subprocess.Popen([sys.executable, "-m", WORKER_MODULE, "--worker", str(rank),
+                                   str(world), init, device],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                                  env=env) for rank in range(world)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=timeout)[0])
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                p.kill()
+            said = "\n".join(f"--- process {rank}:\n{p.communicate()[0][-3000:]}"
+                             for rank, p in enumerate(procs))
+            raise RuntimeError(f"a process of the dry run did not finish in {timeout} s; "
+                               f"what each said:\n{said}") from None
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    lines = []
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        report = [line for line in out.splitlines() if line.startswith(f"rank {rank} of")]
+        if p.returncode != 0 or not report or not report[-1].endswith("ok"):
+            raise RuntimeError(f"process {rank} of the dry run failed:\n{out[-4000:]}")
+        lines.append(report[-1])
+    return lines
+
+
+def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
+    args = list(argv if argv is not None else sys.argv[1:])
+    if args and args[0] == "--worker":
+        print(worker(int(args[1]), int(args[2]), args[3], args[4]), flush=True)
+        return 0
+    world = int(args[0]) if args else 2
+    options = dict(a.split("=", 1) for a in args[1:])
+    device = options.get("device", "cuda")
+    if device == "cuda" and torch.cuda.device_count() < world:
+        print(f"dryrun_multichip: {world} processes need {world} cards, "
+              f"{torch.cuda.device_count()} found", file=sys.stderr)
+        return 1
+    for line in run(world, device, float(options.get("timeout", 240))):
+        print(line)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -6,7 +6,10 @@
   * formatted console rows with AverageMeter smoothing between dumps;
   * ``hip.log``: append-only JSON-lines records with time / reload stamps.
 
-The TensorBoard and wandb sinks are not ported (ROADMAP Queue A item 15).
+``use_tb`` adds a TensorBoard sink (``<folder>/tb``, one scalar per logged
+key at its step) and ``use_wandb`` a wandb run (``wandb.init`` into the
+folder with the workspace's config), each imported only when asked for: a
+sink whose package is missing raises its ``ModuleNotFoundError``.
 """
 
 from __future__ import annotations
@@ -187,7 +190,8 @@ class Logger:
     """Facade over train/eval MetersGroups + jsonl."""
 
     def __init__(self, log_dir: tp.Union[str, Path], use_console: bool = True,
-                 use_jsonl: bool = True) -> None:
+                 use_jsonl: bool = True, use_tb: bool = False, use_wandb: bool = False,
+                 wandb_config: tp.Optional[tp.Mapping[str, tp.Any]] = None) -> None:
         self._log_dir = Path(log_dir)
         self._log_dir.mkdir(parents=True, exist_ok=True)
         self._train_mg = MetersGroup(self._log_dir / "train.csv",
@@ -196,6 +200,16 @@ class Logger:
                                     _EVAL_FORMAT, use_console)
         self.hiplog: tp.Optional[JsonlLogger] = (
             JsonlLogger(self._log_dir / "hip.log") if use_jsonl else None)
+        self._tb: tp.Any = None
+        if use_tb:
+            from tensorboardX import SummaryWriter
+            self._tb = SummaryWriter(str(self._log_dir / "tb"))
+        self._wandb: tp.Any = None
+        if use_wandb:
+            import wandb
+            if wandb.run is None:
+                wandb.init(dir=str(self._log_dir), config=dict(wandb_config or {}))
+            self._wandb = wandb
 
     def log(self, key: str, value: Value, step: int) -> None:
         assert key.startswith("train") or key.startswith("eval"), key
@@ -203,6 +217,10 @@ class Logger:
         mg.log(key, float(value))
         if self.hiplog is not None:
             self.hiplog(**{key.replace("/", "_"): float(value)})
+        if self._tb is not None:
+            self._tb.add_scalar(key, float(value), step)
+        if self._wandb is not None:
+            self._wandb.log({key: float(value)}, step=step)
 
     def log_metrics(self, metrics: tp.Mapping[str, Value], step: int,
                     ty: str) -> None:
@@ -222,10 +240,14 @@ class Logger:
             self.hiplog.write()
         return row
 
-    def log_video(self, key: str, frames: tp.Sequence[tp.Any], step: int) -> None:
-        """A no-op: videos go to the TensorBoard sink, which is not ported
-        (ROADMAP Queue A item 15); the file ``VideoRecorder`` saved is the
-        record."""
+    def log_video(self, key: str, frames: tp.Sequence[tp.Any], step: int,
+                  fps: int = 20) -> None:
+        """Send an evaluation video ([T, H, W, 3] frames) to wandb when that
+        sink is on; the file ``VideoRecorder`` saved is the record."""
+        if self._wandb is not None:
+            import numpy as np
+            arr = np.asarray(frames).transpose(0, 3, 1, 2)
+            self._wandb.log({key: self._wandb.Video(arr, fps=fps, format="mp4")}, step=step)
 
     class _LogAndDumpCtx:
         def __init__(self, logger: "Logger", step: int, ty: str) -> None:

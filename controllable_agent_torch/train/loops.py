@@ -1,7 +1,10 @@
 """Training loops (mirror of ``controllable_agent_tpu/train/loops.py``).
 
 All of it is ported: the offline trainer, the evaluation rollout, the
-episode collector and the online trainer.
+episode collector and the online trainer. The trainers also run
+data-parallel over a ``torch.distributed`` process group (``group=``; the
+JAX package's ``mesh=``): each process updates on its rows of the batch
+and every process's parameters stay equal (``utils/dist.py``).
 
 The JAX trainer is one compiled program of ``steps_per_call`` updates with
 the replay sampling inside it (``jit`` over ``lax.scan``). Its counterpart
@@ -23,6 +26,7 @@ import torch
 from ..agents.base import MetaDict, StepNoise
 from ..data import replay as replay_lib
 from ..data.replay import ReplayState, SampleConfig
+from ..utils.dist import Shard, require_data_parallel
 from ..utils.graphs import WARMUP_RUNS, CapturedProgram
 
 class OfflineTrainer:
@@ -39,28 +43,57 @@ class OfflineTrainer:
     and it is captured anew only for another generator or another storage
     (``captures`` counts the captures). ``capture=False`` on a CUDA device is
     the eager loop, kept to be measured beside the captured one.
+
+    With a process ``group`` the updates are data-parallel (the JAX
+    ``make_dp_offline_trainer``): every process draws the same global batch
+    of ``batch_size`` rows from a generator seeded alike, keeps its rows,
+    and takes the agent's data-parallel update, whose noise is drawn for the
+    global batch from the same generator. The collectives are captured with
+    the rest of the update (the warm-up runs create the communicator first).
     """
 
     def __init__(self, agent: tp.Any, sample_cfg: SampleConfig, batch_size: int,
                  steps_per_call: int, with_future: bool = True,
-                 capture: tp.Optional[bool] = None) -> None:
+                 capture: tp.Optional[bool] = None, group: tp.Any = None) -> None:
         on_cuda = agent.device.type == "cuda"
         self.capture = on_cuda if capture is None else capture
         if self.capture and not on_cuda:
             raise ValueError("a CUDA graph needs the agent on a CUDA device")
+        if group is not None:
+            require_data_parallel(agent)
         self.agent, self.sample_cfg, self.batch_size = agent, sample_cfg, batch_size
         self.steps_per_call, self.with_future = steps_per_call, with_future
+        self.group, self.shard = group, Shard(group)
         self.captures = 0
         self._sums: tp.Dict[str, torch.Tensor] = {}  # fixed buffers, summed into in place
         self._program: tp.Optional[CapturedProgram] = None
         self._bound_to: tp.Optional[tp.Tuple] = None
 
+    def _sample(self, replay_state: ReplayState, generator: torch.Generator) -> tp.Any:
+        """This process's batch: the whole batch, or its rows of it."""
+        batch = replay_lib.sample(replay_state, generator, self.batch_size,
+                                  self.sample_cfg, with_future=self.with_future)
+        return self.shard.batch(batch)
+
+    def _generators(self, generator: torch.Generator) -> tp.List[torch.Generator]:
+        """Every generator an update draws from."""
+        return [generator]
+
+    def release(self) -> None:
+        """Free the captured program (its graphs and their pool); the next
+        call captures anew. A program that holds a group's collectives must go
+        before the group: destroying an NCCL group waits for it."""
+        self._program, self._bound_to = None, None
+
     def _run_updates(self, replay_state: ReplayState, generator: torch.Generator,
                      count: int) -> None:
         for _ in range(count):
-            batch = replay_lib.sample(replay_state, generator, self.batch_size,
-                                      self.sample_cfg, with_future=self.with_future)
-            for k, v in self.agent.update(batch, generator).items():
+            batch = self._sample(replay_state, generator)
+            if self.group is None:
+                metrics = self.agent.update(batch, generator)
+            else:
+                metrics = self.agent.update(batch, generator, self.group)
+            for k, v in metrics.items():
                 if k in self._sums:
                     self._sums[k] += v.float()
                 else:
@@ -76,7 +109,8 @@ class OfflineTrainer:
                     or self._bound_to[1:] != binding[1:]:
                 self._program = CapturedProgram(
                     lambda: self._run_updates(replay_state, generator, 1),
-                    self.agent.device, self.agent.train_state().values(), [generator])
+                    self.agent.device, self.agent.train_state().values(),
+                    self._generators(generator))
                 self._bound_to = binding
                 self.captures += 1
         if self._sums:
@@ -372,18 +406,27 @@ class OnlineTrainer:
     ``generator``: each is registered with its own graph. ``timings`` holds
     the last cycle's seconds of collection (reset included) and of commit
     and updates.
+
+    With a process ``group`` (the JAX trainer's ``mesh``), each process steps
+    ``num_envs / world`` of the environments (from its own
+    ``collect_generator``), the trajectories are gathered, every process
+    commits all ``num_envs`` episodes in rank order, as one buffer would hold
+    them, and the updates are the data-parallel ``OfflineTrainer``'s.
     """
 
     def __init__(self, env: tp.Any, agent: tp.Any, buffer: tp.Any, num_envs: int = 1,
                  goal_fn: tp.Optional[tp.Callable[[torch.Tensor], torch.Tensor]] = None,
                  updates_per_step: float = 0.5, max_steps_per_call: int = 200,
-                 hold_meta: bool = False) -> None:
+                 hold_meta: bool = False, group: tp.Any = None) -> None:
         self.env, self.agent, self.buffer, self.num_envs = env, agent, buffer, num_envs
         self.goal_fn, self.hold_meta = goal_fn, hold_meta
         self.updates_per_step = updates_per_step
         self.max_steps_per_call = max_steps_per_call
+        self.shard = Shard(group)
+        rows = self.shard.rows(num_envs)
+        self.local_envs = rows.stop - rows.start
         self.trainer = OfflineTrainer(agent, buffer.cfg, agent.cfg.batch_size,
-                                      steps_per_call=max_steps_per_call)
+                                      steps_per_call=max_steps_per_call, group=group)
         self.collector: tp.Optional[EpisodeCollector] = None
         self.global_step = 0
         self.global_episode = 0
@@ -400,14 +443,21 @@ class OnlineTrainer:
         for a directed-rollout mix); the default is ``init_meta`` drawn per
         environment."""
         if self.collector is None or self.collector.generator is not collect_generator:
-            self.collector = EpisodeCollector(self.env, self.agent, self.num_envs,
+            self.collector = EpisodeCollector(self.env, self.agent, self.local_envs,
                                               collect_generator, self.goal_fn,
                                               self.hold_meta)
         started = time.perf_counter()
         if meta is None:
-            meta = init_meta_batched(self.agent, collect_generator, self.num_envs)
-        state, ts = self.env.reset(collect_generator, self.num_envs)
+            meta = init_meta_batched(self.agent, collect_generator, self.local_envs)
+        else:
+            meta = {k: v[self.shard.rows(self.num_envs)] for k, v in meta.items()}
+        state, ts = self.env.reset(collect_generator, self.local_envs)
         traj = self.collector(meta, state, ts, self.global_step)
+        if self.shard.group is not None:
+            # [T+1, E/world, ...] on each process -> [T+1, E, ...] in rank order
+            with torch.no_grad():
+                traj = {k: self.shard.gather(v.transpose(0, 1)).transpose(0, 1)
+                        for k, v in traj.items()}
         episode_reward = traj["reward"][1:].sum(0).mean()
         self._sync()
         collected = time.perf_counter()

@@ -19,20 +19,23 @@ that has the field, as the JAX workspace does: DDPG encodes the frames,
 FB takes them as flat columns, and an agent whose DDPG is built without the
 frames' shape (the intrinsic agents) raises JAX's ``ValueError``.
 
-Parts of the JAX workspace that are not ported raise ``NotImplementedError``
-naming the ROADMAP item that ports them, whenever a config would make them
-fire: TensorBoard/wandb and profiles (item 15), and d4rl (12). Every agent
-of the JAX registry is ported.
+A ``d4rl_*`` task with ``d4rl_dataset=<.npz>`` evaluates on the dataset's
+own episodes (``envs/d4rl_replay.py``) and adds d4rl's ``normalized_score``
+to each evaluation row. ``use_tb`` and ``use_wandb`` add the logger's
+TensorBoard and wandb sinks; ``profile_dir`` traces one training cycle after
+the seed frames with ``torch.profiler`` into a Chrome trace there.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import time
 import typing as tp
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from ..agents import agent_classes
@@ -103,12 +106,6 @@ class WorkspaceConfig:
     device: str = "cuda"  # "cpu" runs the whole slice on the CPU (tests)
 
 
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to controllable_agent_torch yet "
-        f"(ROADMAP Queue A item {item})")
-
-
 def make_env(task: str, episode_length: tp.Optional[int] = None) -> Environment:
     """Name-based environment dispatch: the gridworld, the point-mass maze,
     the quadruped (episodes of 1,000 steps by default), jaco (250), and
@@ -132,7 +129,7 @@ def make_env(task: str, episode_length: tp.Optional[int] = None) -> Environment:
     if domain in ("walker", "cheetah", "hopper"):
         from ..envs import locomotion
         return locomotion.make(task, episode_length=episode_length or 1000)
-    raise _not_ported(f"the environment of task {task!r}", 12)
+    raise ValueError(f"Unknown task {task!r}")
 
 
 def _can_regress(agent: tp.Any) -> bool:
@@ -151,18 +148,26 @@ _FINAL_TASKS = {
 }
 
 
+@contextlib.contextmanager
+def _chrome_trace(path: Path, device: torch.device) -> tp.Iterator[None]:
+    """Profile the block's host and (on a card) device activity into ``path``;
+    the block's device work is waited for before the trace ends."""
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+
+
 class Workspace:
     def __init__(self, cfg: WorkspaceConfig,
                  agent_cfg_overrides: tp.Sequence[str] = (),
                  agent_cfg_base: tp.Optional[tp.Dict[str, tp.Any]] = None) -> None:
-        unported = [
-            (cfg.d4rl_dataset is not None, "d4rl_dataset", 12),
-            (cfg.use_tb or cfg.use_wandb or cfg.profile_dir is not None,
-             "use_tb/use_wandb/profile_dir", 15),
-        ]
-        for fires, what, item in unported:
-            if fires:
-                raise _not_ported(what, item)
         agent_cfg_cls, agent_cls = agent_classes(cfg.agent_name)
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
@@ -178,6 +183,12 @@ class Workspace:
             from ..envs.pixels import make_pixel_env
             self.env: Environment = make_pixel_env(cfg.task, frame_stack=cfg.frame_stack,
                                                    episode_length=cfg.episode_length)
+        elif cfg.task.startswith("d4rl_"):
+            from ..envs.d4rl_replay import D4RLReplayEnv
+            if cfg.d4rl_dataset is None:
+                raise ValueError("d4rl_* tasks need d4rl_dataset=<path.npz>")
+            self.env = D4RLReplayEnv.from_npz(cfg.task[len("d4rl_"):], cfg.d4rl_dataset,
+                                              device=self.device)
         else:
             self.env = make_env(cfg.task, cfg.episode_length)
 
@@ -230,15 +241,21 @@ class Workspace:
                                spec.n_actions if discrete else spec.action_dim,
                                goal_dim=goal_dim, device=self.device, seed=cfg.seed, **shape)
         # sized by the first episode loaded: stored episodes may be longer or
-        # shorter than the evaluation's episode_length
+        # shorter than the evaluation's episode_length; a d4rl dataset's
+        # episodes differ in length, and the environment's is the longest
         self.buffer = ReplayBuffer(
             max_episodes=cfg.replay_buffer_episodes, discount=cfg.discount,
-            future=cfg.future, device=self.device)
+            future=cfg.future, device=self.device,
+            max_episode_length=(spec.episode_length if cfg.task.startswith("d4rl_")
+                                else None))
         # the DDPG family's n-step returns reach the sampler
         nstep = int(getattr(self.agent.cfg, "nstep", 1) or 1)
         if nstep > 1:
             self.buffer.cfg = dataclasses.replace(self.buffer.cfg, nstep=nstep)
-        self.logger = Logger(self.work_dir, use_console=cfg.use_console)
+        self.logger = Logger(self.work_dir, use_console=cfg.use_console,
+                             use_tb=cfg.use_tb, use_wandb=cfg.use_wandb,
+                             wandb_config=dataclasses.asdict(cfg))
+        self._profiled = False
         self.timer = Stopwatch()
         self.global_step = 0
         self.global_episode = 0
@@ -393,6 +410,11 @@ class Workspace:
         }
         if totals.numel() > 1:
             metrics["episode_reward#std"] = float(totals.std(unbiased=False))
+        base_env = self._base_env()
+        if hasattr(base_env, "get_normalized_score"):
+            # one normalized score per evaluation episode, logged as the mean
+            metrics["normalized_score"] = float(np.mean(
+                [base_env.get_normalized_score(t) for t in totals.tolist()]))
         if z is not None:
             metrics["z_norm"] = float(torch.linalg.vector_norm(z))
         metrics.update(self._eval_diagnostics(meta, phys, obs))
@@ -498,6 +520,17 @@ class Workspace:
             "global_episode": self.global_episode,
         }, exclude=exclude)
 
+    def _profile_ctx(self) -> tp.ContextManager[tp.Any]:
+        """A one-shot ``torch.profiler`` capture of the first training cycle
+        after the seed frames, written as a Chrome trace
+        (``<profile_dir>/trace_<step>.json``, the step the cycle starts at)."""
+        if (self.cfg.profile_dir and not self._profiled
+                and self.global_step >= self.cfg.num_seed_frames):
+            self._profiled = True
+            return _chrome_trace(Path(self.cfg.profile_dir) / f"trace_{self.global_step}.json",
+                                 self.device)
+        return contextlib.nullcontext()
+
     def load_checkpoint(self, path: Path,
                         only: tp.Optional[tp.Sequence[str]] = None,
                         exclude: tp.Sequence[str] = ()) -> None:
@@ -566,22 +599,29 @@ class Workspace:
 class OfflineWorkspace(Workspace):
     """Pure gradient-step training over a loaded buffer."""
 
+    def _make_offline_trainer(self) -> tp.Callable[[], tp.Dict[str, Tensor]]:
+        """``trainer()`` runs ``steps_per_call`` updates and returns their mean
+        metrics; the multi-host workspace puts its data-parallel trainer here
+        (``train_multihost.py``)."""
+        trainer = make_offline_trainer(self.agent, self.buffer.cfg, self.agent.cfg.batch_size,
+                                       steps_per_call=self.cfg.steps_per_call)
+        return lambda: trainer(self.buffer.state, self.generator)
+
     def train(self) -> tp.Dict[str, float]:
         """Runs updates up to ``num_grad_steps``, with train rows, snapshots,
         periodic evaluations and checkpoints, saves a final checkpoint and
         runs the final test battery; returns the last train row."""
         cfg = self.cfg
         assert len(self.buffer) > 0, "offline training requires a loaded buffer"
-        trainer = make_offline_trainer(self.agent, self.buffer.cfg,
-                                       self.agent.cfg.batch_size,
-                                       steps_per_call=cfg.steps_per_call)
+        trainer = self._make_offline_trainer()
         log_every = max(cfg.log_every_steps, cfg.steps_per_call)
         steps_since_log = 0
         metrics: tp.Dict[str, Tensor] = {}
         self.timer.lap()
         while self.global_step < cfg.num_grad_steps:
             prev_step = self.global_step
-            metrics = trainer(self.buffer.state, self.generator)
+            with self._profile_ctx():
+                metrics = trainer()
             self.global_step += cfg.steps_per_call
             steps_since_log += cfg.steps_per_call
             self._maybe_snapshot(prev_step)
@@ -621,7 +661,8 @@ class OnlineWorkspace(Workspace):
         while frames_remaining(self.global_step, cfg.num_train_frames) > 0:
             warmup = self.global_step < cfg.num_seed_frames
             trainer.updates_per_step = 0.0 if warmup else updates_per_step
-            metrics = trainer.run_cycle(self.generator, self.collect_generator)
+            with self._profile_ctx():
+                metrics = trainer.run_cycle(self.generator, self.collect_generator)
             self.cycle_timings.append(dict(trainer.timings))
             prev_step, self.global_step = self.global_step, trainer.global_step
             self.global_episode = trainer.global_episode

@@ -1,0 +1,144 @@
+"""CLI: offline training over several processes (mirror of
+``controllable_agent_tpu/train_multihost.py``).
+
+  * ``torch.distributed`` joins the processes (``parallel/multihost.py``:
+    NCCL between cards, gloo with ``device=cpu``);
+  * each process loads a disjoint replay shard (the ExORL episode files
+    round-robined by rank), so no replay crosses processes;
+  * the update is data-parallel: each process samples its rows of every
+    batch from its shard, the FB loss couples the gathered rows and the
+    gradients are summed, so every process holds the same parameters
+    (FBDDPG only; another agent raises ``NotImplementedError``);
+  * evaluation, the final battery and checkpoints run on process 0 only;
+    every other process logs quietly into ``<folder>/host_<rank>``.
+
+Run the same command in every process, with its ``process_id``:
+
+    python -m controllable_agent_torch.train_multihost agent=fb_ddpg \\
+        task=walker_walk replay_dir=/data/rnd_walker \\
+        coordinator=10.0.0.2:1234 num_processes=4 process_id=$RANK
+
+``coordinator`` is the rendezvous of ``init_process_group``
+(``tcp://<coordinator>``; a value with a scheme, such as
+``file:///shared/rendezvous``, is used as it is). ``relabel`` and
+``physics_format`` are ``train_offline``'s. Without ``num_processes`` (or
+with 1) and without a coordinator it is a single-process run.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import sys
+import typing as tp
+from pathlib import Path
+
+from .data.exorl import load_exorl_episodes
+from .goals import get_reward_function
+from .parallel import multihost
+from .pretrain import build_config, wants_help
+from .train.workspace import OfflineWorkspace, make_env
+
+
+class MultiHostOfflineWorkspace(OfflineWorkspace):
+    """The offline workspace with the data-parallel trainer, and evaluation,
+    the battery and checkpoints on process 0 alone."""
+
+    def _make_offline_trainer(self) -> tp.Callable[[], tp.Any]:
+        self.mh_trainer = multihost.MultiHostTrainer(
+            self.agent, self.buffer, self.agent.cfg.batch_size,
+            steps_per_call=self.cfg.steps_per_call, seed=self.cfg.seed)
+        return self.mh_trainer.step
+
+    def evaluate(self) -> tp.Dict[str, float]:
+        if multihost.process_index() != 0:
+            return {}
+        return super().evaluate()
+
+    def finalize(self) -> tp.Dict[str, tp.List[float]]:
+        if multihost.process_index() != 0:
+            return {}
+        return super().finalize()
+
+    def save_checkpoint(self, path: tp.Optional[Path] = None,
+                        exclude: tp.Sequence[str] = ()) -> None:
+        if multihost.process_index() != 0:
+            return
+        super().save_checkpoint(path, exclude)
+
+
+def main(argv: tp.Optional[tp.Sequence[str]] = None) -> tp.Optional[MultiHostOfflineWorkspace]:
+    """Runs the CLI; returns the trained workspace, None after ``--help``."""
+    argv = list(argv if argv is not None else sys.argv[1:])
+    if wants_help(argv, __doc__):
+        return None
+    coordinator: tp.Optional[str] = None
+    num_processes: tp.Optional[int] = None
+    process_id: tp.Optional[int] = None
+    replay_dir: tp.Optional[str] = None
+    relabel = True
+    physics_format = "native"
+    rest: tp.List[str] = []
+    for arg in argv:
+        key, _, val = arg.partition("=")
+        if key == "coordinator":
+            coordinator = val
+        elif key == "num_processes":
+            num_processes = int(val)
+        elif key == "process_id":
+            process_id = int(val)
+        elif key == "replay_dir":
+            replay_dir = val
+        elif key == "relabel":
+            relabel = val.lower() == "true"
+        elif key == "physics_format":
+            physics_format = val
+        else:
+            rest.append(arg)
+    cfg, agent_overrides, agent_cfg_base = build_config(rest)
+    joined = multihost.initialize(coordinator, num_processes, process_id, device=cfg.device)
+    try:
+        return _run(cfg, agent_overrides, agent_cfg_base, replay_dir, relabel, physics_format)
+    finally:
+        if joined:
+            multihost.shutdown()
+
+
+def _run(cfg: tp.Any, agent_overrides: tp.List[str], agent_cfg_base: tp.Any,
+         replay_dir: tp.Optional[str], relabel: bool,
+         physics_format: str) -> MultiHostOfflineWorkspace:
+    rank, world = multihost.process_index(), multihost.process_count()
+    if rank != 0:
+        # the other processes log quietly into a folder of their own, so that
+        # train.csv and config.json of process 0 are never overwritten
+        cfg = dataclasses.replace(cfg, use_console=False,
+                                  folder=str(Path(cfg.folder) / f"host_{rank}"))
+    ws = MultiHostOfflineWorkspace(cfg, agent_cfg_overrides=agent_overrides,
+                                   agent_cfg_base=agent_cfg_base)
+    if replay_dir is not None:
+        episodes = load_exorl_episodes(Path(replay_dir), shard=rank, num_shards=world,
+                                       physics_format=physics_format)
+        if physics_format != "native":
+            env = make_env(cfg.task, cfg.episode_length)
+            episodes = ({**ep, "observation": env.obs_from_physics(ep["physics"]).numpy()}
+                        for ep in episodes)
+        first = next(episodes, None)
+        if first is None:
+            raise ValueError(f"no .npz episodes of shard {rank} in {replay_dir}")
+        ws.check_data(first)
+        episodes = itertools.chain([first], episodes)
+        if relabel:
+            reward_fn = get_reward_function(cfg.task, cfg.seed)
+            episodes = ({**ep, "reward": reward_fn.from_physics(ep["physics"])
+                         .reshape(-1, 1).numpy()} for ep in episodes)
+        if ws.goal_fn is not None:
+            goal_fn = ws.goal_fn
+            episodes = ({**ep, "goal": goal_fn(ep["physics"]).numpy()} for ep in episodes)
+        ws.buffer.load_episodes(episodes)
+    ws.train()
+    ws.mh_trainer.release()  # its graphs hold the group's collectives
+    return ws
+
+
+if __name__ == "__main__":
+    main()

@@ -27,6 +27,15 @@ test battery (``final_tests`` episodes for each task of the domain, z from
 rewards relabeled on the replay's physics) into ``test_rewards.json`` and
 prints the task z chosen as evaluation chooses it (a registered goal, else
 z = rᵀB/N over the replay, spherical mean of ``z_inference_draws`` draws).
+A ``d4rl_<domain>`` task (``halfcheetah``, ``hopper``, ``walker2d``, ...)
+with ``d4rl_dataset=<.npz of a d4rl dataset dict>`` and neither of the two
+loads that dataset's episodes with their stored rewards, and evaluates on
+them (``envs/d4rl_replay.py``) with d4rl's ``normalized_score`` in each
+``eval.csv`` row:
+
+    python -m controllable_agent_torch.train_offline agent=fb_ddpg \\
+        task=d4rl_halfcheetah d4rl_dataset=halfcheetah-medium-v2.npz
+
 ``load_model=`` warm-starts from a checkpoint of the port or of the JAX
 package (a folder with ``agent.msgpack``). ``device=cpu`` runs on the CPU;
 the default is the card. ``save_eval_video`` (on by default) writes the
@@ -38,11 +47,13 @@ from __future__ import annotations
 
 import itertools
 import sys
+import time
 import typing as tp
 from pathlib import Path
 
 import numpy as np
 
+from .data.d4rl import load_d4rl_dataset
 from .data.exorl import load_exorl_episodes
 from .goals import get_reward_function
 from .pretrain import build_config, wants_help
@@ -102,12 +113,24 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> tp.Optional[OfflineWorks
         if "replay" not in restored or restored["replay"].n_episodes == 0:
             raise ValueError(f"no episodes in {load_replay}")
         first = restored["replay"].storage
-    else:
+    elif not (cfg.task.startswith("d4rl_") and cfg.d4rl_dataset is not None):
         raise ValueError("train_offline needs replay_dir=<directory of .npz "
-                         "episodes> or load_replay=<checkpoint>")
+                         "episodes>, load_replay=<checkpoint> or, for a d4rl_* task, "
+                         "d4rl_dataset=<.npz>")
 
     ws = OfflineWorkspace(cfg, agent_cfg_overrides=agent_overrides,
                           agent_cfg_base=agent_cfg_base)
+    if episodes is None and load_replay is None:
+        # the d4rl dataset into the replay; its rewards are the stored ones
+        # and its physics a zero column, so nothing is relabeled
+        started = time.perf_counter()
+        with np.load(cfg.d4rl_dataset) as data:
+            dataset = {k: data[k] for k in data.files}
+        count = load_d4rl_dataset(ws.buffer, dataset)
+        print(f"loaded {count} d4rl episodes from {cfg.d4rl_dataset} in "
+              f"{time.perf_counter() - started:.2f} s", flush=True)
+        ws.train()
+        return _print_z(ws)
     ws.check_data(first)
     reward_fn = get_reward_function(cfg.task, cfg.seed) if relabel else None
     if load_replay is not None:
@@ -129,9 +152,14 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> tp.Optional[OfflineWorks
                         for ep in episodes)
         ws.buffer.load_episodes(episodes)
     ws.train()
+    return _print_z(ws)
+
+
+def _print_z(ws: OfflineWorkspace) -> OfflineWorkspace:
+    """Print the task z that evaluation chooses, for an agent with a task
+    vector (a battery of goals has no one z)."""
     meta_key = getattr(ws.agent, "meta_key", None)
-    # a battery of goals has no one z, and an agent without a task vector none
-    if cfg.custom_reward != "maze_multi_goal" and meta_key is not None:
+    if ws.cfg.custom_reward != "maze_multi_goal" and meta_key is not None:
         ws.inferred_z = ws._init_eval_meta()[meta_key]
         print("inferred z: " + " ".join(f"{v:.4f}" for v in ws.inferred_z.tolist()),
               flush=True)

@@ -935,3 +935,42 @@ def test_captured_item13_updates_equal_eager(cuda_device, name) -> None:
     assert torch.equal(gens[0].get_state(), gens[1].get_state())
     if agent == "proto":
         assert int(agents[0].queue_ptr) == 4 * cfg.num_protos % cfg.queue_size
+
+
+@pytest.fixture
+def nccl_group(cuda_device, tmp_path):
+    """A one-process NCCL group on the card."""
+    import torch.distributed as dist
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rendezvous",
+                            world_size=1, rank=0)
+    try:
+        yield dist.group.WORLD
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["default", "rand_weight_future", "q_loss"])
+def test_captured_dp_update_at_one_process_equals_plain(nccl_group, case) -> None:
+    """The data-parallel update through a one-process NCCL group, captured
+    with its collectives in one CUDA graph, equals the plain captured update
+    from the same state, batches and noise to the bit (fused loss, bf16)."""
+    from controllable_agent_torch.parallel import make_dp_offline_trainer
+    overrides = {"default": {}, "rand_weight_future": dict(rand_weight=True, future_ratio=0.5),
+                 "q_loss": dict(q_loss=True, use_pallas_loss=False)}[case]
+    cfg = FBDDPGConfig(**{"use_pallas_loss": True, "compute_dtype": "bfloat16",
+                          "hidden_dim": 256, "batch_size": 256, **overrides})
+    buf = ReplayBuffer(8, discount=0.98, future=0.99, device="cuda")
+    buf.load_episodes(synthetic_episodes(8, 200, 24, 6, seed=0))
+    agents = [FBDDPGAgent(cfg, 24, 6, device="cuda", seed=0) for _ in range(2)]
+    gens = [torch.Generator(device="cuda").manual_seed(1) for _ in range(2)]
+    plain = make_offline_trainer(agents[0], buf.cfg, cfg.batch_size, 5)
+    dp = make_dp_offline_trainer(agents[1], buf.cfg, cfg.batch_size, 5, nccl_group)
+    want = plain(buf.state, gens[0])
+    got = dp(buf.state, gens[1])
+    assert dp.captures == 1
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    for name, value in agents[0].train_state().items():
+        assert torch.equal(agents[1].train_state()[name], value), name
+    del plain, dp

@@ -259,20 +259,39 @@ def test_train_offline_cli(replay_dir, tmp_path, capsys, fused) -> None:
     assert (tmp_path / "run" / "config.json").exists()
 
 
-@pytest.mark.parametrize("args,item", [
-    # videos are written; their sinks beyond the file (wandb, TensorBoard) are not ported
-    (["eval_every_steps=2", "save_eval_video=true", "use_wandb=true"], "item 15"),
-    (["use_tb=true"], "item 15"),
-    # every agent is ported: this case holds an option that is not
-    (["profile_dir=profiles"], "item 15"),
-    (["d4rl_dataset=hopper-medium-v2"], "item 12"),
+@pytest.mark.parametrize("args", [
+    ["eval_every_steps=2", "save_eval_video=true", "use_wandb=true"],
+    ["use_tb=true"],
+    ["profile_dir=PROFILES", "num_seed_frames=0"],
+    ["task=d4rl_hopper"],
 ], ids=["eval_video", "tensorboard", "other_agent", "other_environment"])
-def test_unported_options_raise(replay_dir, tmp_path, args, item) -> None:
+def test_unported_options_raise(replay_dir, tmp_path, args) -> None:
+    """The options the port once refused, each as the JAX package takes it:
+    ``use_wandb`` without the wandb package raises its ModuleNotFoundError
+    before any training; ``use_tb`` writes TensorBoard events beside the
+    CSV; ``profile_dir`` writes one Chrome trace of the first cycle after
+    the seed frames; a ``d4rl_*`` task without ``d4rl_dataset`` raises the
+    JAX workspace's ValueError."""
+    args = [a.replace("PROFILES", str(tmp_path / "profiles")) for a in args]
     base = [f"replay_dir={replay_dir}", *SMALL, *SLICE, "num_grad_steps=2",
             "steps_per_call=2", f"folder={tmp_path}/run"]
-    with pytest.raises(NotImplementedError, match=item):
-        train_offline.main(base + args)
-    assert not (tmp_path / "run" / "train.csv").exists()  # refused before any training
+    run = tmp_path / "run"
+    if "use_wandb=true" in args:
+        with pytest.raises(ModuleNotFoundError, match="wandb"):
+            train_offline.main(base + args)
+        assert not (run / "train.csv").exists()  # refused before any training
+    elif "task=d4rl_hopper" in args:
+        with pytest.raises(ValueError, match="d4rl_dataset"):
+            train_offline.main(base + args)
+        assert not (run / "train.csv").exists()
+    elif "use_tb=true" in args:
+        ws = train_offline.main(base + args)
+        assert ws.global_step == 2 and (run / "train.csv").exists()
+        assert len(list((run / "tb").glob("events.out.tfevents.*"))) == 1
+    else:
+        ws = train_offline.main(base + args)
+        assert ws.global_step == 2
+        assert [p.name for p in (tmp_path / "profiles").iterdir()] == ["trace_0.json"]
 
 
 def test_data_of_another_environment_is_refused(replay_dir, tmp_path) -> None:

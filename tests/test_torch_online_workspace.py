@@ -123,9 +123,10 @@ def test_the_registry_names_what_is_ported() -> None:
               "goal_sm", "goal_td3", "icm", "icm_apt", "max_ent", "new_aps", "proto", "rnd",
               "sf", "sf_svd", "smm", "uvf"]
     assert sorted(AGENTS) == ported
-    # every agent is ported; an option that is not still raises with its item
-    with pytest.raises(NotImplementedError, match="item 12"):
-        pretrain.build_workspace(["d4rl_dataset=hopper-medium-v2", "device=cpu"])
+    # every agent and option is ported: a d4rl task without its dataset
+    # raises the JAX workspace's ValueError
+    with pytest.raises(ValueError, match="d4rl_dataset"):
+        pretrain.build_workspace(["task=d4rl_hopper", "device=cpu"])
     with pytest.raises(ValueError, match=re.escape(f"known: {ported}")):
         pretrain.build_workspace(["agent=nope", "device=cpu"])
 
