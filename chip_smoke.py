@@ -5,10 +5,10 @@
     python3 chip_smoke.py --phases 4,11,21
 
 Drives ``controllable_agent_torch`` (and nothing of the JAX package) in
-thirty phases, each printed on its own lines with its seconds; any
+thirty-one phases, each printed on its own lines with its seconds; any
 failure exits non-zero. A selection always builds the kernels (phase 1),
 and builds the least of what its phases read from earlier ones: phase 4's
-workspace for phases 5-11 (by running phase 4), its episodes on disk for
+workspace for phases 5-11 and its folder for phase 31 (by running phase 4), its episodes on disk for
 phases 15 and 30, phase 2's errors for phase 5, FB's captured updates/s (phase 4's,
 else a short run at its geometry) for phases 14, 18 and 24-26, a fresh
 full-width FB agent for phase 13, phase 15's workspaces for phase 16 (by
@@ -166,8 +166,8 @@ running phase 15), one collected quadruped cycle for phase 22. The phases:
  24. this slice's main path: ``pretrain agent=ddpg obs_type=pixels
      task=walker_walk`` at the JAX DDPG defaults (hidden 1024, batch 1024,
      n-step 3, float32, 84 x 84 x 9 uint8 frames, pad 4), cut to 1
-     environment, episodes of 500 steps and a replay of 64 episodes: a seed
-     cycle and a cycle of 250 updates, one capture of the update, a uint8 replay; a resumed
+     environment, episodes of 250 steps and a replay of 64 episodes: a seed
+     cycle and a cycle of 125 updates, one capture of the update, a uint8 replay; a resumed
      workspace; the launches and device time of an update; ``evaluate()``
      (10 episodes, its video) and ``finalize()`` (``{}``); 20 full-width
      pixel updates captured against eager on a twin, to the bit; the
@@ -187,7 +187,7 @@ running phase 15), one collected quadruped cycle for phase 22. The phases:
      on a twin, to the bit, with updates/s both ways, launches and device
      ms per update and the peak memory;
  27. ``pretrain agent={aps,new_aps,smm,proto} task=walker_walk`` at full
-     width, 2 environments, a seed cycle and a training cycle each: APS's
+     width, 1 environment, a seed cycle and a training cycle each: APS's
      task changes in the replay only at multiples of 5 steps, SMM's one-hot
      z only at multiples of 50, NEWAPS's ``test_rewards.json`` has the four
      walker rows, and Proto, resumed from its folder, keeps its queue;
@@ -222,7 +222,22 @@ running phase 15), one collected quadruped cycle for phase 22. The phases:
      episodes (300 updates, one evaluation and a checkpoint from process 0,
      one capture); one ``OnlineTrainer`` cycle with the group on the walker
      (4 x 1,000 steps collected, 1,000 data-parallel updates). A failed
-     NCCL start or capture fails the phase; there is no gloo on the card.
+     NCCL start or capture fails the phase; there is no gloo on the card;
+ 31. serving on the card from phase 4's folder: the demo's engine
+     (``demo.serve._build_engine``, 5,120 inference rows) behind the real
+     ``HTTPServer`` on 127.0.0.1 in a thread, answering three equations
+     with 500-step rollouts and videos (each rollout equal to an eager one
+     of the same z from the same reset, to the bit; z of norm sqrt(z_dim);
+     the z inference, rollout, video and request times and the first
+     request's capture), refusing an injection in red and serving
+     ``/video?name=rollout.gif``; ``play_behaviors.main play_task=walker_run
+     num_episodes=3`` (3 finite returns, 3 videos); ``export_replay.main`` of
+     ``models/latest``, read back equal to the replay to the bit;
+     ``orchestration.EntryPoint("offline")`` on a copy of the folder (300
+     captured updates with the plain loss, one evaluation, whose return it
+     returns negated); ``train.hiplogs`` over phase 4's and the EntryPoint's
+     runs. No fused FB kernel runs on this phase: their launches must be 0
+     by both counts.
 
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -236,11 +251,17 @@ import dataclasses
 import gc
 import json
 import math
+import re
+import shutil
 import socket
 import sys
 import tempfile
+import threading
 import time
 import typing as tp
+import urllib.error
+import urllib.parse
+import urllib.request
 from pathlib import Path
 
 import numpy as np
@@ -248,8 +269,8 @@ import torch
 
 import torch.distributed as dist
 
-from controllable_agent_torch import (_build, anytrain, pretrain, train_multihost, train_offline,
-                                      train_online)
+from controllable_agent_torch import (_build, anytrain, export_replay, play_behaviors, pretrain,
+                                      train_multihost, train_offline, train_online)
 from controllable_agent_torch.agents import (FEATURE_LEARNERS, DDPGAgent, DDPGConfig, DDPGNoise,
                                              DiscreteFBAgent, DiscreteFBConfig, DiscreteSFAgent,
                                              DiscreteSFConfig, FBDDPGAgent, FBDDPGConfig, RNDAgent,
@@ -259,7 +280,9 @@ from controllable_agent_torch.agents.sf import normalized_solution
 from controllable_agent_torch.data import ReplayBuffer
 from controllable_agent_torch.data import replay as replay_lib
 from controllable_agent_torch.data.d4rl import normalized_score
-from controllable_agent_torch.data.exorl import save_exorl_episodes, synthetic_episodes
+from controllable_agent_torch.data.exorl import (load_exorl_episodes, save_exorl_episodes,
+                                                 synthetic_episodes)
+from controllable_agent_torch.demo import serve
 from controllable_agent_torch.envs import build_gridworld_task, gridworld, locomotion
 from controllable_agent_torch.envs.pixels import make_pixel_env
 from controllable_agent_torch.goals import get_reward_function
@@ -268,10 +291,13 @@ from controllable_agent_torch.models.networks import PixelEncoder, conv_repr_dim
 from controllable_agent_torch.ops.augment import draw_shifts, random_shift_aug
 from controllable_agent_torch.ops.linalg import lstsq, pinv
 from controllable_agent_torch.ops import fused_fb as ff
+from controllable_agent_torch.orchestration import EntryPoint
 from controllable_agent_torch.parallel import make_dp_offline_trainer, make_group, multihost
 from controllable_agent_torch.pretrain import build_workspace
 from controllable_agent_torch.train.workspace import OfflineWorkspace, make_env
 from controllable_agent_torch.tools import dynamics_check, env_step
+from controllable_agent_torch.train import checkpoint as ckpt_lib
+from controllable_agent_torch.train import hiplogs
 from controllable_agent_torch.train.loops import (WARMUP_RUNS, CapturedProgram,
                                                   EpisodeCollector, OnlineTrainer, Rollout,
                                                   init_meta_batched, make_offline_trainer)
@@ -344,7 +370,7 @@ AUG_PAD, ENCODER_BATCH = 4, 64  # phase 23: DrQ's pad (the JAX default); encoder
 # the encoder's features, card against CPU: float32 sums of 81 x 32 products in another order
 ENCODER_RTOL, ENCODER_ATOL = 1e-4, 1e-5
 # phase 24's cuts (the recipe: 4 environments, 5,000 episodes of 1,000 steps)
-PIXEL_RUN_ENVS, PIXEL_REPLAY_EPISODES, PIXEL_EPISODE_LENGTH = 1, 64, 500
+PIXEL_RUN_ENVS, PIXEL_REPLAY_EPISODES, PIXEL_EPISODE_LENGTH = 1, 64, 250
 PIXEL_CYCLE_STEPS = PIXEL_RUN_ENVS * PIXEL_EPISODE_LENGTH
 PIXEL_COMPARED_UPDATES, PIXEL_FIRST = 20, 5  # phase 24: captured vs eager, timed after 5
 EXPLORERS = ("diayn", "icm", "icm_apt", "disagreement", "max_ent")  # phase 25
@@ -355,7 +381,7 @@ ITEM13_AGENTS = ("aps", "new_aps", "new_aps future_ratio=0.5", "smm", "proto", "
                  "goal_td3", "goal_sm")
 ITEM13_UPDATES = 100  # phase 26: updates per agent, captured and eager
 ITEM13_EXPLORERS = ("aps", "new_aps", "smm", "proto")  # phase 27, on walker_walk
-ITEM13_ENVS = 2  # phase 27's environments (cut from 4)
+ITEM13_ENVS = 1  # phase 27's environments (cut from 4, then 2)
 MAZE_AGENTS = ("uvf", "goal_td3", "goal_sm")  # phase 28, on the point-mass maze
 MAZE_GOAL_SPACE = "simplified_point_mass_maze"
 MAZE_OFFLINE_UPDATES = 400  # phase 28: train_offline agent=goal_td3
@@ -367,7 +393,14 @@ DP_UPDATES, DP_TIMED = 100, 200  # updates held to the plain ones to the bit; ti
 DP_GATHERS = 9  # all-gathers per DP update: goals, then F1, F2, B, TF1, TF2, TB, z, discount
 MH_STEPS = 300  # train_multihost's updates
 DP_ONLINE_UPDATES = 1000  # the online cycle with a group: 4 x 1,000 steps, 1,000 updates
-LAST_PHASE = 30
+# phase 31: serving on the card from phase 4's folder
+SERVE_ROWS, SERVE_STEPS = 5120, 500  # the demo's inference rows and rollout steps
+SERVE_COMPARED = 100  # steps of each served rollout held to an eager one (a cut from 500)
+SERVE_EQUATIONS = ("vx", "exp(-(x-8)**2) * up", "-vx")
+SERVE_INJECTION = "__import__('os')"
+PLAY_EPISODES, PLAY_LENGTH = 3, 250  # play_behaviors' episodes, cut from 1,000 steps
+ENTRY_UPDATES = 300  # EntryPoint("offline") on phase 4's checkpoint and replay
+LAST_PHASE = 31
 F32_EPS = float(torch.finfo(torch.float32).eps)
 HBM_BYTES_PER_S = 3.35e12
 FWD_RTOL = 2e-4  # as tests/test_pallas_fb.py: order of f32 sums over n^2
@@ -525,6 +558,42 @@ def write_slice_episodes(tmp: str) -> int:
     return save_exorl_episodes(store.state, f"{tmp}/episodes")
 
 
+def check_stored_rewards(storage: tp.Dict[str, torch.Tensor], episodes_dir: str) -> None:
+    """Phase 4's replay holds walker_walk's rewards. ``train_offline`` loaded
+    the episode files and relabeled the stored physics on the card
+    (``ReplayBuffer.relabel``, ``ROWS_PER_PASS`` rows at a time), so: the
+    stored physics equal the files' to the bit; the stored rewards equal the
+    same function over the same rows in the same passes on the card to the
+    bit; and they are within 1e-5 of float64 on the CPU (float32 rounding,
+    2.5e-7 measured). The CPU's float32 values, one episode at a time (the
+    JAX package's way), are printed beside them."""
+    reward = get_reward_function("walker_walk")
+    files = torch.stack([torch.from_numpy(ep["physics"])
+                         for ep in load_exorl_episodes(Path(episodes_dir))])
+    physics = storage["physics"]
+    rows = physics.reshape(-1, physics.shape[-1])
+    again = torch.cat([reward.from_physics(part)
+                       for part in rows.split(replay_lib.ROWS_PER_PASS)])
+    stored = storage["reward"][..., 0]
+    exact = reward.from_physics(files.double())
+    cpu = torch.stack([reward.from_physics(episode.numpy()) for episode in files])
+    off = (stored.cpu().double() - exact).abs()
+    cpu_outliers = int((cpu - stored.cpu()).abs().gt(1e-6).sum())
+    worst = divmod(int(off.argmax()), stored.shape[1])
+    same_physics = torch.equal(physics.cpu(), files)
+    same_passes = torch.equal(stored, again.reshape(stored.shape))
+    print(f"phase 4 rewards: the stored physics equal to the episode files' {same_physics}; "
+          f"the stored rewards equal to walker_walk's over the same rows in the relabel's "
+          f"passes on the card {same_passes}; against float64 on the CPU max |diff| "
+          f"{float(off.max()):.3e} at episode {worst[0]} step {worst[1]} (tolerance 1e-5); the "
+          f"CPU's float32 one episode at a time against float64 "
+          f"{float((cpu.double() - exact).abs().max()):.3e} ({cpu_outliers} rows beyond 1e-6 "
+          f"of the card's; CPU {torch.backends.cpu.get_cpu_capability()}, "
+          f"{torch.get_num_threads()} threads)")
+    if not (same_physics and same_passes and float(off.max()) <= 1e-5):
+        raise AssertionError("the buffer does not hold walker_walk's rewards")
+
+
 def run_slice(tmp: str) -> tp.Tuple[tp.Dict[str, int], tp.Any]:
     written = write_slice_episodes(tmp)
     torch.cuda.reset_peak_memory_stats()
@@ -549,10 +618,7 @@ def run_slice(tmp: str) -> tp.Tuple[tp.Dict[str, int], tp.Any]:
         raise AssertionError(f"expected {expected} launches of every kernel, as many runs "
                              f"on the device and {SLICE_STEPS} steps, got {counts}, {ran}, "
                              f"step {ws.agent.step}")
-    stored = ws.buffer.state.storage
-    want = get_reward_function("walker_walk").from_physics(stored["physics"])
-    if not torch.allclose(stored["reward"][..., 0], want, atol=1e-5):
-        raise AssertionError("the buffer does not hold walker_walk's rewards")
+    check_stored_rewards(ws.buffer.state.storage, f"{tmp}/episodes")
     if not all(math.isfinite(v) for v in row.values()):
         raise AssertionError(f"non-finite train metrics: {row}")
     if z is None or z.shape != (ws.agent.cfg.z_dim,) or not bool(torch.isfinite(z).all()):
@@ -1762,8 +1828,8 @@ def check_3d_engine() -> None:
         state, ts = env.reset(gen, EVAL_EPISODES)
         captured = Rollout(env, agent, EVAL_EPISODES)
         eager = Rollout(env, agent, EVAL_EPISODES, capture=False)
+        # the capture's eager warm-up steps have warmed the eager path
         got = [x.clone() for x in captured(z, state, ts)]
-        eager(z, state, ts)  # warm-up
         want, eager_s = _timed(lambda: eager(z, state, ts))
         _, captured_s = _timed(lambda: captured(z, state, ts))
         bitwise = all(torch.equal(a, b) for a, b in zip(got, want))
@@ -2704,6 +2770,150 @@ def check_data_parallel(tmp: str, episodes_dir: str) -> tp.Dict[str, tp.Dict[str
     return by_path
 
 
+def _get(url: str) -> tp.Tuple[int, str, bytes, float]:
+    """(status, content type, body, ms) of a GET answered in full."""
+    started = time.perf_counter()
+    with urllib.request.urlopen(url, timeout=300) as response:
+        body = response.read()
+        return (response.status, response.headers.get("Content-Type"), body,
+                1e3 * (time.perf_counter() - started))
+
+
+def serve_requests(tmp: str) -> None:
+    """The demo over a real socket: the engine built from phase 4's folder,
+    SERVE_EQUATIONS answered with rollouts and videos, an injection refused,
+    the video served; each rollout held to an eager one to the bit."""
+    started = time.perf_counter()
+    engine = serve._build_engine(f"{tmp}/run", "cuda", SERVE_ROWS)
+    print(f"phase 31 demo: the engine restored phase 4's folder in "
+          f"{time.perf_counter() - started:.2f} s; feature names {engine.feature_names}")
+    httpd = serve.make_server(engine, 0, "127.0.0.1", f"{tmp}/demo_videos")
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    card = card_name_and_power_limit()
+    try:
+        for equation in SERVE_EQUATIONS:
+            status, _, body, request_ms = _get(f"{base}/run?equation="
+                                               + urllib.parse.quote(equation))
+            page = body.decode()
+            found = re.search(r"reward: (\S+) over (\d+) steps", page)
+            if status != 200 or found is None or "/video?name=rollout.gif" not in page:
+                raise AssertionError(f"bad answer to {equation!r}: {status} {page[-400:]}")
+            steps = int(found.group(2))
+            timings, rollout = dict(engine.timings), engine._rollouts[SERVE_STEPS]
+            reward = float(rollout.rewards[0, :steps].double().sum())
+            # the served rollout's first steps against an eager rollout of the same z
+            # from the same reset
+            z = engine.infer_z(equation)
+            eager = Rollout(engine.ws.env, engine.ws.agent, 1, capture=False,
+                            horizon=SERVE_COMPARED)
+            eager({"z": z}, *engine.last_reset)
+            bitwise = (torch.equal(eager.physics, rollout.physics[:, :SERVE_COMPARED])
+                       and torch.equal(eager.rewards, rollout.rewards[:, :SERVE_COMPARED]))
+            norm = float(torch.linalg.vector_norm(z))
+            capture = (None if rollout.capture_seconds is None
+                       else f"{1e3 * rollout.capture_seconds:.1f} ms")
+            first = ("; precompute of B and the features on "
+                     f"{SERVE_ROWS} rows {timings['precompute_ms']:.1f} ms, the rollout's "
+                     f"capture {capture} (in the rollout's)" if "precompute_ms" in timings else "")
+            print(f"phase 31 demo: {equation!r} answered in {request_ms:.1f} ms over the socket "
+                  f"(z inference {timings['infer_ms']:.2f} ms, rollout of {SERVE_STEPS} steps "
+                  f"{timings['rollout_ms']:.1f} ms, video encoding {timings['video_ms']:.1f} ms"
+                  f"{first}); {steps} steps, reward {reward:.4f}, |z| {norm:.5f}; captured "
+                  f"equal to eager to the bit over the first {SERVE_COMPARED} steps {bitwise}; "
+                  f"on {card}")
+            if not (bitwise and steps <= SERVE_STEPS and math.isfinite(reward)
+                    and abs(norm - math.sqrt(engine.ws.agent.cfg.z_dim)) < 1e-3):
+                raise AssertionError(f"bad demo rollout for {equation!r}")
+        status, _, body, request_ms = _get(f"{base}/run?equation="
+                                           + urllib.parse.quote(SERVE_INJECTION))
+        page = body.decode()
+        print(f"phase 31 demo: {SERVE_INJECTION!r} answered {status} in {request_ms:.1f} ms, "
+              f"refused in red: {'color:red' in page and 'not allowed' in page}")
+        if status != 200 or "<p style='color:red'>" not in page or "not allowed" not in page:
+            raise AssertionError(f"the injection was not refused: {page[-400:]}")
+        status, kind, body, request_ms = _get(f"{base}/video?name=rollout.gif")
+        print(f"phase 31 demo: /video?name=rollout.gif {status} {kind}, {len(body)} bytes in "
+              f"{request_ms:.1f} ms")
+        if status != 200 or kind != "image/png" or body[:8] != b"\x89PNG\r\n\x1a\n":
+            raise AssertionError("the rollout's video was not served")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=60)
+    if thread.is_alive():
+        raise AssertionError("the demo server did not stop")
+
+
+def check_serving(tmp: str) -> None:
+    """Phase 31: the demo, play_behaviors, export_replay, the offline
+    EntryPoint and hiplogs on phase 4's folder."""
+    folder = f"{tmp}/run"
+    serve_requests(tmp)
+
+    started = time.perf_counter()
+    export_replay.main([f"checkpoint={folder}/models/latest", f"out_dir={tmp}/exported"])
+    seconds = time.perf_counter() - started
+    replay = ckpt_lib.load_checkpoint(Path(folder, "models", "latest"), only=["replay"],
+                                      device="cuda")["replay"]
+    episodes = list(load_exorl_episodes(Path(tmp, "exported")))
+    lengths = replay.ep_lengths.tolist()
+    same = len(episodes) == replay.n_episodes and all(
+        set(ep) == set(replay.storage) and all(
+            np.array_equal(ep[k], v[i, :lengths[i] + 1].cpu().numpy())
+            for k, v in replay.storage.items()) for i, ep in enumerate(episodes))
+    print(f"phase 31 export_replay: {len(episodes)} episodes in {seconds:.2f} s, read back "
+          f"equal to the replay to the bit for {sorted(replay.storage)}: {same}")
+    if not same:
+        raise AssertionError("the exported episodes differ from the replay")
+
+    # the offline EntryPoint on a copy of phase 4's config, checkpoint and replay,
+    # with the plain loss (no fused kernel runs on this phase)
+    entry = f"{tmp}/entry"
+    shutil.copytree(Path(folder, "models", "latest"), Path(entry, "models", "latest"))
+    shutil.copy(Path(folder, "config.json"), Path(entry, "config.json"))
+    start = json.loads(Path(entry, "models", "latest", "meta.json").read_text())["global_step"]
+    started = time.perf_counter()
+    result = EntryPoint("offline")(
+        folder=entry, num_grad_steps=start + ENTRY_UPDATES, eval_every_steps=ENTRY_UPDATES,
+        final_tests=0, **{"agent.use_pallas_loss": "false"})
+    seconds = time.perf_counter() - started
+    evals = read_csv(Path(entry, "eval.csv"))
+    print(f"phase 31 EntryPoint('offline'): {ENTRY_UPDATES} captured updates from step "
+          f"{start} and {len(evals)} evaluation in {seconds:.2f} s; returned {result}, the "
+          f"evaluation's return {evals[-1]['episode_reward'] if evals else None}")
+    if len(evals) != 1 or result != -float(evals[0]["episode_reward"]):
+        raise AssertionError(f"EntryPoint returned {result} for evaluations {evals}")
+
+    records = {r["xp"]: r for r in hiplogs.aggregate_tree(tmp)}
+    points = {name: len(hiplogs.HipLog(Path(d, "hip.log")).to_experiment(step=1).datapoints)
+              for name, d in (("phase 4", folder), ("EntryPoint", entry))}
+    print(f"phase 31 hiplogs: {len(records)} runs under the phase's folder, datapoints "
+          f"{points}; eval_episode_reward_last of phase 4's "
+          f"{records.get(folder, {}).get('eval_episode_reward_last')} and the EntryPoint's "
+          f"{records.get(entry, {}).get('eval_episode_reward_last')}")
+    if not (all(points.values()) and "eval_episode_reward_last" in records.get(folder, {})
+            and "eval_episode_reward_last" in records.get(entry, {})):
+        raise AssertionError("hiplogs did not read both runs")
+
+    started = time.perf_counter()
+    # last: a workspace with an override saves it into the folder's config.json
+    summary = play_behaviors.main([f"folder={folder}", "play_task=walker_run",
+                                   f"num_episodes={PLAY_EPISODES}",
+                                   f"episode_length={PLAY_LENGTH}"])
+    seconds = time.perf_counter() - started
+    written = json.loads(Path(folder, "play_rewards.json").read_text())
+    videos = sorted(p.name for p in Path(folder, "eval_video").glob("play_*.png"))
+    print(f"phase 31 play_behaviors: {PLAY_EPISODES} episodes x {PLAY_LENGTH} steps of "
+          f"walker_run's z in {seconds:.2f} s (videos included), returns "
+          + ", ".join(f"{r:.2f}" for r in written["rewards"]) + f", videos {videos}")
+    if written != summary or len(written["rewards"]) != PLAY_EPISODES \
+            or not all(math.isfinite(r) for r in written["rewards"]) \
+            or videos != [f"play_{i}.png" for i in range(PLAY_EPISODES)]:
+        raise AssertionError(f"bad play_behaviors output: {written}, {videos}")
+
+
 def measure_fb_rate() -> float:
     """FB's captured updates/s at phase 4's geometry (bf16, the fused loss,
     batch 1024) on its episodes, for a selection of phases without phase 4:
@@ -2752,8 +2962,8 @@ def parse_phases(argv: tp.Sequence[str]) -> tp.List[int]:
 class SmokeRun:
     """The selected phases in order. What a phase reads from an earlier one
     is built on first use, by that phase when it is selected and by the
-    least that gives it otherwise: phase 4's workspace (phases 5-11), its
-    episodes on disk (15, 30), FB's updates/s (14, 18, 24-26), phase 2's errors
+    least that gives it otherwise: phase 4's workspace (phases 5-11) and
+    folder (31), its episodes on disk (15, 30), FB's updates/s (14, 18, 24-26), phase 2's errors
     (5), phase 12's FB agent (13), phase 15's workspaces (16) and phase
     21's replay (22). Each phase prints its seconds."""
 
@@ -2831,8 +3041,8 @@ class SmokeRun:
         if 3 in selected:
             self.timed(3, lambda: check_update(synthetic_episodes(
                 EPISODES, EPISODE_LENGTH, OBS_DIM, ACTION_DIM, SEED)))
-        if selected & {4, 5, 6, 7, 9, 11}:
-            self.slice()
+        if selected & {4, 5, 6, 7, 9, 11, 31}:
+            self.slice()  # phase 31 serves phase 4's folder
         if 5 in selected:
             errors, counts = self.errors(), self.slice()[0]
             self.rows = self.timed(5, lambda: time_kernels(errors, counts))
@@ -2937,6 +3147,9 @@ class SmokeRun:
             paths = self.timed(30, lambda: check_data_parallel(tmp, self.episodes_dir()))
             for path, counts in paths.items():
                 self.by_path(path, counts)
+        gc.collect()
+        torch.cuda.empty_cache()
+        self.zero_launches((31,), "serving (phase 31)", ((31, lambda: check_serving(tmp)),))
 
 
 def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import typing as tp
 
 T = tp.TypeVar("T")
@@ -76,3 +77,13 @@ def to_flat_dict(cfg: tp.Any, prefix: str = "") -> tp.Dict[str, tp.Any]:
         else:
             out[key] = value
     return out
+
+
+def save_config(cfg: tp.Any, path: tp.Union[str, os.PathLike],
+                extra: tp.Optional[tp.Dict[str, tp.Any]] = None) -> None:
+    """Write ``cfg`` flattened, with ``extra``'s keys, as indented JSON."""
+    flat = to_flat_dict(cfg)
+    if extra:
+        flat.update(extra)
+    with open(path, "w") as f:
+        json.dump(flat, f, indent=2, default=str)

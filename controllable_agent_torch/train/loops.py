@@ -172,21 +172,28 @@ class Rollout:
     instances. It returns (totals [E], physics [E, T, P], observations
     [E, T, O]): the trajectories after each step, in buffers that the next
     run overwrites. Pixel observations are not kept (None), as in JAX: ten
-    episodes of 84 x 84 x 9 frames would be 6.4 GB.
+    episodes of 84 x 84 x 9 frames would be 6.4 GB. ``rewards`` [E, T] holds
+    each step's reward. ``horizon`` (the environment's episode length by
+    default) is the number of steps of a run: the demo rolls out its own
+    number of steps. ``capture_seconds`` is the host time that building the
+    captured program took (its warm-up steps included), None before then.
     """
 
     def __init__(self, env: tp.Any, agent: tp.Any, num_envs: int,
-                 capture: tp.Optional[bool] = None) -> None:
+                 capture: tp.Optional[bool] = None,
+                 horizon: tp.Optional[int] = None) -> None:
         on_cuda = agent.device.type == "cuda"
         self.capture = on_cuda if capture is None else capture
         if self.capture and not on_cuda:
             raise ValueError("a CUDA graph needs the agent on a CUDA device")
         self.env, self.agent, self.num_envs = env, agent, num_envs
         spec, device = env.spec, agent.device
-        self.horizon = spec.episode_length
+        self.horizon = spec.episode_length if horizon is None else horizon
         self.meta = {key: torch.zeros((num_envs, dim), device=device)
                      for key, dim in _meta_dims(agent).items()}
         self.totals = torch.zeros(num_envs, device=device)
+        self.rewards = torch.zeros((num_envs, self.horizon), device=device)
+        self.capture_seconds: tp.Optional[float] = None
         self.physics = torch.zeros((num_envs, self.horizon, spec.physics_dim), device=device)
         self.observations = (None if spec.obs_shape else torch.zeros(
             (num_envs, self.horizon, spec.obs_dim), device=device))
@@ -203,6 +210,7 @@ class Rollout:
             held.copy_(new)
         self._obs.copy_(ts.observation)
         self.totals += ts.reward
+        self.rewards.index_copy_(1, self._index, ts.reward.to(self.rewards.dtype).unsqueeze(1))
         self.physics.index_copy_(1, self._index, ts.physics.unsqueeze(1))
         if self.observations is not None:
             self.observations.index_copy_(1, self._index, ts.observation.unsqueeze(1))
@@ -232,8 +240,10 @@ class Rollout:
             # the capture's warm-up steps run from these inputs, which are set again
             # below; each writes its column of the buffers, so an episode of one step
             # warms up once
+            started = time.perf_counter()
             self._program = CapturedProgram(self._step, self.agent.device,
                                             warmup_runs=min(WARMUP_RUNS, self.horizon))
+            self.capture_seconds = time.perf_counter() - started
             self._set_inputs(z, state, ts)
         if self._program is not None:
             self._program.replay(self.horizon)

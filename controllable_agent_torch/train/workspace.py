@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from ..agents import agent_classes
-from ..config import apply_overrides, to_flat_dict
+from ..config import apply_overrides, save_config, to_flat_dict
 from ..data import ReplayBuffer
 from ..envs.base import Environment, EnvSpec
 from ..envs.gridworld import build_gridworld_task
@@ -268,9 +268,8 @@ class Workspace:
         # the RESOLVED agent config is saved beside the workspace fields
         # (flattened agent.* keys): a folder resume must rebuild the network
         # shapes the checkpoint was trained with, not the class defaults
-        flat = to_flat_dict(cfg)
-        flat.update(to_flat_dict(self.agent_cfg, "agent."))
-        (self.work_dir / "config.json").write_text(json.dumps(flat, indent=2, default=str))
+        save_config(cfg, self.work_dir / "config.json",
+                    extra=to_flat_dict(self.agent_cfg, "agent."))
         if (self.work_dir / "models" / "latest").exists():
             self.load_checkpoint(self.work_dir / "models" / "latest")
         elif cfg.load_model is not None:

@@ -126,15 +126,13 @@ def _run(cfg: tp.Any, agent_overrides: tp.List[str], agent_cfg_base: tp.Any,
         if first is None:
             raise ValueError(f"no .npz episodes of shard {rank} in {replay_dir}")
         ws.check_data(first)
-        episodes = itertools.chain([first], episodes)
+        ws.buffer.load_episodes(itertools.chain([first], episodes))
+        # rewards and goals from the stored physics on the shard's device, as
+        # train_offline relabels
         if relabel:
-            reward_fn = get_reward_function(cfg.task, cfg.seed)
-            episodes = ({**ep, "reward": reward_fn.from_physics(ep["physics"])
-                         .reshape(-1, 1).numpy()} for ep in episodes)
+            ws.buffer.relabel(get_reward_function(cfg.task, cfg.seed).from_physics)
         if ws.goal_fn is not None:
-            goal_fn = ws.goal_fn
-            episodes = ({**ep, "goal": goal_fn(ep["physics"]).numpy()} for ep in episodes)
-        ws.buffer.load_episodes(episodes)
+            ws.buffer.set_goals(ws.goal_fn)
     ws.train()
     ws.mh_trainer.release()  # its graphs hold the group's collectives
     return ws

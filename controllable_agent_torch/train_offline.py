@@ -3,9 +3,10 @@
 
 Load episodes, either ``replay_dir=`` (a directory of ExORL-format .npz
 episodes) or ``load_replay=`` (the replay of a checkpoint), by default
-relabel their rewards for ``task`` from the stored physics
-(``relabel=false`` keeps the stored rewards; the gridworld's tasks have no
-reward functions, so grid episodes take it), then run gradient steps:
+relabel their rewards for ``task`` from the stored physics on the replay's
+device (``relabel=false`` keeps the stored rewards; the gridworld's tasks
+have no reward functions, so grid episodes take it), then run gradient
+steps:
 
     python -m controllable_agent_torch.train_offline agent=fb_ddpg \\
         task=walker_walk replay_dir=/path/to/episodes \\
@@ -132,25 +133,17 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> tp.Optional[OfflineWorks
         ws.train()
         return _print_z(ws)
     ws.check_data(first)
-    reward_fn = get_reward_function(cfg.task, cfg.seed) if relabel else None
-    if load_replay is not None:
-        # the buffer of a checkpoint: its replay only, then rewards for the
-        # target task from the stored physics and the goal column for the
-        # requested goal space, both on the buffer's device
-        ws.buffer.state = restored["replay"]
-        if reward_fn is not None:
-            ws.buffer.relabel(reward_fn.from_physics)
-        if ws.goal_fn is not None:
-            ws.buffer.set_goals(ws.goal_fn)
     if episodes is not None:
-        if reward_fn is not None:
-            episodes = ({**ep, "reward": reward_fn.from_physics(ep["physics"])
-                         .reshape(-1, 1).numpy()} for ep in episodes)
-        if ws.goal_fn is not None:
-            goal_fn = ws.goal_fn
-            episodes = ({**ep, "goal": goal_fn(ep["physics"]).numpy()}
-                        for ep in episodes)
         ws.buffer.load_episodes(episodes)
+    else:
+        ws.buffer.state = restored["replay"]  # the replay of a checkpoint only
+    # rewards for the target task and the goal column for the requested goal
+    # space from the stored physics, on the buffer's device (the JAX package
+    # relabels episodes one at a time on the host before loading them)
+    if relabel:
+        ws.buffer.relabel(get_reward_function(cfg.task, cfg.seed).from_physics)
+    if ws.goal_fn is not None:
+        ws.buffer.set_goals(ws.goal_fn)
     ws.train()
     return _print_z(ws)
 

@@ -62,7 +62,16 @@ def test_port_has_modules_to_check() -> None:
             "controllable_agent_torch/utils/dist.py",
             "controllable_agent_torch/train_multihost.py",
             "controllable_agent_torch/tools/dryrun_multichip.py",
-            "controllable_agent_torch/tools/online_curve.py"} <= names
+            "controllable_agent_torch/tools/online_curve.py",
+            "controllable_agent_torch/demo/core.py", "controllable_agent_torch/demo/serve.py",
+            "controllable_agent_torch/play_behaviors.py",
+            "controllable_agent_torch/export_replay.py",
+            "controllable_agent_torch/orchestration/runner.py",
+            "controllable_agent_torch/orchestration/executor.py",
+            "controllable_agent_torch/train/hiplogs.py",
+            "controllable_agent_torch/tools/z_study.py",
+            "controllable_agent_torch/tools/replay_stats.py",
+            "controllable_agent_torch/tools/buffer_stats.py"} <= names
 
 
 def test_engine_differentiates_by_hand() -> None:
