@@ -5,11 +5,11 @@
     python3 chip_smoke.py --phases 4,11,21
 
 Drives ``controllable_agent_torch`` (and nothing of the JAX package) in
-thirty-one phases, each printed on its own lines with its seconds; any
+thirty-two phases, each printed on its own lines with its seconds; any
 failure exits non-zero. A selection always builds the kernels (phase 1),
 and builds the least of what its phases read from earlier ones: phase 4's
 workspace for phases 5-11 and its folder for phase 31 (by running phase 4), its episodes on disk for
-phases 15 and 30, phase 2's errors for phase 5, FB's captured updates/s (phase 4's,
+phases 15, 30 and 32, phase 2's errors for phase 5, FB's captured updates/s (phase 4's,
 else a short run at its geometry) for phases 14, 18 and 24-26, a fresh
 full-width FB agent for phase 13, phase 15's workspaces for phase 16 (by
 running phase 15), one collected quadruped cycle for phase 22. The phases:
@@ -237,7 +237,18 @@ running phase 15), one collected quadruped cycle for phase 22. The phases:
      captured updates with the plain loss, one evaluation, whose return it
      returns negated); ``train.hiplogs`` over phase 4's and the EntryPoint's
      runs. No fused FB kernel runs on this phase: their launches must be 0
-     by both counts.
+     by both counts;
+ 32. the data-parallel updates of the other agents at world size 1, through
+     a one-process NCCL group: DDPG, RND, ICM-APT, Proto, NEWAPS with
+     ``future_ratio=0.5``, SF with ``svd_sr`` and with ``mix_ratio=0.5`` (its
+     pseudo-inverse between two graphs) and discrete FB with ``q_loss=true``
+     on the grid, at the JAX defaults (float32): the captured data-parallel
+     trainer against the plain captured one from the same state, batches
+     and noise, to the bit, and both updates/s in turns;
+     ``train_multihost.main agent=rnd`` with one NCCL process on phase 4's
+     episodes (300 updates, one evaluation and a checkpoint, one capture).
+     No fused FB kernel runs on this phase: their launches must be 0 by both
+     counts.
 
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -400,7 +411,13 @@ SERVE_EQUATIONS = ("vx", "exp(-(x-8)**2) * up", "-vx")
 SERVE_INJECTION = "__import__('os')"
 PLAY_EPISODES, PLAY_LENGTH = 3, 250  # play_behaviors' episodes, cut from 1,000 steps
 ENTRY_UPDATES = 300  # EntryPoint("offline") on phase 4's checkpoint and replay
-LAST_PHASE = 31
+# phase 32: the other agents' data-parallel updates on one card, (agent, config overrides)
+DP_AGENTS = (("ddpg", {}), ("rnd", {}), ("icm_apt", {}), ("proto", {}),
+             ("new_aps", {"future_ratio": 0.5}), ("sf", {"feature_learner": "svd_sr"}),
+             ("sf", {"mix_ratio": 0.5}), ("discrete_fb", {"q_loss": True}))
+# updates held to the plain ones to the bit; timed a turn, in turns (plain, dp, dp, plain)
+DP_AGENT_UPDATES, DP_AGENT_TIMED = 20, 50
+LAST_PHASE = 32
 F32_EPS = float(torch.finfo(torch.float32).eps)
 HBM_BYTES_PER_S = 3.35e12
 FWD_RTOL = 2e-4  # as tests/test_pallas_fb.py: order of f32 sums over n^2
@@ -2770,6 +2787,107 @@ def check_data_parallel(tmp: str, episodes_dir: str) -> tp.Dict[str, tp.Dict[str
     return by_path
 
 
+def check_dp_agents(tmp: str, episodes_dir: str) -> None:
+    """Phase 32: the data-parallel update of each agent of DP_AGENTS at world
+    size 1 against its plain update, captured, and ``train_multihost.main
+    agent=rnd`` with one NCCL process."""
+    card = card_name_and_power_limit()
+    walker = ReplayBuffer(EPISODES, discount=0.98, future=0.99, device="cuda")
+    walker.load_episodes(synthetic_episodes(EPISODES, EPISODE_LENGTH, OBS_DIM, ACTION_DIM, SEED))
+    grid = grid_buffer()
+    if not multihost.initialize(f"127.0.0.1:{_free_port()}", 1, 0, device="cuda"):
+        raise AssertionError("no process group was started")
+    summary = []
+    try:
+        group = make_group()
+        print(f"phase 32 group: backend {dist.get_backend(group)}, world size "
+              f"{dist.get_world_size(group)}")
+        for name, overrides in DP_AGENTS:
+            label = " ".join([name] + [f"{k}={v}" for k, v in overrides.items()])
+            cfg_cls, agent_cls = agent_classes(name)
+            cfg = cfg_cls(**overrides)
+            discrete = name.startswith("discrete_")
+            buf = grid if discrete else walker
+            sample_cfg = dataclasses.replace(buf.cfg, nstep=int(getattr(cfg, "nstep", 1)))
+            dims = (2, 5) if discrete else (OBS_DIM, ACTION_DIM)
+            plain_agent, dp_agent = (agent_cls(cfg, *dims, device="cuda", seed=SEED)
+                                     for _ in range(2))
+            plain = make_offline_trainer(plain_agent, sample_cfg, cfg.batch_size,
+                                         DP_AGENT_UPDATES)
+            dp = make_dp_offline_trainer(dp_agent, sample_cfg, cfg.batch_size, DP_AGENT_UPDATES,
+                                         group)
+            plain_gen, dp_gen = (torch.Generator(device="cuda").manual_seed(SEED)
+                                 for _ in range(2))
+            want = {k: v.clone() for k, v in plain(buf.state, plain_gen).items()}
+            got = dp(buf.state, dp_gen)
+            torch.cuda.synchronize()
+            states = plain_agent.train_state(), dp_agent.train_state()
+            bitwise = set(got) == set(want) \
+                and all(torch.equal(states[1][k], v) for k, v in states[0].items()) \
+                and all(torch.equal(got[k], v) for k, v in want.items()) \
+                and torch.equal(plain_gen.get_state(), dp_gen.get_state())
+            graphs = len(dp._program.graphs) if dp._program is not None else 0
+            rates: tp.Dict[str, tp.List[float]] = {"plain": [], "dp": []}
+            for turn in ("plain", "dp", "dp", "plain"):
+                trainer, gen = (plain, plain_gen) if turn == "plain" else (dp, dp_gen)
+                _, seconds = _timed(lambda: trainer(buf.state, gen, steps=DP_AGENT_TIMED))
+                rates[turn].append(DP_AGENT_TIMED / seconds)
+            overhead = 1.0 - np.mean(rates["dp"]) / np.mean(rates["plain"])
+            print(f"phase 32 {label}: {DP_AGENT_UPDATES} captured data-parallel updates through "
+                  f"a one-process NCCL group against the plain captured trainer from the same "
+                  f"state, batches and noise: equal to the bit {bitwise}; captures "
+                  f"{dp.captures} ({graphs} graph(s) per update); updates/s, "
+                  f"{DP_AGENT_TIMED} a turn (plain, dp, dp, plain): plain "
+                  f"{', '.join(f'{r:.1f}' for r in rates['plain'])}, data-parallel "
+                  f"{', '.join(f'{r:.1f}' for r in rates['dp'])} (overhead {overhead:.3f}), "
+                  f"on {card}")
+            expect_graphs = 2 if overrides.get("future_ratio") or overrides.get("mix_ratio") \
+                or overrides.get("q_loss") else 1
+            if not bitwise or dp.captures != 1 or graphs != expect_graphs \
+                    or not all(math.isfinite(float(v)) for v in got.values()):
+                raise AssertionError(f"{label}: the data-parallel update at world size 1 "
+                                     f"differs from the plain one")
+            summary.append(f"{label} {np.mean(rates['dp']):.1f} (plain "
+                           f"{np.mean(rates['plain']):.1f})")
+            del plain, dp, plain_agent, dp_agent, states
+            gc.collect()  # the graphs that hold the group's collectives go before the group
+            torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+    finally:
+        multihost.shutdown()
+    print(f"phase 32 summary: data-parallel updates/s at world size 1 "
+          f"{'; '.join(summary)}; all equal to the plain update to the bit; on {card}")
+    del walker, grid
+
+    folder = f"{tmp}/multihost_rnd"
+    ws, wall = _timed(lambda: train_multihost.main([
+        f"coordinator=127.0.0.1:{_free_port()}", "num_processes=1", "process_id=0",
+        f"replay_dir={episodes_dir}", "task=walker_walk", "relabel=true", "agent=rnd",
+        f"num_grad_steps={MH_STEPS}", f"steps_per_call={STEPS_PER_CALL}",
+        f"log_every_steps={STEPS_PER_CALL}", f"eval_every_steps={MH_STEPS}",
+        f"num_eval_episodes={EVAL_EPISODES}", f"checkpoint_every={MH_STEPS}",
+        "final_tests=0", "save_eval_video=false", f"replay_buffer_episodes={EPISODES}",
+        f"folder={folder}", f"seed={SEED}"]))
+    evals = read_csv(ws.work_dir / "eval.csv")
+    meta = json.loads((ws.work_dir / "models" / "latest" / "meta.json").read_text())
+    trainer = ws.mh_trainer
+    row = ws.last_row
+    print(f"phase 32 train_multihost agent=rnd: one NCCL process, {len(ws.buffer)} episodes, "
+          f"{ws.agent.step} updates in {wall:.1f} s (the load, relabeling, the capture, an "
+          f"evaluation and the checkpoint included), {row['fps']:.1f} updates/s over the last "
+          f"{STEPS_PER_CALL}; group world size {trainer.shard.world}, captures "
+          f"{trainer.captures}; evaluations at {[int(float(r['step'])) for r in evals]}, "
+          f"episode_reward {float(evals[-1]['episode_reward']):.2f}; checkpoint at step "
+          f"{meta['global_step']}; rnd_loss {row['rnd_loss']:.4f}, intr_reward "
+          f"{row['intr_reward']:.4f}, on {card}")
+    if trainer.group is None or trainer.captures != 1 or ws.agent.step != MH_STEPS \
+            or meta["global_step"] != MH_STEPS \
+            or [int(float(r["step"])) for r in evals] != [MH_STEPS] \
+            or not all(math.isfinite(v) for v in row.values()) or dist.is_initialized():
+        raise AssertionError(f"train_multihost agent=rnd: {row}, {meta}, {evals}")
+    del ws, trainer
+
+
 def _get(url: str) -> tp.Tuple[int, str, bytes, float]:
     """(status, content type, body, ms) of a GET answered in full."""
     started = time.perf_counter()
@@ -2963,7 +3081,7 @@ class SmokeRun:
     """The selected phases in order. What a phase reads from an earlier one
     is built on first use, by that phase when it is selected and by the
     least that gives it otherwise: phase 4's workspace (phases 5-11) and
-    folder (31), its episodes on disk (15, 30), FB's updates/s (14, 18, 24-26), phase 2's errors
+    folder (31), its episodes on disk (15, 30, 32), FB's updates/s (14, 18, 24-26), phase 2's errors
     (5), phase 12's FB agent (13), phase 15's workspaces (16) and phase
     21's replay (22). Each phase prints its seconds."""
 
@@ -3150,6 +3268,10 @@ class SmokeRun:
         gc.collect()
         torch.cuda.empty_cache()
         self.zero_launches((31,), "serving (phase 31)", ((31, lambda: check_serving(tmp)),))
+        gc.collect()
+        torch.cuda.empty_cache()
+        self.zero_launches((32,), "data-parallel agents (phase 32)", (
+            (32, lambda: check_dp_agents(tmp, self.episodes_dir())),))
 
 
 def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:

@@ -24,6 +24,9 @@ As the other agents, each is an ``nn.Module`` updated in place, its step
 counter and running statistics are device tensors, and the draws of an
 update come in as one noise dataclass (``DDPGNoise``, ``NEWAPSNoise``).
 Both run in float32 whatever ``compute_dtype`` says, as in JAX.
+Data-parallel (``group``, ``utils/dist.py``), ``pbe`` finds each row's
+neighbours among every process's rows and NEWAPS whitens with the
+covariance of every process's φ̂(future); the losses are per row.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ from ..ops.linalg import lstsq, pinv
 from ..ops.pbe import RMSState, pbe
 from ..optim import Adam
 from ..utils.device import DeviceLike, resolve_device
+from ..utils.dist import RowNoise, Shard
 from ..utils.distributions import TruncatedNormal
 from ..utils.graphs import eager_step
 from ..utils.schedules import schedule
@@ -118,12 +122,13 @@ class _IntrinsicSFBase(ZMetaMixin, nn.Module):
         action = TruncatedNormal(mu, self._stddev(step)).sample(normal)
         return explore_until(action, uniform, step, self.cfg.num_expl_steps)
 
-    def _intrinsic(self, rep: Tensor, direction: Tensor) -> tp.Tuple[Tensor, Tensor, Tensor]:
+    def _intrinsic(self, rep: Tensor, direction: Tensor, shard: Shard = Shard()
+                   ) -> tp.Tuple[Tensor, Tensor, Tensor]:
         """(pbe(rep) + direction·φ̂, the entropy part, the SF part), each
-        [B, 1], the running statistics advanced."""
+        [B, 1], the running statistics advanced (by the global batch)."""
         cfg = self.cfg
         ent, rms = pbe(rep, self.rms, knn_k=cfg.knn_k, knn_avg=cfg.knn_avg,
-                       knn_clip=cfg.knn_clip, knn_rms=cfg.knn_rms)
+                       knn_clip=cfg.knn_clip, knn_rms=cfg.knn_rms, shard=shard)
         self._set_rms(rms)
         sf = _dot(direction, _unit(rep))[:, None]
         return ent + sf, ent, sf
@@ -249,23 +254,29 @@ class APSAgent(_IntrinsicSFBase):
         return mu if eval_mode else self._explore(mu, step, generator, noise)
 
     # -- the update ------------------------------------------------------
-    def update(self, batch: EpisodeBatch, generator: torch.Generator) -> Metrics:
-        """One gradient step with noise drawn from ``generator``."""
-        return self._update(batch, DDPGNoise.draw(batch.obs.shape[0], self.action_dim,
-                                                  generator, self.device))
+    def update(self, batch: EpisodeBatch, generator: torch.Generator,
+               group: tp.Any = None) -> Metrics:
+        """One gradient step with noise drawn from ``generator``; with a
+        process group, the noise of the global batch (``DDPGAgent.update``)."""
+        return self._update(batch, DDPGNoise.draw(batch.obs.shape[0] * Shard(group).world,
+                                                  self.action_dim, generator, self.device),
+                            group)
 
-    def _update(self, batch: EpisodeBatch, noise: DDPGNoise) -> Metrics:
+    def _update(self, batch: EpisodeBatch, noise: DDPGNoise, group: tp.Any = None) -> Metrics:
+        """One gradient step; with ``group`` a data-parallel one
+        (``DDPGAgent._update``)."""
         cfg = self.cfg
+        shard = Shard(group)
+        noise = shard.noise(noise, batch.obs.shape[0])
         task = batch.meta["task"]
         metrics: Metrics = {}
         reward = batch.reward
         if cfg.reward_free:
             aps_loss = -_dot(task, self.features(batch.next_obs)).mean()
-            self.aps_opt.step(torch.autograd.grad(aps_loss,
-                                                  list(self.aps_opt.params.values())))
+            self.aps_opt.step(shard.grad(aps_loss, list(self.aps_opt.params.values())))
             with torch.no_grad():
                 reward, ent, sf = self._intrinsic(self.features(batch.next_obs, norm=False),
-                                                  task)
+                                                  task, shard)
             metrics.update(aps_loss=aps_loss, intr_reward=reward.mean(),
                            intr_ent_reward=ent.mean(), intr_sf_reward=sf.mean())
         obs = torch.cat([batch.obs, task], -1)
@@ -278,19 +289,17 @@ class APSAgent(_IntrinsicSFBase):
             target_q = reward + batch.discount * torch.minimum(tq1, tq2)
         q1, q2 = self.critic(obs, batch.action, task)
         critic_loss = (q1 - target_q).square().mean() + (q2 - target_q).square().mean()
-        self.critic_opt.step(torch.autograd.grad(critic_loss,
-                                                 list(self.critic_opt.params.values())))
+        self.critic_opt.step(shard.grad(critic_loss, list(self.critic_opt.params.values())))
         # the actor step sees the freshly updated critic, as the JAX update does
         action = TruncatedNormal(self.actor(obs), stddev).sample(noise.actor_normal,
                                                                  clip=cfg.stddev_clip)
         aq1, aq2 = self.critic(obs, action, task)
         actor_loss = -torch.minimum(aq1, aq2).mean()
-        self.actor_opt.step(torch.autograd.grad(actor_loss,
-                                                list(self.actor_opt.params.values())))
+        self.actor_opt.step(shard.grad(actor_loss, list(self.actor_opt.params.values())))
         soft_update(self.critic, self.target_critic, cfg.critic_target_tau)
         self.step_t += 1
         metrics.update(critic_loss=critic_loss, critic_q1=q1.mean(), actor_loss=actor_loss)
-        return {k: v.detach() for k, v in metrics.items()}
+        return shard.mean({k: v.detach() for k, v in metrics.items()})
 
 
 # =============================================================== NEW APS
@@ -327,7 +336,7 @@ class NEWAPSConfig:
 
 
 @dataclasses.dataclass
-class NEWAPSNoise:
+class NEWAPSNoise(RowNoise):
     """Every draw of one NEWAPS update: z's normal (used when the batch has
     no ``z``), the target policy's and the actor's noise, and with
     ``future_ratio`` > 0 the future mask's uniform."""
@@ -411,21 +420,26 @@ class NEWAPSAgent(_IntrinsicSFBase):
         return mu if eval_mode else self._explore(mu, step, generator, noise)
 
     # -- the update ------------------------------------------------------
-    def update(self, batch: EpisodeBatch, generator: torch.Generator) -> Metrics:
-        """One gradient step with noise drawn from ``generator``."""
+    def update(self, batch: EpisodeBatch, generator: torch.Generator,
+               group: tp.Any = None) -> Metrics:
+        """One gradient step with noise drawn from ``generator``; with a
+        process group, the noise of the global batch (``DDPGAgent.update``)."""
         return self._update(batch, NEWAPSNoise.draw(
-            batch.obs.shape[0], self.cfg.z_dim, self.action_dim, self.cfg.future_ratio > 0,
-            generator, self.device))
+            batch.obs.shape[0] * Shard(group).world, self.cfg.z_dim, self.action_dim,
+            self.cfg.future_ratio > 0, generator, self.device), group)
 
     @torch.no_grad()
-    def _future_z(self, z: Tensor, batch: EpisodeBatch, noise: NEWAPSNoise) -> Tensor:
+    def _future_z(self, z: Tensor, batch: EpisodeBatch, noise: NEWAPSNoise,
+                  shard: Shard = Shard()) -> Tensor:
         """z replaced, with probability future_ratio, by φ̂(future goal)
-        whitened by the pseudo-inverse of its covariance."""
+        whitened by the pseudo-inverse of its covariance over the global
+        batch."""
         cfg = self.cfg
         future = batch.future_goal if cfg.goal_space is not None else batch.future_obs
         assert future is not None and noise.future_uniform is not None
         phi = self.features(future)
-        cov = phi.T @ phi / phi.shape[0]
+        every = shard.gather(phi)
+        cov = every.T @ every / every.shape[0]
         inv_cov = eager_step(lambda: pinv(cov))
         return torch.where(noise.future_uniform < cfg.future_ratio, _unit(phi @ inv_cov), z)
 
@@ -434,8 +448,12 @@ class NEWAPSAgent(_IntrinsicSFBase):
         f1, f2 = net(obs, z, action)
         return _dot(f1, z), _dot(f2, z)
 
-    def _update(self, batch: EpisodeBatch, noise: NEWAPSNoise) -> Metrics:
+    def _update(self, batch: EpisodeBatch, noise: NEWAPSNoise, group: tp.Any = None) -> Metrics:
+        """One gradient step; with ``group`` a data-parallel one
+        (``DDPGAgent._update``)."""
         cfg = self.cfg
+        shard = Shard(group)
+        noise = shard.noise(noise, batch.obs.shape[0])
         next_goal = batch.next_goal if cfg.goal_space is not None else batch.next_obs
         z = batch.meta.get("z")
         if z is None:
@@ -444,14 +462,14 @@ class NEWAPSAgent(_IntrinsicSFBase):
         reward = batch.reward
         if cfg.reward_free:
             phi_loss = -_dot(self.features(next_goal), z).mean()
-            self.phi_opt.step(torch.autograd.grad(phi_loss,
-                                                  list(self.phi_opt.params.values())))
+            self.phi_opt.step(shard.grad(phi_loss, list(self.phi_opt.params.values())))
             with torch.no_grad():
-                reward, ent, sf = self._intrinsic(self.features(next_goal, norm=False), z)
+                reward, ent, sf = self._intrinsic(self.features(next_goal, norm=False), z,
+                                                  shard)
             metrics.update(phi_loss=phi_loss, intrinsic_reward=reward.mean(),
                            entropy_reward=ent.mean(), diayn_reward=sf.mean())
         if cfg.future_ratio > 0:
-            z = self._future_z(z, batch, noise)
+            z = self._future_z(z, batch, noise, shard)
         stddev = self._stddev(self.step_t)
         with torch.no_grad():
             next_action = TruncatedNormal(self.actor(batch.next_obs, z), stddev).sample(
@@ -461,15 +479,14 @@ class NEWAPSAgent(_IntrinsicSFBase):
             target_q = reward[:, 0] + batch.discount[:, 0] * next_q
         q1, q2 = self._q(self.successor_net, batch.obs, z, batch.action)
         sf_loss = (q1 - target_q).square().mean() + (q2 - target_q).square().mean()
-        self.sf_opt.step(torch.autograd.grad(sf_loss, list(self.sf_opt.params.values())))
+        self.sf_opt.step(shard.grad(sf_loss, list(self.sf_opt.params.values())))
         # the actor step sees the freshly updated successor nets
         action = TruncatedNormal(self.actor(batch.obs, z), stddev).sample(
             noise.actor_normal, clip=cfg.stddev_clip)
         actor_loss = -torch.minimum(*self._q(self.successor_net, batch.obs, z, action)).mean()
-        self.actor_opt.step(torch.autograd.grad(actor_loss,
-                                                list(self.actor_opt.params.values())))
+        self.actor_opt.step(shard.grad(actor_loss, list(self.actor_opt.params.values())))
         soft_update(self.successor_net, self.target_successor_net, cfg.sf_target_tau)
         self.step_t += 1
         metrics.update(sf_loss=sf_loss, Q1=q1.mean(), target_Q=target_q.mean(),
                        actor_loss=actor_loss)
-        return {k: v.detach() for k, v in metrics.items()}
+        return shard.mean({k: v.detach() for k, v in metrics.items()})

@@ -36,6 +36,7 @@ from ..models.networks import MLP, PixelEncoder, _Net, conv_repr_dim
 from ..ops.augment import draw_shifts, random_shift_aug
 from ..optim import Adam
 from ..utils.device import DeviceLike, resolve_device
+from ..utils.dist import RowNoise, Shard
 from ..utils.distributions import TruncatedNormal
 from ..utils.schedules import schedule
 from ..utils.tree import soft_update
@@ -108,7 +109,7 @@ class RewardModel(_Net):
 
 
 @dataclasses.dataclass
-class DDPGNoise:
+class DDPGNoise(RowNoise):
     """The draws of one update: the target policy's noise (critic loss) and
     the policy's noise in the actor loss, each [n, action_dim]; on pixels
     also the random shifts of the observations and of the next
@@ -259,33 +260,43 @@ class DDPGAgent(nn.Module):
             self.reward_opt.step(torch.autograd.grad(loss, params))
 
     # -- the update -----------------------------------------------------
-    def update(self, batch: EpisodeBatch, generator: torch.Generator) -> Metrics:
-        """One gradient step with noise drawn from ``generator``."""
+    def update(self, batch: EpisodeBatch, generator: torch.Generator,
+               group: tp.Any = None) -> Metrics:
+        """One gradient step with noise drawn from ``generator``. With a
+        process group, ``batch`` is this process's rows and the noise is
+        drawn for the global batch (the generator seeded alike on every
+        process), as ``_update`` takes it."""
         return self._update(batch, DDPGNoise.draw(
-            batch.obs.shape[0], self.action_dim, generator, self.device,
-            aug_pad=self.cfg.aug_pad if self.pixels else None))
+            batch.obs.shape[0] * Shard(group).world, self.action_dim, generator, self.device,
+            aug_pad=self.cfg.aug_pad if self.pixels else None), group=group)
 
     def _update(self, batch: EpisodeBatch, noise: DDPGNoise,
-                use_reward_model: tp.Optional[bool] = None) -> Metrics:
+                use_reward_model: tp.Optional[bool] = None, group: tp.Any = None) -> Metrics:
         """One gradient step. ``use_reward_model`` (default: reward_free)
         puts reward_model(next_obs) in place of the batch reward; the
-        intrinsic agents pass False, their batch carries their reward.
+        intrinsic agents pass False, their batch carries their reward. With
+        ``group``, a data-parallel step (``utils/dist.py``): ``batch`` holds
+        this process's rows, ``noise`` the global batch's draws; every loss is
+        a mean over rows, so each process differentiates its part and the
+        gradients are summed before each Adam step.
 
         On pixels the step runs with cuDNN's deterministic algorithms: a
         convolution's weight gradient may otherwise be summed with atomics
         in any order, and a captured update would not repeat the eager one
         to the bit."""
+        shard = Shard(group)
+        noise = shard.noise(noise, batch.obs.shape[0])
         if not self.pixels:
-            return self._step(batch, noise, use_reward_model)
+            return self._step(batch, noise, use_reward_model, shard)
         before = torch.backends.cudnn.deterministic
         torch.backends.cudnn.deterministic = True
         try:
-            return self._step(batch, noise, use_reward_model)
+            return self._step(batch, noise, use_reward_model, shard)
         finally:
             torch.backends.cudnn.deterministic = before
 
     def _step(self, batch: EpisodeBatch, noise: DDPGNoise,
-              use_reward_model: tp.Optional[bool]) -> Metrics:
+              use_reward_model: tp.Optional[bool], shard: Shard) -> Metrics:
         cfg = self.cfg
         if use_reward_model is None:
             use_reward_model = cfg.reward_free
@@ -316,7 +327,7 @@ class DDPGAgent(nn.Module):
         critic_params = list(self.critic_opt.params.values())
         encoder_params = (list(self.encoder_opt.params.values())
                           if self.encoder_opt is not None and cfg.update_encoder else [])
-        grads = torch.autograd.grad(critic_loss, critic_params + encoder_params)
+        grads = shard.grad(critic_loss, critic_params + encoder_params)
         self.critic_opt.step(grads[:len(critic_params)])
         if encoder_params:
             assert self.encoder_opt is not None
@@ -331,13 +342,12 @@ class DDPGAgent(nn.Module):
         action = dist.sample(noise.actor_normal, clip=cfg.stddev_clip)
         aq1, aq2 = self.critic(obs, action)
         actor_loss = -torch.minimum(aq1, aq2).float().mean()
-        self.actor_opt.step(torch.autograd.grad(actor_loss,
-                                                list(self.actor_opt.params.values())))
+        self.actor_opt.step(shard.grad(actor_loss, list(self.actor_opt.params.values())))
         soft_update(self.critic, self.target_critic, cfg.critic_target_tau)
         self.step_t += 1
         metrics = {"batch_reward": reward.mean(), "critic_target_q": target_q.mean(),
                    "critic_q1": q1.mean(), "critic_q2": q2.mean(), "critic_loss": critic_loss,
                    "actor_loss": actor_loss,
                    "actor_logprob": dist.log_prob(action).sum(-1).mean()}
-        return {k: v.detach().float() for k, v in metrics.items()}
+        return shard.mean({k: v.detach().float() for k, v in metrics.items()})
 

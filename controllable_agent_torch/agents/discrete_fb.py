@@ -12,7 +12,10 @@ draws are one ``UpdateNoise`` (FB's, without action noise), so the captured
 trainer holds the update as one CUDA graph. ``q_loss=True`` whitens B with
 the pseudo-inverse of its covariance, an SVD that PyTorch checks on the
 host: that step runs eagerly between two captured graphs
-(``utils/graphs.py:eager_step``).
+(``utils/graphs.py:eager_step``). Data-parallel (``group``,
+``utils/dist.py``), the loss is FB's: computed on every process from the
+rows of every process, the pseudo-inverse of the global batch's Cov(B)
+included, and z mixes B of the global batch's permuted goals.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from ..ops.fb import fb_loss_terms, orthonormality_loss
 from ..ops.linalg import pinv
 from ..optim import Adam
 from ..utils.device import DeviceLike, resolve_device
+from ..utils.dist import Shard
 from ..utils.graphs import eager_step
 from ..utils.tree import soft_update
 from .base import StepNoise, epsilon_greedy, load_train_state
@@ -158,20 +162,29 @@ class DiscreteFBAgent(FBMetaMixin, nn.Module):
         return (tf1.gather(-1, index)[..., 0], tf2.gather(-1, index)[..., 0],
                 next_q.max(-1).values)
 
-    def _fb_loss(self, batch: EpisodeBatch, z: Tensor, next_goal: Tensor
-                 ) -> tp.Tuple[Tensor, Metrics]:
+    def _fb_loss(self, batch: EpisodeBatch, z: Tensor, next_goal: Tensor,
+                 shard: Shard = Shard()) -> tp.Tuple[Tensor, Metrics]:
+        """The loss and its metrics; data-parallel, every process computes
+        the loss of the whole batch from the rows of every process, as
+        ``FBDDPGAgent._fb_loss`` does."""
         cfg = self.cfg
         target_f1, target_f2, next_q = self._target_f(batch.next_obs, z)
         with torch.no_grad():
             target_b = self.target_backward_net(next_goal).float()
-            target_m = torch.minimum(target_f1 @ target_b.T, target_f2 @ target_b.T)
 
         # online F at the taken action
         f1_all, f2_all = self.forward_net(batch.obs, z)
         index = batch.action.reshape(-1).long()[:, None, None].expand(-1, f1_all.shape[1], 1)
         f1, f2 = f1_all.gather(-1, index)[..., 0], f2_all.gather(-1, index)[..., 0]
         b = self.backward_net(next_goal)
-        fb_loss, fb_diag, fb_offdiag = fb_loss_terms(f1, f2, b, target_m, batch.discount)
+        discount = batch.discount
+        if shard.group is not None:
+            target_f1, target_f2, next_q, target_b, f1, f2, b, z, discount = (
+                shard.gather(x) for x in (target_f1, target_f2, next_q, target_b, f1, f2, b, z,
+                                          discount))
+        with torch.no_grad():
+            target_m = torch.minimum(target_f1 @ target_b.T, target_f2 @ target_b.T)
+        fb_loss, fb_diag, fb_offdiag = fb_loss_terms(f1, f2, b, target_m, discount)
         metrics: Metrics = {
             "target_M": target_m.mean(), "F1": f1.mean(), "B": b.mean(),
             "B_norm": torch.linalg.vector_norm(b, dim=-1).mean(),
@@ -185,7 +198,7 @@ class DiscreteFBAgent(FBMetaMixin, nn.Module):
             cov = (bf.T @ bf / bf.shape[0]).detach()
             inv_cov = eager_step(lambda: pinv(cov))
             implicit_reward = ((bf @ inv_cov) * z).sum(1)
-            target_q = (implicit_reward + batch.discount[:, 0] * next_q).detach()
+            target_q = (implicit_reward + discount[:, 0] * next_q).detach()
             z32 = z.float()
             q_loss = (((f1.float() * z32).sum(-1) - target_q).square().mean()
                       + ((f2.float() * z32).sum(-1) - target_q).square().mean())
@@ -201,19 +214,26 @@ class DiscreteFBAgent(FBMetaMixin, nn.Module):
         return fb_loss, metrics
 
     # -- the update -----------------------------------------------------
-    def update(self, batch: EpisodeBatch, generator: torch.Generator) -> Metrics:
-        """One gradient step with noise drawn from ``generator``."""
-        noise = UpdateNoise.draw(self.cfg, batch.obs.shape[0], 0, generator, self.device)
-        return self._update(batch, noise)
+    def update(self, batch: EpisodeBatch, generator: torch.Generator,
+               group: tp.Any = None) -> Metrics:
+        """One gradient step with noise drawn from ``generator``; with a
+        process group, the noise of the global batch (``FBDDPGAgent.update``)."""
+        noise = UpdateNoise.draw(self.cfg, batch.obs.shape[0] * Shard(group).world, 0,
+                                 generator, self.device)
+        return self._update(batch, noise, group)
 
-    def _update(self, batch: EpisodeBatch, noise: UpdateNoise) -> Metrics:
+    def _update(self, batch: EpisodeBatch, noise: UpdateNoise, group: tp.Any = None) -> Metrics:
+        """One gradient step; with ``group`` a data-parallel one
+        (``FBDDPGAgent._update``)."""
         cfg = self.cfg
+        shard = Shard(group)
+        noise = shard.noise(noise, batch.obs.shape[0])
         next_goal = batch.next_goal if cfg.goal_space is not None else batch.next_obs
-        z = build_train_z(cfg, self.backward_net, batch, noise)
-        fb_loss, metrics = self._fb_loss(batch, z, next_goal)
+        z = build_train_z(cfg, self.backward_net, batch, noise, shard)
+        fb_loss, metrics = self._fb_loss(batch, z, next_goal, shard)
         fw_params = list(self.fw_opt.params.values())
         bw_params = list(self.bw_opt.params.values())
-        grads = torch.autograd.grad(fb_loss, fw_params + bw_params)
+        grads = shard.grad(fb_loss, fw_params + bw_params)
         self.fw_opt.step(grads[:len(fw_params)])
         self.bw_opt.step(grads[len(fw_params):])
         soft_update(self.forward_net, self.target_forward_net, cfg.fb_target_tau)

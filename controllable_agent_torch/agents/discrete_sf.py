@@ -11,7 +11,8 @@ smaller Q.
 JAX quirks kept on purpose: there is no ``get_goal_meta`` and no inference
 API (the workspace evaluates with ``init_meta``'s random z),
 ``mix_ratio`` is read by nothing, and the learners' target networks are
-never updated.
+never updated. Data-parallel (``group``, ``utils/dist.py``), the learners
+that couple the batch take every process's rows, as in SF.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from ..data.episode_batch import EpisodeBatch
 from ..models.networks import ForwardMap, l2_normalize
 from ..optim import Adam
 from ..utils.device import DeviceLike, resolve_device
+from ..utils.dist import Shard
 from ..utils.tree import soft_update
 from .base import MetaDict, StepNoise, ZMetaMixin, epsilon_greedy, load_train_state
 from .sf import FEATURE_LEARNERS, SFConfig, SFNoise, _dot
@@ -180,14 +182,20 @@ class DiscreteSFAgent(ZMetaMixin, nn.Module):
                 + (f2.float() - target_f).square().mean())
 
     # -- the update -----------------------------------------------------
-    def update(self, batch: EpisodeBatch, generator: torch.Generator) -> Metrics:
-        """One gradient step with noise drawn from ``generator``."""
-        noise = SFNoise.draw(batch.obs.shape[0], self.cfg.z_dim, 0, False, generator,
-                             self.device)
-        return self._update(batch, noise)
+    def update(self, batch: EpisodeBatch, generator: torch.Generator,
+               group: tp.Any = None) -> Metrics:
+        """One gradient step with noise drawn from ``generator``; with a
+        process group, the noise of the global batch (``DDPGAgent.update``)."""
+        noise = SFNoise.draw(batch.obs.shape[0] * Shard(group).world, self.cfg.z_dim, 0,
+                             False, generator, self.device)
+        return self._update(batch, noise, group)
 
-    def _update(self, batch: EpisodeBatch, noise: SFNoise) -> Metrics:
+    def _update(self, batch: EpisodeBatch, noise: SFNoise, group: tp.Any = None) -> Metrics:
+        """One gradient step; with ``group`` a data-parallel one
+        (``DDPGAgent._update``)."""
         cfg = self.cfg
+        shard = Shard(group)
+        noise = shard.noise(noise, batch.obs.shape[0])
         use_goal = cfg.goal_space is not None
         goal = batch.goal if use_goal else batch.obs
         next_goal = batch.next_goal if use_goal else batch.next_obs
@@ -195,19 +203,20 @@ class DiscreteSFAgent(ZMetaMixin, nn.Module):
         action = one_hot(batch.action, self.n_actions)
 
         sf_loss = self._sf_loss(batch, z, action, next_goal)
-        self.sf_opt.step(torch.autograd.grad(sf_loss, list(self.sf_opt.params.values())))
+        self.sf_opt.step(shard.grad(sf_loss, list(self.sf_opt.params.values())))
         metrics: Metrics = {"sf_loss": sf_loss}
         if self.learner_trainable and self.phi_opt is not None:
             params = list(self.phi_opt.params.values())
             phi_loss = self.feature_learner.loss(
-                goal, action, next_goal, batch.future_goal if use_goal else batch.future_obs)
+                goal, action, next_goal, batch.future_goal if use_goal else batch.future_obs,
+                shard)
             if phi_loss is None:  # fb: a frozen φ whose Adam steps on zeros, as in JAX
                 phi_loss = torch.zeros((), device=goal.device)
                 grads: tp.Sequence[Tensor] = [torch.zeros_like(p) for p in params]
             else:
-                grads = torch.autograd.grad(phi_loss, params)
+                grads = shard.grad(phi_loss, params)
             self.phi_opt.step(grads)
             metrics["phi_loss"] = phi_loss
         soft_update(self.successor_net, self.target_successor_net, cfg.sf_target_tau)
         self.step_t += 1
-        return {k: v.detach() for k, v in metrics.items()}
+        return shard.mean({k: v.detach() for k, v in metrics.items()})

@@ -5,7 +5,10 @@
 Adam step, the intrinsic reward from the updated module, then the DDPG
 update on that reward with ``use_reward_model=False`` (the batch already
 carries the agent's reward). The running statistics live on the device
-and advance inside a captured update.
+and advance inside a captured update. Data-parallel (``group``), the terms
+that couple the batch take the rows of every process: RND's batch
+statistics and the running statistics of its error, and ``pbe``'s nearest
+neighbours (ICM-APT, MaxEnt); the other losses are per row.
 
   * ``RNDAgent``, the explorer that makes the offline recipe's buffers: a
     predictor trained against a frozen random target; reward = prediction
@@ -37,6 +40,7 @@ from ..models.networks import MLP, _Net
 from ..ops.pbe import RMSState, pbe, rms_update
 from ..optim import Adam
 from ..utils.device import DeviceLike
+from ..utils.dist import Shard
 from .base import MetaDict, StepNoise, load_train_state
 from .ddpg import DDPGAgent, DDPGConfig, DDPGNoise
 
@@ -87,11 +91,16 @@ class IntrinsicDDPGAgent(nn.Module):
         return None
 
     def _module_loss(self, batch: EpisodeBatch, goal: Tensor, next_goal: Tensor,
-                     noise: DDPGNoise) -> tp.Tuple[Tensor, Metrics]:
+                     noise: DDPGNoise, shard: Shard = Shard()) -> tp.Tuple[Tensor, Metrics]:
+        """The module's loss on this process's rows (its part of the global
+        batch's loss, ``Shard.grad``) and its metrics (means over the rows)."""
         raise NotImplementedError
 
     def _intrinsic_reward(self, batch: EpisodeBatch, goal: Tensor, next_goal: Tensor,
-                          rms: RMSState, noise: DDPGNoise) -> tp.Tuple[Tensor, RMSState]:
+                          rms: RMSState, noise: DDPGNoise, shard: Shard = Shard()
+                          ) -> tp.Tuple[Tensor, RMSState]:
+        """The reward of this process's rows [B, 1] and the running
+        statistics advanced by the global batch."""
         raise NotImplementedError
 
     def _draw(self, n: int, generator: torch.Generator) -> DDPGNoise:
@@ -159,35 +168,43 @@ class IntrinsicDDPGAgent(nn.Module):
         return {}
 
     # -- the update ------------------------------------------------------
-    def update(self, batch: EpisodeBatch, generator: torch.Generator) -> Metrics:
-        """One gradient step with noise drawn from ``generator``."""
-        return self._update(batch, self._draw(batch.obs.shape[0], generator))
+    def update(self, batch: EpisodeBatch, generator: torch.Generator,
+               group: tp.Any = None) -> Metrics:
+        """One gradient step with noise drawn from ``generator``; with a
+        process group, the noise of the global batch (``DDPGAgent.update``)."""
+        return self._update(batch, self._draw(batch.obs.shape[0] * Shard(group).world,
+                                              generator), group)
 
-    def _update(self, batch: EpisodeBatch, noise: DDPGNoise) -> Metrics:
+    def _update(self, batch: EpisodeBatch, noise: DDPGNoise, group: tp.Any = None) -> Metrics:
+        """One gradient step; with ``group`` a data-parallel one
+        (``DDPGAgent._update``)."""
         cfg = self.cfg
+        shard = Shard(group)
+        global_noise, noise = noise, shard.noise(noise, batch.obs.shape[0])
         use_goal = cfg.goal_space is not None and batch.goal is not None
         goal = batch.goal if use_goal else batch.obs
         next_goal = batch.next_goal if use_goal else batch.next_obs
         metrics: Metrics = {}
         if self.module is not None:
             assert self.module_opt is not None
-            loss, module_metrics = self._module_loss(batch, goal, next_goal, noise)
+            loss, module_metrics = self._module_loss(batch, goal, next_goal, noise, shard)
             # a frozen part of the module (RND's target) gets a zero gradient,
             # so Adam leaves it where it is, as optax does
-            self.module_opt.step(torch.autograd.grad(
-                loss, list(self.module_opt.params.values()), allow_unused=True,
-                materialize_grads=True))
+            self.module_opt.step(shard.grad(loss, list(self.module_opt.params.values()),
+                                            allow_unused=True, materialize_grads=True))
             metrics.update(module_metrics)
         reward = batch.reward
         if cfg.reward_free:
             with torch.no_grad():
-                reward, rms = self._intrinsic_reward(batch, goal, next_goal, self.rms, noise)
+                reward, rms = self._intrinsic_reward(batch, goal, next_goal, self.rms, noise,
+                                                     shard)
                 for name in ("mean", "var", "n"):
                     getattr(self, f"rms_{name}").copy_(getattr(rms, name))
             metrics["intr_reward"] = reward.mean()
-        metrics.update(self.ddpg._update(dataclasses.replace(batch, reward=reward), noise,
-                                         use_reward_model=False))
-        return {k: v.detach().float() for k, v in metrics.items()}
+        metrics = shard.mean({k: v.detach().float() for k, v in metrics.items()})
+        metrics.update(self.ddpg._update(dataclasses.replace(batch, reward=reward), global_noise,
+                                         use_reward_model=False, group=group))
+        return metrics
 
 
 # ================================================================== RND
@@ -207,9 +224,12 @@ class _RNDNets(_Net):
         layers = (hidden_dim, "irelu", hidden_dim, "irelu", rep_dim)
         super().__init__([MLP(in_dim, layers), MLP(in_dim, layers)], torch.float32)
 
-    def forward(self, obs: Tensor) -> tp.Tuple[Tensor, Tensor]:
-        mean = obs.mean(0, keepdim=True)
-        std = obs.std(0, unbiased=False, keepdim=True) + 1e-5
+    def forward(self, obs: Tensor, shard: Shard = Shard()) -> tp.Tuple[Tensor, Tensor]:
+        """Predictor and target on this process's rows, normalised by the
+        statistics of the global batch."""
+        every = shard.gather(obs)
+        mean = every.mean(0, keepdim=True)
+        std = every.std(0, unbiased=False, keepdim=True) + 1e-5
         obs = ((obs - mean) / std).clamp(-5.0, 5.0)
         return self.mlps[0](obs), self.mlps[1](obs).detach()
 
@@ -220,19 +240,21 @@ class RNDAgent(IntrinsicDDPGAgent):
     def _make_module(self) -> nn.Module:
         return _RNDNets(self.goal_dim, self.cfg.hidden_dim, self.cfg.rnd_rep_dim)
 
-    def _pred_error(self, goal: Tensor) -> Tensor:
-        pred, target = self.module(goal)
+    def _pred_error(self, goal: Tensor, shard: Shard = Shard()) -> Tensor:
+        pred, target = self.module(goal, shard)
         return (target - pred).square().mean(-1, keepdim=True)
 
     def _module_loss(self, batch: EpisodeBatch, goal: Tensor, next_goal: Tensor,
-                     noise: DDPGNoise) -> tp.Tuple[Tensor, Metrics]:
-        err = self._pred_error(goal).mean()
+                     noise: DDPGNoise, shard: Shard = Shard()) -> tp.Tuple[Tensor, Metrics]:
+        err = self._pred_error(goal, shard).mean()
         return err, {"rnd_loss": err}
 
     def _intrinsic_reward(self, batch: EpisodeBatch, goal: Tensor, next_goal: Tensor,
-                          rms: RMSState, noise: DDPGNoise) -> tp.Tuple[Tensor, RMSState]:
-        err = self._pred_error(goal)
-        rms, _, std = rms_update(rms, err)
+                          rms: RMSState, noise: DDPGNoise, shard: Shard = Shard()
+                          ) -> tp.Tuple[Tensor, RMSState]:
+        err = self._pred_error(goal, shard)
+        # the running statistics advance by the errors of the global batch
+        rms, _, std = rms_update(rms, shard.gather(err))
         return self.cfg.rnd_scale * err / (std + 1e-8), rms
 
 
@@ -297,14 +319,15 @@ class DIAYNAgent(SkillMetaMixin, IntrinsicDDPGAgent):
         return self.module(batch.next_obs), batch.meta["skill"].argmax(1)
 
     def _module_loss(self, batch: EpisodeBatch, goal: Tensor, next_goal: Tensor,
-                     noise: DDPGNoise) -> tp.Tuple[Tensor, Metrics]:
+                     noise: DDPGNoise, shard: Shard = Shard()) -> tp.Tuple[Tensor, Metrics]:
         logits, z_hat = self._logits(batch)
         loss = torch.nn.functional.cross_entropy(logits, z_hat)
         acc = (logits.argmax(1) == z_hat).float().mean()
         return loss, {"diayn_loss": loss, "diayn_acc": acc}
 
     def _intrinsic_reward(self, batch: EpisodeBatch, goal: Tensor, next_goal: Tensor,
-                          rms: RMSState, noise: DDPGNoise) -> tp.Tuple[Tensor, RMSState]:
+                          rms: RMSState, noise: DDPGNoise, shard: Shard = Shard()
+                          ) -> tp.Tuple[Tensor, RMSState]:
         logits, z_hat = self._logits(batch)
         log_q = torch.log_softmax(logits, 1).gather(1, z_hat[:, None])
         return self.cfg.diayn_scale * (log_q - math.log(1.0 / self.cfg.skill_dim)), rms
@@ -347,13 +370,14 @@ class ICMAgent(IntrinsicDDPGAgent):
         return _ICMNets(self.obs_dim, self.action_dim, self.cfg.hidden_dim)
 
     def _module_loss(self, batch: EpisodeBatch, goal: Tensor, next_goal: Tensor,
-                     noise: DDPGNoise) -> tp.Tuple[Tensor, Metrics]:
+                     noise: DDPGNoise, shard: Shard = Shard()) -> tp.Tuple[Tensor, Metrics]:
         fwd, bwd = self.module(batch.obs, batch.action, batch.next_obs)
         loss = fwd.mean() + bwd.mean()
         return loss, {"icm_loss": loss}
 
     def _intrinsic_reward(self, batch: EpisodeBatch, goal: Tensor, next_goal: Tensor,
-                          rms: RMSState, noise: DDPGNoise) -> tp.Tuple[Tensor, RMSState]:
+                          rms: RMSState, noise: DDPGNoise, shard: Shard = Shard()
+                          ) -> tp.Tuple[Tensor, RMSState]:
         fwd, _ = self.module(batch.obs, batch.action, batch.next_obs)
         return self.cfg.icm_scale * fwd, rms
 
@@ -400,17 +424,18 @@ class ICMAPTAgent(IntrinsicDDPGAgent):
                         self.cfg.icm_rep_dim)
 
     def _module_loss(self, batch: EpisodeBatch, goal: Tensor, next_goal: Tensor,
-                     noise: DDPGNoise) -> tp.Tuple[Tensor, Metrics]:
+                     noise: DDPGNoise, shard: Shard = Shard()) -> tp.Tuple[Tensor, Metrics]:
         fwd, bwd = self.module(batch.obs, batch.action, batch.next_obs)
         loss = fwd.mean() + bwd.mean()
         return loss, {"icm_loss": loss}
 
     def _intrinsic_reward(self, batch: EpisodeBatch, goal: Tensor, next_goal: Tensor,
-                          rms: RMSState, noise: DDPGNoise) -> tp.Tuple[Tensor, RMSState]:
+                          rms: RMSState, noise: DDPGNoise, shard: Shard = Shard()
+                          ) -> tp.Tuple[Tensor, RMSState]:
         rep = batch.obs if self.module is None else self.module.rep(batch.obs)
         cfg = self.cfg
         return pbe(rep, rms, knn_k=cfg.knn_k, knn_avg=cfg.knn_avg, knn_clip=cfg.knn_clip,
-                   knn_rms=cfg.knn_rms)
+                   knn_rms=cfg.knn_rms, shard=shard)
 
 
 # ========================================================== Disagreement
@@ -472,13 +497,14 @@ class DisagreementAgent(IntrinsicDDPGAgent):
         return _Ensemble(self.obs_dim, self.action_dim, self.cfg.hidden_dim, self.cfg.n_models)
 
     def _module_loss(self, batch: EpisodeBatch, goal: Tensor, next_goal: Tensor,
-                     noise: DDPGNoise) -> tp.Tuple[Tensor, Metrics]:
+                     noise: DDPGNoise, shard: Shard = Shard()) -> tp.Tuple[Tensor, Metrics]:
         preds = self.module(batch.obs, batch.action)
         loss = torch.linalg.vector_norm(batch.next_obs[None] - preds, dim=-1).mean()
         return loss, {"disagreement_loss": loss}
 
     def _intrinsic_reward(self, batch: EpisodeBatch, goal: Tensor, next_goal: Tensor,
-                          rms: RMSState, noise: DDPGNoise) -> tp.Tuple[Tensor, RMSState]:
+                          rms: RMSState, noise: DDPGNoise, shard: Shard = Shard()
+                          ) -> tp.Tuple[Tensor, RMSState]:
         preds = self.module(batch.obs, batch.action)
         return preds.var(0, unbiased=False).mean(-1, keepdim=True), rms
 
@@ -495,7 +521,8 @@ class MaxEntAgent(IntrinsicDDPGAgent):
     cfg: MaxEntConfig
 
     def _intrinsic_reward(self, batch: EpisodeBatch, goal: Tensor, next_goal: Tensor,
-                          rms: RMSState, noise: DDPGNoise) -> tp.Tuple[Tensor, RMSState]:
+                          rms: RMSState, noise: DDPGNoise, shard: Shard = Shard()
+                          ) -> tp.Tuple[Tensor, RMSState]:
         cfg = self.cfg
         return pbe(next_goal, rms, knn_k=cfg.knn_k, knn_avg=cfg.knn_avg,
-                   knn_clip=cfg.knn_clip, knn_rms=cfg.knn_rms)
+                   knn_clip=cfg.knn_clip, knn_rms=cfg.knn_rms, shard=shard)

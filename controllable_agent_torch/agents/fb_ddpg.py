@@ -40,7 +40,7 @@ from ..ops.fb import fb_loss_terms, orthonormality_loss, sample_z
 from ..ops.fused_fb import fb_loss_terms_fused
 from ..optim import Adam
 from ..utils.device import DeviceLike, resolve_device
-from ..utils.dist import Shard
+from ..utils.dist import RowNoise, Shard
 from ..utils.distributions import SquashedNormal, TruncatedNormal
 from ..utils.graphs import eager_step
 from ..utils.schedules import schedule
@@ -98,10 +98,13 @@ class FBDDPGConfig:
 
 
 @dataclasses.dataclass
-class UpdateNoise:
+class UpdateNoise(RowNoise):
     """Every random draw of one update, in the shapes the JAX update draws
     them (``_build_train_z``, the target policy noise, the actor noise; a
-    discrete FB update draws no action noise)."""
+    discrete FB update draws no action noise). ``rows`` slices every
+    per-row draw and keeps the permutation (over the global batch) whole."""
+
+    WHOLE = ("perm",)
 
     z_normal: Tensor  # [n, z_dim] standard normal of sample_z
     perm: Tensor  # [n] permutation of the backward inputs
@@ -135,19 +138,6 @@ class UpdateNoise:
             w_uniform=uniform(n, n) if rand_weight else None,
             w_scale=uniform(n, 1) if rand_weight else None,
             future_uniform=uniform(n, 1) if cfg.future_ratio > 0 else None)
-
-    def rows(self, rows: slice) -> "UpdateNoise":
-        """The draws of the rows ``rows`` of the batch: every per-row draw
-        sliced, the permutation (over the global batch) kept whole."""
-        def part(x: tp.Optional[Tensor]) -> tp.Optional[Tensor]:
-            return None if x is None else x[rows]
-
-        return dataclasses.replace(
-            self, z_normal=self.z_normal[rows], mix_uniform=self.mix_uniform[rows],
-            next_action_normal=part(self.next_action_normal),
-            actor_normal=part(self.actor_normal), z_uniform=part(self.z_uniform),
-            w_uniform=part(self.w_uniform), w_scale=part(self.w_scale),
-            future_uniform=part(self.future_uniform))
 
 
 def _dot(x: Tensor, z: Tensor) -> Tensor:
@@ -251,9 +241,6 @@ class FBMetaMixin(ZMetaMixin):
 
 class FBDDPGAgent(FBMetaMixin, nn.Module):
     """Networks, target networks and optimizers of one FB agent."""
-
-    # ``update`` and ``_update`` take a process group (utils/dist.py)
-    data_parallel = True
 
     def __init__(self, cfg: FBDDPGConfig, obs_dim: int, action_dim: int,
                  goal_dim: tp.Optional[int] = None, device: DeviceLike = None,
@@ -515,27 +502,21 @@ class FBDDPGAgent(FBMetaMixin, nn.Module):
         the whole batch. Metrics are the global batch's."""
         cfg = self.cfg
         shard = Shard(group)
-        if group is not None:
-            noise = noise.rows(shard.rows(noise.perm.shape[0]))
+        noise = shard.noise(noise, batch.obs.shape[0])
         next_goal = batch.next_goal if cfg.goal_space is not None else batch.next_obs
         z = self._build_train_z(batch, noise, shard)
 
         fb_loss, metrics = self._fb_loss(batch, z, next_goal, noise.next_action_normal, shard)
         fw_params = list(self.fw_opt.params.values())
         bw_params = list(self.bw_opt.params.values())
-        grads = torch.autograd.grad(fb_loss if group is None else fb_loss * shard.share,
-                                    fw_params + bw_params)
-        grads = shard.sum(grads)
+        grads = shard.grad(fb_loss, fw_params + bw_params)
         self.fw_opt.step(grads[:len(fw_params)])
         self.bw_opt.step(grads[len(fw_params):])
 
         # the actor step uses the freshly updated forward net, as the JAX
         # update does (fb_ddpg.py:471-476)
         actor_loss, actor_metrics = self._actor_loss(batch.obs, z, noise.actor_normal)
-        actor_grads = torch.autograd.grad(
-            actor_loss if group is None else actor_loss * shard.share,
-            list(self.actor_opt.params.values()))
-        self.actor_opt.step(shard.sum(actor_grads))
+        self.actor_opt.step(shard.grad(actor_loss, list(self.actor_opt.params.values())))
 
         soft_update(self.forward_net, self.target_forward_net, cfg.fb_target_tau)
         soft_update(self.backward_net, self.target_backward_net, cfg.fb_target_tau)

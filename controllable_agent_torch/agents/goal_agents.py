@@ -35,6 +35,7 @@ from ..models.networks import MLP, _Net
 from ..ops.tolerance import tolerance
 from ..optim import Adam
 from ..utils.device import DeviceLike, resolve_device
+from ..utils.dist import RowNoise, Shard
 from ..utils.distributions import TruncatedNormal
 from ..utils.schedules import schedule
 from ..utils.tree import soft_update
@@ -117,10 +118,13 @@ class GoalSMConfig:
 
 
 @dataclasses.dataclass
-class GoalNoise:
+class GoalNoise(RowNoise):
     """Every draw of one update: the maze goals' indices (``supervised``),
-    the permutation of the achieved goals, the future mask's uniform
-    (``future_ratio`` > 0), the target policy's and the actor's noise."""
+    the permutation of the achieved goals (of the global batch), the future
+    mask's uniform (``future_ratio`` > 0), the target policy's and the
+    actor's noise."""
+
+    WHOLE = ("perm",)
 
     critic_normal: Tensor  # [n, action_dim]
     actor_normal: Tensor  # [n, action_dim]
@@ -215,12 +219,15 @@ class GoalTD3Agent(ZMetaMixin, nn.Module):
         return explore_until(action, uniform, step, self.cfg.num_expl_steps)
 
     # -- the update ------------------------------------------------------
-    def update(self, batch: EpisodeBatch, generator: torch.Generator) -> Metrics:
-        """One gradient step with noise drawn from ``generator``."""
+    def update(self, batch: EpisodeBatch, generator: torch.Generator,
+               group: tp.Any = None) -> Metrics:
+        """One gradient step with noise drawn from ``generator``; with a
+        process group, the noise of the global batch (``DDPGAgent.update``)."""
         cfg = self.cfg
         return self._update(batch, GoalNoise.draw(
-            batch.obs.shape[0], self.action_dim, getattr(cfg, "supervised", False),
-            cfg.future_ratio > 0, generator, self.device))
+            batch.obs.shape[0] * Shard(group).world, self.action_dim,
+            getattr(cfg, "supervised", False), cfg.future_ratio > 0, generator, self.device),
+            group)
 
     def _future_mix(self, desired: Tensor, batch: EpisodeBatch, noise: GoalNoise) -> Tensor:
         """``desired``, a share future_ratio of it replaced by the future goal."""
@@ -232,12 +239,18 @@ class GoalTD3Agent(ZMetaMixin, nn.Module):
                                   future[..., :desired.shape[-1]], desired)
         return desired
 
-    def _desired(self, batch: EpisodeBatch, achieved: Tensor, noise: GoalNoise) -> Tensor:
+    @staticmethod
+    def _permuted(achieved: Tensor, noise: GoalNoise, shard: Shard = Shard()) -> Tensor:
+        """This process's rows of the global batch's achieved goals permuted."""
+        return shard.gather(achieved)[noise.perm[shard.rows(noise.perm.shape[0])]]
+
+    def _desired(self, batch: EpisodeBatch, achieved: Tensor, noise: GoalNoise,
+                 shard: Shard = Shard()) -> Tensor:
         if self.cfg.supervised:
             assert noise.goal_index is not None
             desired = self.maze_goals[noise.goal_index]
         else:
-            desired = achieved[noise.perm]
+            desired = self._permuted(achieved, noise, shard)
         return self._future_mix(desired, batch, noise)
 
     def _critic_loss(self, batch: EpisodeBatch, achieved: Tensor, desired: Tensor,
@@ -251,27 +264,30 @@ class GoalTD3Agent(ZMetaMixin, nn.Module):
         loss = (q1 - target_q).square().mean() + (q2 - target_q).square().mean()
         return loss, q1, {"batch_reward": reward.mean()}
 
-    def _update(self, batch: EpisodeBatch, noise: GoalNoise) -> Metrics:
+    def _update(self, batch: EpisodeBatch, noise: GoalNoise, group: tp.Any = None) -> Metrics:
+        """One gradient step; with ``group`` a data-parallel one
+        (``DDPGAgent._update``): the permutation ranges over the global
+        batch, the losses are per row."""
         cfg = self.cfg
+        shard = Shard(group)
+        noise = shard.noise(noise, batch.obs.shape[0])
         achieved = batch.next_goal if batch.next_goal is not None else batch.next_obs
-        desired = self._desired(batch, achieved, noise)
+        desired = self._desired(batch, achieved, noise, shard)
         stddev = self._stddev(self.step_t)
         with torch.no_grad():
             next_action = TruncatedNormal(self.actor(batch.next_obs, desired), stddev).sample(
                 noise.critic_normal, clip=cfg.stddev_clip)
         critic_loss, q1, metrics = self._critic_loss(batch, achieved, desired, next_action)
-        self.critic_opt.step(torch.autograd.grad(critic_loss,
-                                                 list(self.critic_opt.params.values())))
+        self.critic_opt.step(shard.grad(critic_loss, list(self.critic_opt.params.values())))
         # the actor step sees the freshly updated critic
         action = TruncatedNormal(self.actor(batch.obs, desired), stddev).sample(
             noise.actor_normal, clip=cfg.stddev_clip)
         actor_loss = -torch.minimum(*self.critic(batch.obs, desired, action)).mean()
-        self.actor_opt.step(torch.autograd.grad(actor_loss,
-                                                list(self.actor_opt.params.values())))
+        self.actor_opt.step(shard.grad(actor_loss, list(self.actor_opt.params.values())))
         soft_update(self.critic, self.target_critic, cfg.critic_target_tau)
         self.step_t += 1
         metrics.update(critic_loss=critic_loss, critic_q1=q1.mean(), actor_loss=actor_loss)
-        return {k: v.detach() for k, v in metrics.items()}
+        return shard.mean({k: v.detach() for k, v in metrics.items()})
 
 
 class GoalSMAgent(GoalTD3Agent):
@@ -281,10 +297,11 @@ class GoalSMAgent(GoalTD3Agent):
         """Zeros: the JAX agent has no replay to draw an achieved goal from."""
         return {"g": torch.zeros(self.goal_dim, device=generator.device)}
 
-    def _desired(self, batch: EpisodeBatch, achieved: Tensor, noise: GoalNoise) -> Tensor:
+    def _desired(self, batch: EpisodeBatch, achieved: Tensor, noise: GoalNoise,
+                 shard: Shard = Shard()) -> Tensor:
         desired = batch.meta.get("g")
         if desired is None or desired.ndim == 1:
-            desired = achieved[noise.perm]
+            desired = self._permuted(achieved, noise, shard)
         return self._future_mix(desired, batch, noise)
 
     def _critic_loss(self, batch: EpisodeBatch, achieved: Tensor, desired: Tensor,

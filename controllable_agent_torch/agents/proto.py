@@ -22,6 +22,12 @@ matrix-product form), as JAX's ``norm(z[:, None] - queue[None])``: the
 queue holds this batch's own candidates, whose distance must come out 0; the
 product form would give the square root of a rounding residue, ~1e-3 at
 unit norm, the scale of the reward itself.
+
+Data-parallel (``group``), the Sinkhorn-Knopp normalisation runs over the
+target scores of every process's rows (its column sums couple the batch),
+the candidates are drawn from the embeddings of the global batch, so the
+replicated queue and its pointer stay the same on every process, and each
+process scores its own rows against the queue.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from torch import nn
 
 from ..data.episode_batch import EpisodeBatch
 from ..models.networks import MLP, l2_normalize
+from ..utils.dist import Shard
 from ..utils.tree import soft_update
 from .ddpg import DDPGNoise
 from .exploration import IntrinsicConfig, IntrinsicDDPGAgent
@@ -57,8 +64,9 @@ class ProtoConfig(IntrinsicConfig):
 @dataclasses.dataclass
 class ProtoNoise(DDPGNoise):
     """DDPG's draws and the Gumbel noise of the candidates' categorical
-    draw, [num_protos, n]."""
+    draw, [num_protos, n] over the global batch."""
 
+    WHOLE = ("candidate_gumbel",)
     candidate_gumbel: tp.Optional[Tensor] = None
 
 
@@ -128,31 +136,35 @@ class ProtoAgent(IntrinsicDDPGAgent):
                           candidate_gumbel=-torch.log(-torch.log(u)))
 
     @torch.no_grad()
-    def _queue_reward(self, next_obs: Tensor, gumbel: Tensor) -> Tensor:
-        """Push the candidates of this batch into the queue, then the
-        ``topk``-th smallest distance of each embedding to the queue [B, 1]."""
+    def _queue_reward(self, next_obs: Tensor, gumbel: Tensor, shard: Shard = Shard()) -> Tensor:
+        """Push the candidates of the global batch into the queue, then the
+        ``topk``-th smallest distance of each of this process's embeddings
+        to the queue [B, 1]."""
         cfg = self.cfg
         z = self.module.embed(next_obs)
-        candidates = (self.module.scores(z).T + gumbel).argmax(1)  # [num_protos]
+        every = shard.gather(z)
+        candidates = (self.module.scores(every).T + gumbel).argmax(1)  # [num_protos]
         size = self.queue.shape[0]
         num = min(cfg.num_protos, size)
         start = self.queue_ptr % (size - num + 1)
         rows = start + torch.arange(num, device=self.device)
-        self.queue.index_copy_(0, rows, z[candidates[:num]])
+        self.queue.index_copy_(0, rows, every[candidates[:num]])
         self.queue_ptr.copy_((self.queue_ptr + num) % size)
         dist = torch.cdist(z, self.queue, compute_mode="donot_use_mm_for_euclid_dist")
         return torch.topk(dist, cfg.topk, dim=1, largest=False).values[:, -1:]
 
-    def _update(self, batch: EpisodeBatch, noise: DDPGNoise) -> Metrics:
+    def _update(self, batch: EpisodeBatch, noise: DDPGNoise, group: tp.Any = None) -> Metrics:
         cfg = self.cfg
+        shard = Shard(group)
+        global_noise, noise = noise, shard.noise(noise, batch.obs.shape[0])
         assert self.module_opt is not None
         scores_s, scores_t = self.module(batch.obs, batch.next_obs)
         log_p_s = torch.log_softmax(scores_s / cfg.tau, dim=1)
-        q_t = sinkhorn_knopp(scores_t / cfg.tau)
+        every_t = shard.gather(scores_t / cfg.tau)
+        q_t = sinkhorn_knopp(every_t)[shard.rows(every_t.shape[0])]
         repr_loss = -(q_t * log_p_s).sum(1).mean()
-        self.module_opt.step(torch.autograd.grad(
-            repr_loss, list(self.module_opt.params.values()), allow_unused=True,
-            materialize_grads=True))
+        self.module_opt.step(shard.grad(repr_loss, list(self.module_opt.params.values()),
+                                        allow_unused=True, materialize_grads=True))
         soft_update(self.module.predictor, self.module.target_predictor,
                     cfg.encoder_target_tau)
         metrics: Metrics = {"repr_loss": repr_loss}
@@ -160,8 +172,9 @@ class ProtoAgent(IntrinsicDDPGAgent):
         if cfg.reward_free:
             gumbel = getattr(noise, "candidate_gumbel", None)
             assert gumbel is not None, "a Proto update takes its candidates' draw in ProtoNoise"
-            reward = self._queue_reward(batch.next_obs, gumbel)
+            reward = self._queue_reward(batch.next_obs, gumbel, shard)
             metrics["intr_reward"] = reward.mean()
-        metrics.update(self.ddpg._update(dataclasses.replace(batch, reward=reward), noise,
-                                         use_reward_model=False))
-        return {k: v.detach().float() for k, v in metrics.items()}
+        metrics = shard.mean({k: v.detach().float() for k, v in metrics.items()})
+        metrics.update(self.ddpg._update(dataclasses.replace(batch, reward=reward), global_noise,
+                                         use_reward_model=False, group=group))
+        return metrics

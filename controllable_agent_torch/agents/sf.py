@@ -28,6 +28,12 @@ captured graphs (``utils/graphs.py:eager_step``).
 
 SF runs in float32 whatever ``compute_dtype`` says, as the JAX SF does
 (that field is read by nothing there).
+
+Data-parallel (``group``, ``utils/dist.py``), the learners whose loss
+couples the batch (``lap``'s orthonormality, the contrastive logits, the
+factorizations of ``svd_sr``, ``svd_srv2`` and ``svd_p``) compute it on
+every process's rows, and the mix permutes and whitens the replay goals of
+the global batch; the other losses are per row.
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ from ..ops.fb import off_diagonal_mask, orthonormality_loss
 from ..ops.linalg import lstsq, pinv
 from ..optim import Adam
 from ..utils.device import DeviceLike, resolve_device
+from ..utils.dist import RowNoise, Shard
 from ..utils.distributions import SquashedNormal, TruncatedNormal
 from ..utils.graphs import eager_step
 from ..utils.schedules import schedule
@@ -86,7 +93,11 @@ def factorization_loss(p: Tensor, resid: Tensor) -> Tensor:
 
 
 class FeatureLearner(nn.Module):
-    """``random``: φ(s) = feature_net(s), a network that is never trained."""
+    """``random``: φ(s) = feature_net(s), a network that is never trained.
+
+    ``loss`` takes this process's rows and returns its part of the global
+    batch's loss (``Shard.grad``): a mean over its rows, or, where the loss
+    couples the batch, the loss of the rows gathered from every process."""
 
     # (online, target) submodules soft-updated after each φ step
     TARGET_PAIRS: tp.Tuple[tp.Tuple[str, str], ...] = ()
@@ -104,7 +115,7 @@ class FeatureLearner(nn.Module):
         return self.feature_net(obs)
 
     def loss(self, obs: Tensor, action: Tensor, next_obs: Tensor,
-             future_obs: tp.Optional[Tensor]) -> tp.Optional[Tensor]:
+             future_obs: tp.Optional[Tensor], shard: Shard = Shard()) -> tp.Optional[Tensor]:
         return None
 
 
@@ -118,10 +129,12 @@ class Identity(FeatureLearner):
 class Laplacian(FeatureLearner):
     """|φ(s) − φ(s')|² + orthonormality."""
 
-    def loss(self, obs, action, next_obs, future_obs):
-        phi = self.feature_net(obs)
+    def loss(self, obs, action, next_obs, future_obs, shard=Shard()):
+        # both terms on every process's rows: φ(s) then reaches the loss
+        # through one gather, and its gradient sums as the single-process one
+        phi = shard.gather(self.feature_net(obs))
         orth, _, _ = orthonormality_loss(phi)
-        return _mean_square(phi - self.feature_net(next_obs)) + orth
+        return _mean_square(phi - shard.gather(self.feature_net(next_obs))) + orth
 
 
 class ContrastiveFeature(FeatureLearner):
@@ -134,12 +147,13 @@ class ContrastiveFeature(FeatureLearner):
         self.swap = swap
         self.mu_net = phi_mlp(obs_dim, hidden_dim, z_dim)
 
-    def loss(self, obs, action, next_obs, future_obs):
+    def loss(self, obs, action, next_obs, future_obs, shard=Shard()):
         assert future_obs is not None, "the contrastive learners need future observations"
         if self.swap:
             a, b = self.mu_net(obs), self.feature_net(future_obs)
         else:
             a, b = self.feature_net(obs), self.mu_net(future_obs)
+        a, b = shard.gather(a), shard.gather(b)
         logits = (l2_normalize(a.float(), scale_sqrt_dim=False)
                   @ l2_normalize(b.float(), scale_sqrt_dim=False).T)
         off = off_diagonal_mask(logits.shape[0], logits.device)
@@ -154,7 +168,7 @@ class ICM(FeatureLearner):
         super().__init__(obs_dim, action_dim, z_dim, hidden_dim)
         self.inverse_dynamic_net = model_mlp(2 * z_dim, hidden_dim, action_dim, tanh=True)
 
-    def loss(self, obs, action, next_obs, future_obs):
+    def loss(self, obs, action, next_obs, future_obs, shard=Shard()):
         pred = self.inverse_dynamic_net(
             torch.cat([self.feature_net(obs), self.feature_net(next_obs)], -1))
         return _mean_square(action - pred)
@@ -167,7 +181,7 @@ class TransitionModel(FeatureLearner):
         super().__init__(obs_dim, action_dim, z_dim, hidden_dim)
         self.forward_dynamic_net = model_mlp(z_dim + action_dim, hidden_dim, obs_dim)
 
-    def loss(self, obs, action, next_obs, future_obs):
+    def loss(self, obs, action, next_obs, future_obs, shard=Shard()):
         pred = self.forward_dynamic_net(torch.cat([self.feature_net(obs), action], -1))
         return _mean_square(pred - next_obs)
 
@@ -182,7 +196,7 @@ class TransitionLatentModel(FeatureLearner):
         self.forward_dynamic_net = model_mlp(z_dim + action_dim, hidden_dim, z_dim)
         self.target_feature_net = phi_mlp(obs_dim, hidden_dim, z_dim)
 
-    def loss(self, obs, action, next_obs, future_obs):
+    def loss(self, obs, action, next_obs, future_obs, shard=Shard()):
         with torch.no_grad():
             next_phi = self.target_feature_net(next_obs)
         pred = self.forward_dynamic_net(torch.cat([self.feature_net(obs), action], -1))
@@ -196,7 +210,7 @@ class AutoEncoder(FeatureLearner):
         super().__init__(obs_dim, action_dim, z_dim, hidden_dim)
         self.decoder = model_mlp(z_dim, hidden_dim, obs_dim)
 
-    def loss(self, obs, action, next_obs, future_obs):
+    def loss(self, obs, action, next_obs, future_obs, shard=Shard()):
         return _mean_square(self.decoder(self.feature_net(obs)) - obs)
 
 
@@ -214,18 +228,18 @@ class SVDSR(FeatureLearner):
         self.target_feature_net = phi_mlp(obs_dim, hidden_dim, z_dim)
         self.target_mu_net = phi_mlp(obs_dim, hidden_dim, z_dim, l2=False)
 
-    def loss(self, obs, action, next_obs, future_obs):
+    def loss(self, obs, action, next_obs, future_obs, shard=Shard()):
         with torch.no_grad():
-            t_phi = self.target_feature_net(next_obs).float()
-            t_mu = self.target_mu_net(next_obs).float()
+            t_phi = shard.gather(self.target_feature_net(next_obs).float())
+            t_mu = shard.gather(self.target_mu_net(next_obs).float())
             target_sr = t_mu @ t_phi.T if self.swap else t_phi @ t_mu.T
         if self.swap:
-            phi = self.feature_net(next_obs)
-            sr = self.mu_net(obs).float() @ phi.float().T
+            phi = shard.gather(self.feature_net(next_obs))
+            sr = shard.gather(self.mu_net(obs)).float() @ phi.float().T
             gamma = 0.98
         else:
-            phi = self.feature_net(obs)
-            sr = phi.float() @ self.mu_net(next_obs).float().T
+            phi = shard.gather(self.feature_net(obs))
+            sr = phi.float() @ shard.gather(self.mu_net(next_obs)).float().T
             gamma = 0.99
         orth, _, _ = orthonormality_loss(phi)
         return factorization_loss(sr, sr - gamma * target_sr) + orth
@@ -238,9 +252,9 @@ class SVDP(FeatureLearner):
         super().__init__(obs_dim, action_dim, z_dim, hidden_dim)
         self.mu_net = phi_mlp(obs_dim + action_dim, hidden_dim, z_dim, l2=False)
 
-    def loss(self, obs, action, next_obs, future_obs):
-        phi = self.feature_net(next_obs)
-        p = self.mu_net(torch.cat([obs, action], -1)).float() @ phi.float().T
+    def loss(self, obs, action, next_obs, future_obs, shard=Shard()):
+        phi = shard.gather(self.feature_net(next_obs))
+        p = shard.gather(self.mu_net(torch.cat([obs, action], -1))).float() @ phi.float().T
         orth, _, _ = orthonormality_loss(phi)
         return factorization_loss(p, p) + orth
 
@@ -314,11 +328,14 @@ class SFConfig:
 
 
 @dataclasses.dataclass
-class SFNoise:
+class SFNoise(RowNoise):
     """Every random draw of one update, in the shapes the JAX updates draw
     them: z's normal, the target policy's and the actor's noise (none for
     discrete SF, which has no actor), and, with ``mix_ratio`` > 0, the
-    permutation of the replay goals and the mix mask's uniform."""
+    permutation of the replay goals (of the global batch) and the mix mask's
+    uniform."""
+
+    WHOLE = ("perm",)
 
     z_normal: Tensor  # [n, z_dim]
     next_action_normal: tp.Optional[Tensor] = None  # [n, action_dim]
@@ -509,16 +526,20 @@ class SuccessorFeatureAgent(ZMetaMixin, nn.Module):
         loss = (cfg.temp * log_prob - q).mean() if self.boltzmann else -q.mean()
         return loss, {"actor_loss": loss, "actor_logprob": log_prob.mean()}
 
-    def _step(self, opt: Adam, loss: Tensor) -> None:
-        opt.step(torch.autograd.grad(loss, list(opt.params.values())))
+    def _step(self, opt: Adam, loss: Tensor, shard: Shard = Shard()) -> None:
+        opt.step(shard.grad(loss, list(opt.params.values())))
 
-    def update(self, batch: EpisodeBatch, generator: torch.Generator) -> Metrics:
-        """One gradient step with noise drawn from ``generator``."""
-        noise = SFNoise.draw(batch.obs.shape[0], self.cfg.z_dim, self.action_dim,
-                             self.mixes, generator, self.device)
-        return self._update(batch, noise)
+    def update(self, batch: EpisodeBatch, generator: torch.Generator,
+               group: tp.Any = None) -> Metrics:
+        """One gradient step with noise drawn from ``generator``; with a
+        process group, the noise of the global batch (``DDPGAgent.update``)."""
+        noise = SFNoise.draw(batch.obs.shape[0] * Shard(group).world, self.cfg.z_dim,
+                             self.action_dim, self.mixes, generator, self.device)
+        return self._update(batch, noise, group)
 
-    def _update(self, batch: EpisodeBatch, noise: SFNoise) -> Metrics:
+    def _update(self, batch: EpisodeBatch, noise: SFNoise, group: tp.Any = None) -> Metrics:
+        """One gradient step; with ``group`` a data-parallel one
+        (``DDPGAgent._update``)."""
         raise NotImplementedError
 
 
@@ -602,46 +623,50 @@ class SFAgent(SuccessorFeatureAgent):
             "z_norm": torch.linalg.vector_norm(z, dim=-1).mean(), "sf_loss": loss}
 
     def _phi_loss(self, goal: Tensor, action: Tensor, next_goal: Tensor,
-                  future_goal: tp.Optional[Tensor]) -> Tensor:
-        loss = self.feature_learner.loss(goal, action, next_goal, future_goal)
+                  future_goal: tp.Optional[Tensor], shard: Shard = Shard()) -> Tensor:
+        loss = self.feature_learner.loss(goal, action, next_goal, future_goal, shard)
         return loss if loss is not None else torch.zeros((), device=goal.device)
 
     @torch.no_grad()
-    def _mix_z(self, z: Tensor, next_goal: Tensor, noise: SFNoise) -> Tensor:
+    def _mix_z(self, z: Tensor, next_goal: Tensor, noise: SFNoise,
+               shard: Shard = Shard()) -> Tensor:
         """z replaced, with probability mix_ratio, by φ of permuted replay
-        goals whitened by their covariance's pseudo-inverse."""
+        goals (of the global batch) whitened by their covariance's
+        pseudo-inverse."""
         assert noise.perm is not None and noise.mix_uniform is not None
-        phi = self.features(next_goal[noise.perm])
+        phi = self.features(shard.gather(next_goal)[noise.perm])
         cov = phi.T @ phi / phi.shape[0]
         inv_cov = eager_step(lambda: pinv(cov))
         return torch.where(noise.mix_uniform < self.cfg.mix_ratio,
-                           l2_normalize(phi @ inv_cov), z)
+                           l2_normalize(phi[shard.rows(phi.shape[0])] @ inv_cov), z)
 
     # -- the update -----------------------------------------------------
-    def _update(self, batch: EpisodeBatch, noise: SFNoise) -> Metrics:
+    def _update(self, batch: EpisodeBatch, noise: SFNoise, group: tp.Any = None) -> Metrics:
         cfg = self.cfg
+        shard = Shard(group)
+        noise = shard.noise(noise, batch.obs.shape[0])
         use_goal = cfg.goal_space is not None
         goal = batch.goal if use_goal else batch.obs
         next_goal = batch.next_goal if use_goal else batch.next_obs
         future_goal = batch.future_goal if use_goal else batch.future_obs
         z = self.z_from_noise(noise.z_normal)
         if self.mixes:
-            z = self._mix_z(z, next_goal, noise)
+            z = self._mix_z(z, next_goal, noise, shard)
 
         sf_loss, metrics = self._sf_loss(batch, next_goal, z, noise.next_action_normal)
-        self._step(self.sf_opt, sf_loss)
+        self._step(self.sf_opt, sf_loss, shard)
         if self.learner_trainable:
             assert self.phi_opt is not None
-            phi_loss = self._phi_loss(goal, batch.action, next_goal, future_goal)
-            self._step(self.phi_opt, phi_loss)
+            phi_loss = self._phi_loss(goal, batch.action, next_goal, future_goal, shard)
+            self._step(self.phi_opt, phi_loss, shard)
             for online, target in type(self.feature_learner).TARGET_PAIRS:
                 soft_update(getattr(self.feature_learner, online),
                             getattr(self.feature_learner, target), cfg.learner_target_tau)
             metrics["phi_loss"] = phi_loss
         # the actor step reads the freshly updated successor nets (sf.py:603-605)
         actor_loss, actor_metrics = self._actor_loss(batch.obs, z, noise.actor_normal)
-        self._step(self.actor_opt, actor_loss)
+        self._step(self.actor_opt, actor_loss, shard)
         soft_update(self.successor_net, self.target_successor_net, cfg.sf_target_tau)
         self.step_t += 1
         metrics.update(actor_metrics)
-        return {k: v.detach() for k, v in metrics.items()}
+        return shard.mean({k: v.detach() for k, v in metrics.items()})

@@ -8,7 +8,9 @@ inference needs (obs, action, reward): z = lstsq(φ(s, a), r). As in JAX,
 the learner steps first and the SF target reads the updated φ at the
 batch's (goal, action), and an update draws three things: z's normal, the
 target policy's noise and the actor's. SF-SVD runs in float32 whatever
-``compute_dtype`` says, as the JAX SF-SVD does.
+``compute_dtype`` says, as the JAX SF-SVD does. Data-parallel (``group``,
+``utils/dist.py``), the factorization and orthonormality losses take the
+rows of every process; the SF and actor losses are per row.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from ..data.episode_batch import EpisodeBatch
 from ..ops.fb import orthonormality_loss
 from ..optim import Adam
 from ..utils.device import DeviceLike
+from ..utils.dist import Shard
 from ..utils.tree import soft_update
 from .sf import (Metrics, SFNoise, SuccessorFeatureAgent, factorization_loss,
                  normalized_solution, phi_mlp)
@@ -41,9 +44,11 @@ class SVDLearner(nn.Module):
     def features(self, obs: Tensor, action: Tensor) -> Tensor:
         return self.feature_net(torch.cat([obs, action], -1))
 
-    def loss(self, obs: Tensor, action: Tensor, next_obs: Tensor) -> Tensor:
-        phi = self.features(obs, action)
-        p = phi.float() @ self.mu_net(next_obs).float().T
+    def loss(self, obs: Tensor, action: Tensor, next_obs: Tensor,
+             shard: Shard = Shard()) -> Tensor:
+        """The loss of the rows of every process (``shard``)."""
+        phi = shard.gather(self.features(obs, action))
+        p = phi.float() @ shard.gather(self.mu_net(next_obs)).float().T
         orth, _, _ = orthonormality_loss(phi)
         return factorization_loss(p, p) + orth
 
@@ -102,23 +107,25 @@ class SFSVDAgent(SuccessorFeatureAgent):
         """z = lstsq(φ(s, a), r), sqrt(z_dim)-normalized."""
         return normalized_solution(self.features(obs, action), reward, self.cfg.z_dim)
 
-    def _update(self, batch: EpisodeBatch, noise: SFNoise) -> Metrics:
+    def _update(self, batch: EpisodeBatch, noise: SFNoise, group: tp.Any = None) -> Metrics:
         cfg = self.cfg
+        shard = Shard(group)
+        noise = shard.noise(noise, batch.obs.shape[0])
         use_goal = cfg.goal_space is not None
         goal = batch.goal if use_goal else batch.obs
         next_goal = batch.next_goal if use_goal else batch.next_obs
         z = self.z_from_noise(noise.z_normal)
 
-        phi_loss = self.svd.loss(goal, batch.action, next_goal)
-        self._step(self.svd_opt, phi_loss)
+        phi_loss = self.svd.loss(goal, batch.action, next_goal, shard)
+        self._step(self.svd_opt, phi_loss, shard)
         # the SF target reads the updated φ at (goal, action) (sf_svd.py:210-211)
         target_f = self._target_f(batch, z, self.features(goal, batch.action),
                                   noise.next_action_normal)
         sf_loss, _ = self._successor_loss(batch, z, target_f)
-        self._step(self.sf_opt, sf_loss)
+        self._step(self.sf_opt, sf_loss, shard)
         actor_loss, _ = self._actor_loss(batch.obs, z, noise.actor_normal)
-        self._step(self.actor_opt, actor_loss)
+        self._step(self.actor_opt, actor_loss, shard)
         soft_update(self.successor_net, self.target_successor_net, cfg.sf_target_tau)
         self.step_t += 1
-        return {"phi_loss": phi_loss.detach(), "sf_loss": sf_loss.detach(),
-                "actor_loss": actor_loss.detach()}
+        return shard.mean({"phi_loss": phi_loss.detach(), "sf_loss": sf_loss.detach(),
+                           "actor_loss": actor_loss.detach()})

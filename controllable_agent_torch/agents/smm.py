@@ -28,6 +28,7 @@ from torch import nn
 from ..data.episode_batch import EpisodeBatch
 from ..models.networks import MLP
 from ..ops.pbe import RMSState
+from ..utils.dist import Shard
 from .ddpg import DDPGNoise
 from .exploration import IntrinsicConfig, IntrinsicDDPGAgent, SkillMetaMixin
 
@@ -110,14 +111,15 @@ class SMMAgent(SkillMetaMixin, IntrinsicDDPGAgent):
         return kle, h_s_z, h_z_s, obs_z.shape[1]
 
     def _module_loss(self, batch: EpisodeBatch, goal: Tensor, next_goal: Tensor,
-                     noise: DDPGNoise) -> tp.Tuple[Tensor, Metrics]:
+                     noise: DDPGNoise, shard: Shard = Shard()) -> tp.Tuple[Tensor, Metrics]:
         kle, h_s_z, h_z_s, width = self._terms(batch, getattr(noise, "loss_eps", None))
         vae_loss = self.cfg.vae_beta * kle + h_s_z.mean() / width
         pred_loss = h_z_s.mean()
         return vae_loss + pred_loss, {"loss_vae": vae_loss, "loss_pred": pred_loss}
 
     def _intrinsic_reward(self, batch: EpisodeBatch, goal: Tensor, next_goal: Tensor,
-                          rms: RMSState, noise: DDPGNoise) -> tp.Tuple[Tensor, RMSState]:
+                          rms: RMSState, noise: DDPGNoise, shard: Shard = Shard()
+                          ) -> tp.Tuple[Tensor, RMSState]:
         cfg = self.cfg
         _, h_s_z, h_z_s, _ = self._terms(batch, getattr(noise, "reward_eps", None))
         reward = (cfg.state_ent_coef * h_s_z + cfg.latent_ent_coef * math.log(cfg.z_dim)

@@ -11,7 +11,8 @@ again, as the JAX agent does; both are kept.
 
 The permutation is ``torch.randperm`` from the registered generator (as
 SF's); a parity test hands the JAX update's own draws in through
-``UVFNoise``.
+``UVFNoise``. Data-parallel (``group``, ``utils/dist.py``), it permutes the
+next goals of the global batch; the losses are per row.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from ..models.networks import Actor, BackwardMap, ForwardMap, l2_normalize
 from ..ops.fb import sample_z
 from ..optim import Adam
 from ..utils.device import DeviceLike, resolve_device
+from ..utils.dist import RowNoise, Shard
 from ..utils.distributions import TruncatedNormal
 from ..utils.schedules import schedule
 from ..utils.tree import soft_update
@@ -67,9 +69,12 @@ class UVFConfig:
 
 
 @dataclasses.dataclass
-class UVFNoise:
-    """Every draw of one UVF update: the permutation of the desired goals,
-    the mix mask's uniform, the target policy's and the actor's noise."""
+class UVFNoise(RowNoise):
+    """Every draw of one UVF update: the permutation of the desired goals
+    (of the global batch), the mix mask's uniform, the target policy's and
+    the actor's noise."""
+
+    WHOLE = ("perm",)
 
     perm: Tensor  # [n]
     mix_uniform: Tensor  # [n, 1]
@@ -176,20 +181,27 @@ class UVFAgent(ZMetaMixin, nn.Module):
         return explore_until(action, uniform, step, self.cfg.num_expl_steps)
 
     # -- the update ------------------------------------------------------
-    def update(self, batch: EpisodeBatch, generator: torch.Generator) -> Metrics:
-        """One gradient step with noise drawn from ``generator``."""
-        return self._update(batch, UVFNoise.draw(batch.obs.shape[0], self.action_dim,
-                                                 generator, self.device))
+    def update(self, batch: EpisodeBatch, generator: torch.Generator,
+               group: tp.Any = None) -> Metrics:
+        """One gradient step with noise drawn from ``generator``; with a
+        process group, the noise of the global batch (``DDPGAgent.update``)."""
+        return self._update(batch, UVFNoise.draw(batch.obs.shape[0] * Shard(group).world,
+                                                 self.action_dim, generator, self.device),
+                            group)
 
     def _q(self, net: nn.Module, obs: Tensor, z: Tensor, action: Tensor
            ) -> tp.Tuple[Tensor, Tensor]:
         f1, f2 = net(obs, z, action)
         return _dot(f1, z), _dot(f2, z)
 
-    def _update(self, batch: EpisodeBatch, noise: UVFNoise) -> Metrics:
+    def _update(self, batch: EpisodeBatch, noise: UVFNoise, group: tp.Any = None) -> Metrics:
+        """One gradient step; with ``group`` a data-parallel one
+        (``DDPGAgent._update``)."""
         cfg = self.cfg
+        shard = Shard(group)
+        noise = shard.noise(noise, batch.obs.shape[0])
         next_goal = batch.next_goal if cfg.goal_space is not None else batch.next_obs
-        desired = next_goal[noise.perm]
+        desired = shard.gather(next_goal)[noise.perm[shard.rows(noise.perm.shape[0])]]
         if cfg.mix_ratio > 0:
             desired = torch.where(noise.mix_uniform < cfg.mix_ratio, next_goal, desired)
         stddev = self._stddev(self.step_t)
@@ -207,7 +219,7 @@ class UVFAgent(ZMetaMixin, nn.Module):
         fb_loss = (q1 - target_q).square().mean() + (q2 - target_q).square().mean()
         fw_params = list(self.fw_opt.params.values())
         bw_params = list(self.bw_opt.params.values())
-        grads = torch.autograd.grad(fb_loss, fw_params + bw_params)
+        grads = shard.grad(fb_loss, fw_params + bw_params)
         self.fw_opt.step(grads[:len(fw_params)])
         self.bw_opt.step(grads[len(fw_params):])
 
@@ -217,10 +229,9 @@ class UVFAgent(ZMetaMixin, nn.Module):
         action = TruncatedNormal(self.actor(batch.obs, z), stddev).sample(
             noise.actor_normal, clip=cfg.stddev_clip)
         actor_loss = -torch.minimum(*self._q(self.forward_net, batch.obs, z, action)).mean()
-        self.actor_opt.step(torch.autograd.grad(actor_loss,
-                                                list(self.actor_opt.params.values())))
+        self.actor_opt.step(shard.grad(actor_loss, list(self.actor_opt.params.values())))
         soft_update(self.forward_net, self.target_forward_net, cfg.fb_target_tau)
         self.step_t += 1
         metrics = {"fb_loss": fb_loss, "z_norm": torch.linalg.vector_norm(zd, dim=-1).mean(),
                    "actor_loss": actor_loss}
-        return {k: v.detach() for k, v in metrics.items()}
+        return shard.mean({k: v.detach() for k, v in metrics.items()})

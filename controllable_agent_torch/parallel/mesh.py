@@ -1,4 +1,4 @@
-"""Data parallelism for the FB learner over a ``torch.distributed`` process
+"""Data parallelism for every agent over a ``torch.distributed`` process
 group (mirror of ``controllable_agent_tpu/parallel/mesh.py``).
 
 The JAX package shards the batch over a 1-D ``dp`` mesh of devices and lets
@@ -8,8 +8,9 @@ the update inserts its collectives itself (``utils/dist.py``): the batch's
 rows are spread over the processes, the terms that couple the batch are
 computed from gathered rows, and the gradients are summed before each
 optimizer step, so that every process holds the parameters that the
-single-process update on the whole batch would give. Only FBDDPG has such an
-update (other agents raise ``NotImplementedError``, ROADMAP item 14b).
+single-process update on the whole batch would give. Every agent of
+``agents.AGENTS`` has such an update: ``update(batch, generator, group)``
+and ``_update(batch, noise, group=group)``.
 """
 
 from __future__ import annotations
@@ -19,10 +20,9 @@ import typing as tp
 import torch
 import torch.distributed as dist
 
-from ..agents.fb_ddpg import UpdateNoise
 from ..data.replay import SampleConfig
 from ..train.loops import OfflineTrainer
-from ..utils.dist import Shard, require_data_parallel
+from ..utils.dist import Shard
 
 Metrics = tp.Dict[str, torch.Tensor]
 
@@ -44,18 +44,18 @@ def shard_batch(batch: tp.Any, group: tp.Any) -> tp.Any:
 
 
 def make_dp_trainer(agent: tp.Any, group: tp.Any
-                    ) -> tp.Callable[[tp.Any, tp.Union[UpdateNoise, torch.Generator]], Metrics]:
+                    ) -> tp.Callable[[tp.Any, tp.Any], Metrics]:
     """``dp_update(batch, noise)``: one data-parallel update of ``agent`` in
     place from the whole ``batch`` (each process keeps its rows) with the
-    global batch's ``noise`` (an ``UpdateNoise``, or a generator seeded alike
-    on every process to draw it from); returns the global batch's metrics."""
-    require_data_parallel(agent)
+    global batch's ``noise`` (the agent's noise dataclass, or a generator
+    seeded alike on every process to draw it from); returns the global
+    batch's metrics."""
 
-    def dp_update(batch: tp.Any, noise: tp.Union[UpdateNoise, torch.Generator]) -> Metrics:
+    def dp_update(batch: tp.Any, noise: tp.Any) -> Metrics:
         local = shard_batch(batch, group)
         if isinstance(noise, torch.Generator):
-            return agent.update(local, noise, group)
-        return agent._update(local, noise, group)
+            return agent.update(local, noise, group=group)
+        return agent._update(local, noise, group=group)
 
     return dp_update
 

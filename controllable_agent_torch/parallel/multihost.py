@@ -10,9 +10,9 @@ The JAX design for N hosts, kept here with a process per device:
   * each process holds its own replay shard (episode files round-robined by
     rank) and samples its rows of every batch from it, with a generator
     seeded by its rank, so no replay crosses processes;
-  * the update is the data-parallel FB update (``utils/dist.py``), its noise
-    drawn for the global batch from a generator seeded alike on every
-    process;
+  * the update is the agent's data-parallel update (``utils/dist.py``; any
+    agent of ``agents.AGENTS``), its noise drawn for the global batch from
+    a generator seeded alike on every process;
   * evaluation and checkpoints run on process 0 alone. Parameters are plain
     local tensors, so ``host_local_state`` has nothing to do.
 """

@@ -26,7 +26,7 @@ import torch
 from ..agents.base import MetaDict, StepNoise
 from ..data import replay as replay_lib
 from ..data.replay import ReplayState, SampleConfig
-from ..utils.dist import Shard, require_data_parallel
+from ..utils.dist import Shard
 from ..utils.graphs import WARMUP_RUNS, CapturedProgram
 
 class OfflineTrainer:
@@ -59,8 +59,6 @@ class OfflineTrainer:
         self.capture = on_cuda if capture is None else capture
         if self.capture and not on_cuda:
             raise ValueError("a CUDA graph needs the agent on a CUDA device")
-        if group is not None:
-            require_data_parallel(agent)
         self.agent, self.sample_cfg, self.batch_size = agent, sample_cfg, batch_size
         self.steps_per_call, self.with_future = steps_per_call, with_future
         self.group, self.shard = group, Shard(group)
@@ -92,7 +90,7 @@ class OfflineTrainer:
             if self.group is None:
                 metrics = self.agent.update(batch, generator)
             else:
-                metrics = self.agent.update(batch, generator, self.group)
+                metrics = self.agent.update(batch, generator, group=self.group)
             for k, v in metrics.items():
                 if k in self._sums:
                     self._sums[k] += v.float()

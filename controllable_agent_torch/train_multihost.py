@@ -5,10 +5,10 @@
     NCCL between cards, gloo with ``device=cpu``);
   * each process loads a disjoint replay shard (the ExORL episode files
     round-robined by rank), so no replay crosses processes;
-  * the update is data-parallel: each process samples its rows of every
-    batch from its shard, the FB loss couples the gathered rows and the
-    gradients are summed, so every process holds the same parameters
-    (FBDDPG only; another agent raises ``NotImplementedError``);
+  * the update is data-parallel, for every agent: each process samples its
+    rows of every batch from its shard, the terms that couple the batch (the
+    FB loss, ``pbe``'s neighbours, a covariance) take the gathered rows and
+    the gradients are summed, so every process holds the same parameters;
   * evaluation, the final battery and checkpoints run on process 0 only;
     every other process logs quietly into ``<folder>/host_<rank>``.
 

@@ -16,6 +16,13 @@ the single-process update unchanged. With a group, even of one process, the
 collectives run; they are identities at world size 1, so such an update
 equals the single-process one to the bit.
 
+Every agent's update is written so: it takes the noise of the global batch
+and keeps its rows (``Shard.noise``; a noise dataclass is a ``RowNoise``),
+differentiates its part of the global loss (``Shard.grad``: a mean over its
+rows, or a term that every process computes from gathered rows, scaled by
+``share``, the gradients summed over the group) and reports the global
+batch's metrics (``Shard.mean``).
+
 The collectives are the ones a CUDA graph can hold once the group's
 communicator exists (``all_gather_into_tensor`` and ``all_reduce`` on the
 current stream, no host read of their results).
@@ -83,6 +90,11 @@ class Shard:
         its rows into its part of the mean over the global batch."""
         return 1.0 / self.world
 
+    def noise(self, noise: tp.Any, local: int) -> tp.Any:
+        """This process's draws of the global batch's ``noise`` (a
+        ``RowNoise``), for a batch of ``local`` rows on each process."""
+        return noise if self.group is None else noise.rows(self.rows(local * self.world))
+
     def gather(self, x: Tensor) -> Tensor:
         """Every process's rows of ``x`` ([local, ...] each), concatenated in
         rank order; gradients reach this process's rows."""
@@ -98,10 +110,23 @@ class Shard:
         return [part.view_as(t) for part, t in zip(flat.split([t.numel() for t in tensors]),
                                                    tensors)]
 
+    def grad(self, loss: Tensor, params: tp.Sequence[Tensor], **kwargs: tp.Any
+             ) -> tp.List[Tensor]:
+        """The gradient of the global batch's loss with respect to
+        ``params``. ``loss`` is this process's part of it: a mean over its
+        rows, or a term that every process computes alike from gathered
+        rows, or a sum of both; the global loss is the mean of the parts over
+        the group. Each part is differentiated at ``share`` and the gradients
+        summed over the group (a parameter that the loss does not reach, with
+        ``materialize_grads``, keeps a zero gradient)."""
+        if self.group is None:
+            return list(torch.autograd.grad(loss, params, **kwargs))
+        return self.sum(torch.autograd.grad(loss * self.share, params, **kwargs))
+
     def mean(self, local_means: tp.Mapping[str, Tensor]) -> tp.Dict[str, Tensor]:
         """Means over this process's rows -> means over the global batch, on
         every process (one collective)."""
-        if self.group is None:
+        if self.group is None or not local_means:
             return dict(local_means)
         names = list(local_means)
         stacked = torch.stack([local_means[k].float() for k in names]) * self.share
@@ -125,9 +150,18 @@ class Shard:
                                              for f in dataclasses.fields(batch)})
 
 
-def require_data_parallel(agent: tp.Any) -> None:
-    """Raise unless ``agent``'s update runs data-parallel over a group."""
-    if not getattr(agent, "data_parallel", False):
-        raise NotImplementedError(
-            f"{type(agent).__name__} has no data-parallel update in "
-            f"controllable_agent_torch yet (ROADMAP Queue A item 14b); FBDDPGAgent has one")
+class RowNoise:
+    """Mixin of an update's noise dataclass whose fields are draws for the
+    rows of the global batch ([n, ...], None when not drawn), those named
+    in ``WHOLE`` excepted (a permutation of the global batch, a draw over
+    it): ``rows`` keeps a slice of the rows of the others."""
+
+    WHOLE: tp.ClassVar[tp.Tuple[str, ...]] = ()
+
+    def rows(self, rows: slice) -> tp.Any:
+        """The draws of the rows ``rows`` of the global batch."""
+        fields = dataclasses.fields(tp.cast(tp.Any, self))
+        parts = {f.name: getattr(self, f.name) for f in fields}
+        return dataclasses.replace(tp.cast(tp.Any, self), **{
+            name: value[rows] for name, value in parts.items()
+            if value is not None and name not in self.WHOLE})

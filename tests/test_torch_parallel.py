@@ -9,7 +9,9 @@ single-process parity tests (``tests/test_torch_fb_ddpg.py``: metrics and
 losses rtol 1e-4, atol 1e-5; parameters after Adam within 2 lr, with at
 most one entry per tensor or 1e-3 of it past 1e-3 lr). Every process must
 end with the same parameters to the bit, and at world size 1 the
-data-parallel update must equal the single-process one to the bit.
+data-parallel update must equal the single-process one to the bit. The
+trainers take every agent of ``AGENTS`` (the other agents' updates against
+JAX's are in ``tests/test_torch_parallel_agents*.py``).
 """
 
 import os
@@ -26,7 +28,7 @@ import torch.distributed as dist
 from controllable_agent_tpu.parallel import make_dp_trainer as jax_make_dp_trainer
 from controllable_agent_tpu.parallel import make_mesh
 from controllable_agent_tpu.parallel import shard_batch as jax_shard_batch
-from controllable_agent_torch.agents import DDPGAgent, DDPGConfig, FBDDPGAgent, FBDDPGConfig
+from controllable_agent_torch.agents import AGENTS, FBDDPGAgent, FBDDPGConfig
 from controllable_agent_torch.data import ReplayBuffer
 from controllable_agent_torch.data import replay as replay_lib
 from controllable_agent_torch.data.exorl import synthetic_episodes
@@ -36,6 +38,7 @@ from controllable_agent_torch.tools import dryrun_multichip
 from controllable_agent_torch.train.loops import OfflineTrainer
 from test_torch_fb_ddpg import (ACT, N, OBS, SMALL, _agents, _batch, _close, _close_params,
                                 jax_update_noise)
+import torch_dp_agents as dp_agents
 
 WORKER = Path(__file__).resolve().parent / "torch_dp_worker.py"
 SPAWN_TIMEOUT = 240  # seconds for the two processes together
@@ -266,14 +269,20 @@ def test_dp_offline_trainer_at_one_process_is_the_plain_trainer(one_process_grou
         assert torch.equal(dp.train_state()[name], value), name
 
 
-def test_other_agents_have_no_data_parallel_update(one_process_group) -> None:
-    agent = DDPGAgent(DDPGConfig(hidden_dim=32, batch_size=N), OBS, ACT, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14b"):
-        make_dp_trainer(agent, one_process_group)
+@pytest.mark.parametrize("name", sorted(AGENTS))
+def test_every_agent_has_a_data_parallel_update(one_process_group, name) -> None:
+    """``make_dp_trainer`` and ``MultiHostTrainer`` take every agent of
+    ``AGENTS``, and one data-parallel update at one process runs, with
+    finite metrics."""
+    case = dp_agents.CASES[dp_agents.AGENT_CASES[name]]
+    agent = dp_agents.port_agent(case)
     buffer = ReplayBuffer(max_episodes=6, discount=0.98, future=0.99, device="cpu")
     buffer.load_episodes(_episodes())
-    with pytest.raises(NotImplementedError, match="item 14b"):
-        multihost.MultiHostTrainer(agent, buffer, N, 1)
+    assert multihost.MultiHostTrainer(agent, buffer, N, 1).shard.world == 1
+    metrics = make_dp_trainer(agent, one_process_group)(
+        dp_agents.torch_batch(dp_agents.batch_arrays(case)), torch.Generator().manual_seed(0))
+    assert metrics and all(bool(torch.isfinite(v).all()) for v in metrics.values())
+    assert agent.step == 1
 
 
 def test_initialize_is_a_no_op_for_one_process() -> None:
@@ -293,3 +302,12 @@ def test_dryrun_multichip_at_two_processes() -> None:
     lines = dryrun_multichip.run(2, device="cpu", timeout=SPAWN_TIMEOUT)
     assert len(lines) == 2 and all(line.endswith("ok") for line in lines)
     assert lines[0].split(":")[1] == lines[1].split(":")[1]  # the same metrics
+
+
+def test_dryrun_multichip_with_rnd_at_two_processes() -> None:
+    """``agent=rnd``: RND's data-parallel update and an online cycle with the
+    group, the same parameters on both processes."""
+    lines = dryrun_multichip.run(2, device="cpu", timeout=SPAWN_TIMEOUT, agent="rnd")
+    assert len(lines) == 2 and all(line.endswith("ok") for line in lines)
+    assert all(": rnd " in line for line in lines)
+    assert lines[0].split(":")[1] == lines[1].split(":")[1]
