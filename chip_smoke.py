@@ -5,7 +5,7 @@
     python3 chip_smoke.py --phases 4,11,21
 
 Drives ``controllable_agent_torch`` (and nothing of the JAX package) in
-thirty-two phases, each printed on its own lines with its seconds; any
+thirty-three phases, each printed on its own lines with its seconds; any
 failure exits non-zero. A selection always builds the kernels (phase 1),
 and builds the least of what its phases read from earlier ones: phase 4's
 workspace for phases 5-11 and its folder for phase 31 (by running phase 4), its episodes on disk for
@@ -199,7 +199,7 @@ running phase 15), one collected quadruped cycle for phase 22. The phases:
      1]; then ``train_offline agent=goal_td3`` on that run's replay. No
      fused FB kernel is on phases 26-28: their launches must be 0 by both
      counts;
- 29. d4rl, this slice's main path: a synthetic dataset of
+ 29. d4rl, an earlier slice's main path: a synthetic dataset of
      halfcheetah-medium-v2's shape (1,000 episodes x 1,000 rows, timeouts,
      observations 17, actions 6) written as ``.npz``;
      ``train_offline.main task=d4rl_halfcheetah d4rl_dataset=...`` at the
@@ -248,7 +248,23 @@ running phase 15), one collected quadruped cycle for phase 22. The phases:
      ``train_multihost.main agent=rnd`` with one NCCL process on phase 4's
      episodes (300 updates, one evaluation and a checkpoint, one capture).
      No fused FB kernel runs on this phase: their launches must be 0 by both
-     counts.
+     counts;
+ 33. the dm_control tools' device halves at full width, this slice's main
+     path (``tools/collect_mujoco_buffer.py``, ``tools/eval_mujoco.py``):
+     (a) the collector's ``Collector`` with RND at its defaults (batch 1024)
+     on eight synthetic episodes in dm_control walker's layout (obs 24,
+     action 6, MuJoCo physics 18 near the standing pose): five bursts of 100
+     captured updates (one capture), then 1,000 acts of its policy with one
+     refresh of the acting copy; (b) ``train_offline
+     physics_format=mujoco_walker`` on those episodes, written as ``.npz``,
+     at the JAX FB defaults in bf16 with the fused loss, 300 updates: the
+     fused launches equal the updates + 2 by both counts; (c) the
+     evaluator's ``Evaluator`` on (b)'s folder: z for walker stand, walk and
+     run as the spherical mean of 8 draws of 5,120 samples (each draw's
+     coherence printed), then 1,000 acts per task from adapted MuJoCo states,
+     each act deterministic; (d) where ``importlib.util.find_spec`` finds
+     dm_control, the host loops too (3 collected episodes, 2 evaluation
+     episodes per task); else a line naming the missing package.
 
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -260,6 +276,7 @@ from __future__ import annotations
 import csv
 import dataclasses
 import gc
+import importlib.util
 import json
 import math
 import re
@@ -285,6 +302,7 @@ from controllable_agent_torch import (_build, anytrain, export_replay, play_beha
 from controllable_agent_torch.agents import (FEATURE_LEARNERS, DDPGAgent, DDPGConfig, DDPGNoise,
                                              DiscreteFBAgent, DiscreteFBConfig, DiscreteSFAgent,
                                              DiscreteSFConfig, FBDDPGAgent, FBDDPGConfig, RNDAgent,
+                                             RNDConfig,
                                              SFAgent, SFConfig, SFSVDAgent, SFSVDConfig,
                                              UpdateNoise, agent_classes)
 from controllable_agent_torch.agents.sf import normalized_solution
@@ -295,6 +313,7 @@ from controllable_agent_torch.data.exorl import (load_exorl_episodes, save_exorl
                                                  synthetic_episodes)
 from controllable_agent_torch.demo import serve
 from controllable_agent_torch.envs import build_gridworld_task, gridworld, locomotion
+from controllable_agent_torch.envs.base import EnvSpec
 from controllable_agent_torch.envs.pixels import make_pixel_env
 from controllable_agent_torch.goals import get_reward_function
 from controllable_agent_torch.goals.rewards import MazeMultiGoal
@@ -306,7 +325,8 @@ from controllable_agent_torch.orchestration import EntryPoint
 from controllable_agent_torch.parallel import make_dp_offline_trainer, make_group, multihost
 from controllable_agent_torch.pretrain import build_workspace
 from controllable_agent_torch.train.workspace import OfflineWorkspace, make_env
-from controllable_agent_torch.tools import dynamics_check, env_step
+from controllable_agent_torch.tools import (collect_mujoco_buffer, dynamics_check, env_step,
+                                            eval_mujoco, mujoco_bridge)
 from controllable_agent_torch.train import checkpoint as ckpt_lib
 from controllable_agent_torch.train import hiplogs
 from controllable_agent_torch.train.loops import (WARMUP_RUNS, CapturedProgram,
@@ -417,7 +437,14 @@ DP_AGENTS = (("ddpg", {}), ("rnd", {}), ("icm_apt", {}), ("proto", {}),
              ("sf", {"mix_ratio": 0.5}), ("discrete_fb", {"q_loss": True}))
 # updates held to the plain ones to the bit; timed a turn, in turns (plain, dp, dp, plain)
 DP_AGENT_UPDATES, DP_AGENT_TIMED = 20, 50
-LAST_PHASE = 32
+# phase 33: the dm_control tools' device halves at full width
+MJ_EPISODES = 8  # synthetic episodes in dm_control walker's layout (obs 24, action 6, physics 18)
+MJ_BURSTS = 5  # bursts of collect_mujoco_buffer.UPDATES_PER_CALL captured RND updates
+MJ_ACTS = 1000  # acts of the collector's policy, and of the evaluator's for each task
+MJ_OFFLINE_STEPS = 300  # train_offline physics_format=mujoco_walker, the fused loss
+MJ_TASKS = ("walker_stand", "walker_walk", "walker_run")
+MJ_HOST_EPISODES, MJ_HOST_EVAL_EPISODES = 3, 2  # (d), where dm_control is installed
+LAST_PHASE = 33
 F32_EPS = float(torch.finfo(torch.float32).eps)
 HBM_BYTES_PER_S = 3.35e12
 FWD_RTOL = 2e-4  # as tests/test_pallas_fb.py: order of f32 sums over n^2
@@ -3032,6 +3059,202 @@ def check_serving(tmp: str) -> None:
         raise AssertionError(f"bad play_behaviors output: {written}, {videos}")
 
 
+def mujoco_walker_episodes(n: int, seed: int) -> tp.List[tp.Dict[str, np.ndarray]]:
+    """Episodes in dm_control walker's layout: normal observations (24),
+    uniform actions (6), MuJoCo physics [qpos, qvel] (18) near the standing
+    pose (qpos = [rootz, rootx, rooty, six joints], the 1.3 m torso offset in
+    the model), uniform rewards, discount 1; float32, as the collector saves."""
+    rng = np.random.RandomState(seed)
+    t = EPISODE_LENGTH + 1
+    episodes = []
+    for _ in range(n):
+        qpos = np.concatenate([rng.uniform(-0.1, 0.05, (t, 1)), rng.uniform(-1, 1, (t, 1)),
+                               rng.uniform(-0.3, 0.3, (t, 1)), rng.uniform(-0.5, 0.5, (t, 6))],
+                              -1)
+        episodes.append({
+            "observation": rng.randn(t, OBS_DIM).astype(np.float32),
+            "action": rng.uniform(-1, 1, (t, ACTION_DIM)).astype(np.float32),
+            "reward": rng.rand(t, 1).astype(np.float32),
+            "discount": np.ones((t, 1), np.float32),
+            "physics": np.concatenate([qpos, rng.randn(t, 9)], -1).astype(np.float32)})
+    return episodes
+
+
+def _timed_acts(act: tp.Callable[[int], np.ndarray]) -> tp.Tuple[np.ndarray, float]:
+    """MJ_ACTS calls of ``act(i)`` (each returns on the host, so the last
+    waited for the card); what they returned and the ms per call."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    actions = np.stack([act(i) for i in range(MJ_ACTS)])
+    return actions, 1e3 * (time.perf_counter() - t0) / MJ_ACTS
+
+
+def _check_actions(what: str, actions: np.ndarray) -> None:
+    if actions.shape != (MJ_ACTS, ACTION_DIM) or not np.isfinite(actions).all() \
+            or np.abs(actions).max() > 1.0:
+        raise AssertionError(f"{what}: bad actions {actions.shape}, "
+                             f"max |a| {np.abs(actions).max()}")
+
+
+def check_mujoco_collector(tmp: str, card: str) -> Path:
+    """Phase 33 (a): the collector's device half at RND's defaults; returns
+    the directory its episodes were written to."""
+    spec = EnvSpec(obs_dim=OBS_DIM, action_dim=ACTION_DIM, physics_dim=PHYSICS_DIM,
+                   episode_length=EPISODE_LENGTH)
+    collector = collect_mujoco_buffer.Collector(
+        "rnd", spec, MJ_EPISODES, batch_size=RNDConfig().batch_size,
+        random_episodes=MJ_EPISODES, seed=SEED, device="cuda")
+    episodes = mujoco_walker_episodes(MJ_EPISODES, SEED)
+    out = Path(tmp) / "mujoco_episodes"
+    out.mkdir()
+    for i, episode in enumerate(episodes):
+        np.savez(out / f"episode_{i:06d}_{EPISODE_LENGTH}.npz", **episode)
+        collector.add_episode(episode)
+    rates, metrics = [], {}
+    for _ in range(MJ_BURSTS):
+        metrics, seconds = _timed(lambda: collector.train(1))
+        rates.append(collect_mujoco_buffer.UPDATES_PER_CALL / seconds)
+    cfg = collector.agent.cfg
+    print(f"phase 33 (a) collector: RND (hidden {cfg.hidden_dim}, rep {cfg.rnd_rep_dim}, batch "
+          f"{cfg.batch_size}, n-step {collector.buffer.cfg.nstep}) on {MJ_EPISODES} episodes "
+          f"of dm_control walker's layout: {MJ_BURSTS} bursts of "
+          f"{collect_mujoco_buffer.UPDATES_PER_CALL} updates, {collector.trainer.captures} "
+          f"capture(s); updates/s by burst (the first with its capture) "
+          + ", ".join(f"{r:.1f}" for r in rates) + f"; on {card}")
+    if collector.trainer.captures != 1 or collector.agent.step != MJ_BURSTS * 100 \
+            or collector.buffer.cfg.nstep != cfg.nstep \
+            or not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"the collector's bursts: {collector.trainer.captures} captures, "
+                             f"step {collector.agent.step}, {metrics}")
+    obs = episodes[0]["observation"]
+    step = MJ_EPISODES * EPISODE_LENGTH  # past num_expl_steps: the policy's own actions
+    collector.refresh_policy()
+
+    def act(i: int) -> np.ndarray:
+        if i == MJ_ACTS // 2:
+            collector.refresh_policy()
+        return collector.act(obs[i], step + i)
+
+    actions, ms = _timed_acts(act)
+    _check_actions("the collector's policy", actions)
+    print(f"phase 33 (a) collector: {MJ_ACTS} acts of the exploration policy at obs width "
+          f"{OBS_DIM} (one observation up, one action down; one refresh of the acting copy "
+          f"among them) {ms:.4f} ms per act; on {card}")
+    return out
+
+
+def run_mujoco_offline(tmp: str, episodes_dir: Path, card: str) -> tp.Dict[str, int]:
+    """Phase 33 (b): ``train_offline physics_format=mujoco_walker`` on (a)'s
+    episodes at the JAX FB defaults, bf16, the fused loss."""
+    ff.reset_launches()
+    ws, wall = _timed(lambda: train_offline.main([
+        f"replay_dir={episodes_dir}", "physics_format=mujoco_walker", "task=walker_walk",
+        "relabel=true", "agent=fb_ddpg", "agent.use_pallas_loss=true",
+        "agent.compute_dtype=bfloat16", f"num_grad_steps={MJ_OFFLINE_STEPS}",
+        f"steps_per_call={STEPS_PER_CALL}", f"log_every_steps={STEPS_PER_CALL}",
+        "eval_every_steps=0", "checkpoint_every=0", "final_tests=0", "save_eval_video=false",
+        f"replay_buffer_episodes={MJ_EPISODES}", f"folder={tmp}/mujoco_run", f"seed={SEED}"]))
+    counts, ran = dict(ff.launches), ff.device_runs()
+    expected = MJ_OFFLINE_STEPS + WARMUP_RUNS
+    print(f"phase 33 (b) train_offline physics_format=mujoco_walker: {len(ws.buffer)} "
+          f"episodes, observations recomputed from the adapted physics, relabeled for "
+          f"walker_walk; {ws.global_step} updates as replays of one captured graph in "
+          f"{wall:.1f} s (the load and the capture included), {ws.last_row['fps']:.1f} "
+          f"updates/s over the last {STEPS_PER_CALL}; fused launches {counts} by the "
+          f"wrappers' counts, {ran} by the kernels' own (expected {expected} each); on {card}")
+    if len(ws.buffer) != MJ_EPISODES or ws.global_step != MJ_OFFLINE_STEPS \
+            or any(c != expected for c in counts.values()) or ran != counts \
+            or not all(math.isfinite(v) for v in ws.last_row.values()):
+        raise AssertionError(f"the mujoco_walker run: {counts}, {ran}, {ws.last_row}")
+    return counts
+
+
+def check_mujoco_evaluator(tmp: str, episodes_dir: Path, card: str) -> None:
+    """Phase 33 (c) and (d): the evaluator's device half on (b)'s folder, and
+    the host loops where dm_control is installed."""
+    evaluator = eval_mujoco.Evaluator.build([f"folder={tmp}/mujoco_run"], "cuda")
+    loaded = evaluator.load_episodes(episodes_dir, MJ_EPISODES)
+    ws = evaluator.ws
+    if ws.global_step != MJ_OFFLINE_STEPS or loaded != MJ_EPISODES:
+        raise AssertionError(f"the evaluator's workspace: step {ws.global_step}, {loaded} "
+                             f"episodes")
+    states = np.load(episodes_dir / f"episode_000000_{EPISODE_LENGTH}.npz")["physics"]
+    z_dim = ws.agent.cfg.z_dim
+    zs = {}
+    for task in MJ_TASKS:
+        (z, coherence), z_s = _timed(lambda: evaluator.infer_z(
+            get_reward_function(task, ws.cfg.seed)))
+        act = evaluator.make_act(z)
+        _, obs_ms = _timed_acts(lambda i: evaluator.obs_from_state(states[i]))
+        actions, ms = _timed_acts(lambda i: act(evaluator.obs_from_state(states[i])))
+        _check_actions(f"the evaluator's policy on {task}", actions)
+        again = act(evaluator.obs_from_state(states[0]))
+        print(f"phase 33 (c) evaluator {task}: z from {evaluator.z_draws} draws of "
+              f"{ws.agent.cfg.num_inference_steps} samples in {1e3 * z_s:.1f} ms, coherence "
+              f"{coherence:.4f}, |z| {float(z.norm()):.4f}; {MJ_ACTS} acts from adapted MuJoCo "
+              f"states (the observation on the host, the policy on the card) {ms:.4f} ms per "
+              f"act, of which the observation alone {obs_ms:.4f} ms; the same action again for the same state {np.array_equal(again, actions[0])}"
+              f"; on {card}")
+        if not (bool(torch.isfinite(z).all()) and math.isclose(float(z.norm()), math.sqrt(z_dim),
+                                                               rel_tol=1e-4)
+                and 0.0 < coherence <= 1.0 + 1e-6 and np.array_equal(again, actions[0])):
+            raise AssertionError(f"{task}: z {z}, coherence {coherence}")
+        zs[task] = z
+    if importlib.util.find_spec("dm_control") is None:
+        print("phase 33 (d): dm_control is not installed on this machine "
+              "(importlib.util.find_spec): the host loops are held on the CPU by "
+              "tests/test_torch_collect_mujoco.py and tests/test_torch_eval_mujoco.py")
+        return
+    mujoco_host_loops(tmp, evaluator, zs, card)
+
+
+def mujoco_host_loops(tmp: str, evaluator: tp.Any, zs: tp.Dict[str, torch.Tensor],
+                      card: str) -> None:
+    """Phase 33 (d): the collector's host loop over real dm_control episodes
+    (one random, then the policy's), and the evaluator's rollouts."""
+    env = mujoco_bridge.make_env("walker_stand", seed=SEED)
+    ts = env.reset()
+    spec = EnvSpec(obs_dim=collect_mujoco_buffer.flat_obs(ts).shape[0],
+                   action_dim=int(np.prod(env.action_spec().shape)),
+                   physics_dim=mujoco_bridge.mj_state(env).shape[0],
+                   episode_length=EPISODE_LENGTH)
+    collector = collect_mujoco_buffer.Collector("rnd", spec, MJ_HOST_EPISODES,
+                                                batch_size=RNDConfig().batch_size,
+                                                random_episodes=1, seed=SEED,
+                                                device=evaluator.ws.device)
+    seconds, wall = _timed(lambda: collect_mujoco_buffer.collect(
+        env, collector, Path(tmp) / "host_episodes", MJ_HOST_EPISODES, random_episodes=1,
+        updates_per_episode=500, policy_refresh_every=1, seed=SEED))
+    written = sorted((Path(tmp) / "host_episodes").glob("*.npz"))
+    print(f"phase 33 (d) collector on dm_control walker_stand: {len(written)} episodes of "
+          f"{EPISODE_LENGTH} steps in {wall:.1f} s (" + ", ".join(
+              f"{part} {t:.1f} s" for part, t in seconds.items())
+          + f"); {collector.updates} updates; on {card}")
+    if len(written) != MJ_HOST_EPISODES or len(collector.buffer) != MJ_HOST_EPISODES:
+        raise AssertionError(f"the host collector wrote {len(written)} episodes")
+    for task, z in zs.items():
+        returns, wall = _timed(lambda: evaluator.returns(
+            mujoco_bridge.make_env(task, seed=SEED), z, MJ_HOST_EVAL_EPISODES, EPISODE_LENGTH))
+        print(f"phase 33 (d) evaluator on dm_control {task}: returns "
+              f"{[round(r, 2) for r in returns]} in {wall:.1f} s; on {card}")
+        if len(returns) != MJ_HOST_EVAL_EPISODES or not all(
+                math.isfinite(r) and 0.0 <= r <= EPISODE_LENGTH for r in returns):
+            raise AssertionError(f"{task}: returns {returns}")
+
+
+def check_mujoco_tools(tmp: str) -> tp.Dict[str, int]:
+    """Phase 33: the dm_control tools' device halves; the fused launches of (b)."""
+    card = card_name_and_power_limit()
+    episodes_dir = check_mujoco_collector(tmp, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts = run_mujoco_offline(tmp, episodes_dir, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_mujoco_evaluator(tmp, episodes_dir, card)
+    return counts
+
+
 def measure_fb_rate() -> float:
     """FB's captured updates/s at phase 4's geometry (bf16, the fused loss,
     batch 1024) on its episodes, for a selection of phases without phase 4:
@@ -3272,6 +3495,15 @@ class SmokeRun:
         torch.cuda.empty_cache()
         self.zero_launches((32,), "data-parallel agents (phase 32)", (
             (32, lambda: check_dp_agents(tmp, self.episodes_dir())),))
+        gc.collect()
+        torch.cuda.empty_cache()
+        if 33 in selected:
+            # this slice's main path: the kernels' launches of its train_offline leg
+            mujoco_counts = self.timed(33, lambda: check_mujoco_tools(tmp))
+            for row in self.rows or []:
+                row["launches"] = mujoco_counts[row["wrapper"]]
+            self.by_path("train_offline physics_format=mujoco_walker (phase 33)",
+                         mujoco_counts)
 
 
 def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:

@@ -1,4 +1,4 @@
-"""Read a checkpoint folder of the JAX package into the port's agent.
+"""Read a checkpoint folder of the JAX package into the port's agent and replay.
 
 ``controllable_agent_tpu/train/checkpoint.py`` writes ``agent.msgpack``
 (``flax.serialization.to_bytes`` of the agent's train state) and
@@ -14,6 +14,9 @@ Every array comes back as a ``torch.Tensor``: Adam's first moment is
 bfloat16, which numpy lacks. The decoded tree is a nested dict named as
 ``flax.serialization.to_state_dict`` names it (dataclass fields by name,
 tuples by position); ``convert.load_train_state`` takes it from there.
+``replay.msgpack`` (the raw dict of JAX ``train/checkpoint.py:_replay_raw``:
+``storage``, ``ep_lengths``, ``n_episodes``, ``idx``) with ``meta.json``'s
+``replay_statics`` becomes the port's ``ReplayState`` (``load_replay``).
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ from pathlib import Path
 import torch
 
 from ..convert import load_train_state
+from ..data.replay import ReplayState
+from ..utils.device import DeviceLike, resolve_device
 
 EXT_NDARRAY, EXT_NPSCALAR = 1, 3
 _DTYPES = {name: getattr(torch, name) for name in (
@@ -147,3 +152,25 @@ def load_agent(path: tp.Union[str, Path], agent: tp.Any) -> tp.Dict[str, int]:
     load_train_state(agent, restore((path / "agent.msgpack").read_bytes()))
     return {"global_step": int(meta["global_step"]),
             "global_episode": int(meta["global_episode"])}
+
+
+def load_replay(path: tp.Union[str, Path], device: DeviceLike = None) -> ReplayState:
+    """``path/replay.msgpack`` as the port's ``ReplayState`` on ``device``:
+    every storage array as saved (all ``max_episodes`` slots, unfilled ones
+    zero), ``ep_lengths`` as the port's int64, and ``n_episodes`` and ``idx``
+    as the host counters the port keeps. The sampler reads only
+    ``ep_lengths`` on the device (an empty slot has length 0), so no count
+    of the fill level needs setting there."""
+    path = Path(path)
+    meta = json.loads((path / "meta.json").read_text())
+    if "replay" not in meta["keys"]:
+        raise ValueError(f"checkpoint {path} holds no replay")
+    raw = restore((path / "replay.msgpack").read_bytes())
+    statics = meta["replay_statics"]
+    dev = resolve_device(device)
+    return ReplayState(
+        storage={name: v.to(dev) for name, v in raw["storage"].items()},
+        ep_lengths=raw["ep_lengths"].to(dev, torch.int64),
+        n_episodes=int(raw["n_episodes"]), idx=int(raw["idx"]),
+        max_episodes=int(statics["max_episodes"]),
+        max_episode_length=int(statics["max_episode_length"]))

@@ -534,17 +534,17 @@ class Workspace:
                         only: tp.Optional[tp.Sequence[str]] = None,
                         exclude: tp.Sequence[str] = ()) -> None:
         if (Path(path) / "agent.msgpack").exists():
-            # a checkpoint of the JAX package: the agent and the counters
-            # (its replay is not read; the generator starts from the seed)
-            if only is not None and "replay" in only and "replay" not in exclude:
-                raise ValueError(
-                    f"checkpoint {path} is a folder of the JAX package: the port reads its "
-                    f"agent and counters, not its replay (load_replay= takes a checkpoint "
-                    f"of the port, replay_dir= episodes)")
-            if (only is None or "agent" in only) and "agent" not in exclude:
+            # a checkpoint of the JAX package: the agent with the counters, and
+            # its replay where it saved one (the generator starts from the seed)
+            def wanted(key: str) -> bool:
+                return (only is None or key in only) and key not in exclude
+
+            if wanted("agent"):
                 meta = jax_checkpoint.load_agent(path, self.agent)
                 self.global_step = meta["global_step"]
                 self.global_episode = meta["global_episode"]
+            if wanted("replay") and (Path(path) / "replay.msgpack").exists():
+                self.buffer.state = jax_checkpoint.load_replay(path, self.device)
             return
         out = ckpt_lib.load_checkpoint(path, only=only, exclude=exclude,
                                        device=self.device)

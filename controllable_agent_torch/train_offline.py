@@ -17,6 +17,9 @@ steps:
         task=walker_walk goal_space=walker_pos_speed_z \\
         load_replay=exp_rnd/models/latest relabel=true
 
+``load_replay=`` takes a checkpoint folder of the port (``replay.pt``) or of
+the JAX package (``replay.msgpack``).
+
 ``physics_format=mujoco_walker`` (``_cheetah``, ``_hopper``) converts
 dm_control physics to the native layout and recomputes the observations
 from it. The run writes ``train.csv``, ``hip.log`` and
@@ -53,12 +56,15 @@ import typing as tp
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from .data.d4rl import load_d4rl_dataset
 from .data.exorl import load_exorl_episodes
+from .data.replay import ReplayState
 from .goals import get_reward_function
 from .pretrain import build_config, wants_help
 from .train import checkpoint as ckpt_lib
+from .train import jax_checkpoint
 from .train.workspace import OfflineWorkspace, make_env
 from .utils import resolve_device
 
@@ -109,11 +115,10 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> tp.Optional[OfflineWorks
         episodes = itertools.chain([first], episodes)
     elif load_replay is not None:
         # read once, straight onto the run's device
-        restored = ckpt_lib.load_checkpoint(Path(load_replay), only=["replay"],
-                                            device=resolve_device(cfg.device))
-        if "replay" not in restored or restored["replay"].n_episodes == 0:
+        replay = read_replay(Path(load_replay), resolve_device(cfg.device))
+        if replay is None or replay.n_episodes == 0:
             raise ValueError(f"no episodes in {load_replay}")
-        first = restored["replay"].storage
+        first = replay.storage
     elif not (cfg.task.startswith("d4rl_") and cfg.d4rl_dataset is not None):
         raise ValueError("train_offline needs replay_dir=<directory of .npz "
                          "episodes>, load_replay=<checkpoint> or, for a d4rl_* task, "
@@ -136,7 +141,7 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> tp.Optional[OfflineWorks
     if episodes is not None:
         ws.buffer.load_episodes(episodes)
     else:
-        ws.buffer.state = restored["replay"]  # the replay of a checkpoint only
+        ws.buffer.state = replay  # the replay of a checkpoint only
     # rewards for the target task and the goal column for the requested goal
     # space from the stored physics, on the buffer's device (the JAX package
     # relabels episodes one at a time on the host before loading them)
@@ -146,6 +151,14 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> tp.Optional[OfflineWorks
         ws.buffer.set_goals(ws.goal_fn)
     ws.train()
     return _print_z(ws)
+
+
+def read_replay(path: Path, device: torch.device) -> tp.Optional[ReplayState]:
+    """The replay of a checkpoint folder of the port (``replay.pt``) or of the
+    JAX package (``replay.msgpack``) on ``device``; None when it saved none."""
+    if (path / "replay.msgpack").exists():
+        return jax_checkpoint.load_replay(path, device)
+    return ckpt_lib.load_checkpoint(path, only=["replay"], device=device).get("replay")
 
 
 def _print_z(ws: OfflineWorkspace) -> OfflineWorkspace:

@@ -157,19 +157,50 @@ def test_load_model_takes_a_jax_checkpoint(jax_folder, tmp_path) -> None:
 
 def test_only_and_exclude_hold_for_a_jax_folder(jax_folder, tmp_path) -> None:
     """``load_checkpoint`` of a JAX folder honours ``exclude`` and ``only``:
-    an excluded agent is left alone, and the replay, which the port does not
-    read from such a folder, is refused where it is asked for alone."""
+    an excluded agent is left alone, an excluded replay is not read, and
+    ``only=["replay"]`` reads the replay and neither the agent nor the
+    counters."""
     _, folder = jax_folder
     tws = build_workspace(ARGS + ["device=cpu", f"folder={tmp_path}/torch"])
     before = {k: v.clone() for k, v in tws.agent.train_state().items()}
-    tws.load_checkpoint(folder, exclude=["agent"])
+    tws.load_checkpoint(folder, exclude=["agent", "replay"])
     tws.load_checkpoint(folder, only=["global_step"])
-    assert tws.global_step == 0 and tws.agent.step == 0
+    assert tws.global_step == 0 and tws.agent.step == 0 and len(tws.buffer) == 0
     assert all(torch.equal(v, before[k]) for k, v in tws.agent.train_state().items())
-    with pytest.raises(ValueError, match="not its replay"):
-        tws.load_checkpoint(folder, only=["replay"])
+    tws.load_checkpoint(folder, only=["replay"])
+    assert len(tws.buffer) == 3 and tws.global_step == 0 and tws.agent.step == 0
+    assert all(torch.equal(v, before[k]) for k, v in tws.agent.train_state().items())
+    tws.buffer.state = None
     tws.load_checkpoint(folder, only=["agent", "replay"], exclude=["replay"])
-    assert tws.global_step == 7 and tws.agent.step == 1
+    assert tws.global_step == 7 and tws.agent.step == 1 and len(tws.buffer) == 0
+
+
+def test_jax_replay_reads_back_to_the_bit_and_trains(jax_folder, tmp_path) -> None:
+    """``replay.msgpack`` of a JAX folder as the port's ``ReplayState``: every
+    storage array, ``ep_lengths``, ``n_episodes`` and ``idx`` equal to the
+    JAX replay's to the bit; then ``train_offline load_replay=`` of the
+    folder trains on it (its stored rewards: the episodes have no physics)."""
+    jws, folder = jax_folder
+    want = jax.tree.map(np.asarray, jws.buffer.state)
+    got = jax_checkpoint.load_replay(folder, "cpu")
+    assert set(got.storage) == set(want.storage) == {"observation", "action", "reward",
+                                                     "discount"}
+    for name, values in want.storage.items():
+        assert str(got.storage[name].dtype).split(".")[1] == values.dtype.name, name
+        np.testing.assert_array_equal(got.storage[name].numpy(), values, name)
+    np.testing.assert_array_equal(got.ep_lengths.numpy(), want.ep_lengths)
+    assert got.ep_lengths.dtype == torch.int64
+    assert (got.n_episodes, got.idx) == (int(want.n_episodes), int(want.idx)) == (3, 3)
+    assert (got.max_episodes, got.max_episode_length) == (want.max_episodes,
+                                                          want.max_episode_length)
+    ws = train_offline.main(ARGS + [
+        f"load_replay={folder}", "relabel=false", "device=cpu", "num_grad_steps=4",
+        "steps_per_call=2", "log_every_steps=2", "eval_every_steps=0",
+        "agent.num_inference_steps=32", f"folder={tmp_path}/offline"])
+    assert ws.global_step == 4 and ws.agent.step == 4 and len(ws.buffer) == 3
+    for name, values in want.storage.items():
+        np.testing.assert_array_equal(ws.buffer.state.storage[name].numpy(), values, name)
+    assert all(np.isfinite(v) for v in ws.last_row.values())
 
 
 def test_cli_scores_a_jax_checkpoint(jax_folder, tmp_path) -> None:

@@ -2,7 +2,8 @@
 ``chip_smoke.py``), read with ``ast``; nothing here runs the port.
 
   * the port imports nothing of JAX, no msgpack package (the card's machine
-    has none) and nothing of the JAX package;
+    has none), nothing of the JAX package and nothing of the root ``tools``
+    package (the port keeps its own copies);
   * in ``ops/fused_fb.py`` every kernel's plain version has its wrapper
     beside it, and the wrapper takes that plain version for CPU tensors and
     counts its launches.
@@ -16,7 +17,7 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "controllable_agent_torch"
 PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack", "controllable_agent_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack", "controllable_agent_tpu", "tools"}
 FUSED = PORT / "ops" / "fused_fb.py"
 
 
@@ -71,7 +72,11 @@ def test_port_has_modules_to_check() -> None:
             "controllable_agent_torch/train/hiplogs.py",
             "controllable_agent_torch/tools/z_study.py",
             "controllable_agent_torch/tools/replay_stats.py",
-            "controllable_agent_torch/tools/buffer_stats.py"} <= names
+            "controllable_agent_torch/tools/buffer_stats.py",
+            "controllable_agent_torch/tools/mujoco_bridge.py",
+            "controllable_agent_torch/tools/eval_mujoco.py",
+            "controllable_agent_torch/tools/collect_mujoco_buffer.py",
+            "controllable_agent_torch/tools/gen_parity_report.py"} <= names
 
 
 def test_engine_differentiates_by_hand() -> None:
