@@ -5,7 +5,7 @@
     python3 chip_smoke.py --phases 4,11,21
 
 Drives ``controllable_agent_torch`` (and nothing of the JAX package) in
-thirty-three phases, each printed on its own lines with its seconds; any
+thirty-four phases, each printed on its own lines with its seconds; any
 failure exits non-zero. A selection always builds the kernels (phase 1),
 and builds the least of what its phases read from earlier ones: phase 4's
 workspace for phases 5-11 and its folder for phase 31 (by running phase 4), its episodes on disk for
@@ -131,12 +131,12 @@ running phase 15), one collected quadruped cycle for phase 22. The phases:
  20. the 3-D engine on the card: ``forward_dynamics`` and one control step of
      the quadruped on flat ground, on an escape terrain and of jaco on 4,096
      random states against float64 on the CPU (``tools/dynamics_check.py``,
-     each model's allowance); for each of the eight quadruped tasks and
-     jaco, a full-width FB policy's rollout of 10 episodes over 20 steps as
-     replays of one captured control step against eager, to the bit; the
-     kernel launches and device ms per control step of stand, escape, fetch
-     and jaco under the profiler; ``env.step`` alone at 10, 1,024 and 16,384
-     environments for stand, at 10 and 1,024 for escape and fetch
+     each model's allowance); for stand, escape, fetch and jaco (the other
+     quadruped tasks step stand's physics), a full-width FB policy's
+     rollout of 10 episodes over 20 steps as replays of one captured control
+     step against eager, to the bit, and the kernel launches and device ms
+     per control step under the profiler; ``env.step`` alone at 10, 1,024
+     and 16,384 environments for stand, at 10 for escape and fetch
      (``tools/env_step.py``), and one copy of 16,384 escape terrains;
  21. this slice's main path, the recipe of ``results/quad_one`` with only
      the cycles and the cycle's size short: ``train_online.main``
@@ -173,7 +173,7 @@ running phase 15), one collected quadruped cycle for phase 22. The phases:
      pixel updates captured against eager on a twin, to the bit; the
      captured update with cuDNN's TF32 off and on;
  25. the five explorers (DIAYN, ICM, ICM-APT, Disagreement, MaxEnt) at the
-     JAX defaults, 100 updates each captured against eager on a twin, to
+     JAX defaults, 50 updates each captured against eager on a twin, to
      the bit; ``pretrain agent=diayn`` with the skill resampled in the
      captured collector. No fused FB kernel is on phases 23-25: their
      launches must be 0 by both counts;
@@ -183,7 +183,7 @@ running phase 15), one collected quadruped cycle for phase 22. The phases:
      Proto on phase 4's walker-shaped episodes with the meta column each
      reads (``task``, ``z``), UVF, GoalTD3 and GoalSM with
      ``goal_space=simplified_point_mass_maze`` on maze-shaped episodes with
-     2-D goals and a ``g`` column; 100 updates each captured against eager
+     2-D goals and a ``g`` column; 50 updates each captured against eager
      on a twin, to the bit, with updates/s both ways, launches and device
      ms per update and the peak memory;
  27. ``pretrain agent={aps,new_aps,smm,proto} task=walker_walk`` at full
@@ -264,7 +264,16 @@ running phase 15), one collected quadruped cycle for phase 22. The phases:
      coherence printed), then 1,000 acts per task from adapted MuJoCo states,
      each act deterministic; (d) where ``importlib.util.find_spec`` finds
      dm_control, the host loops too (3 collected episodes, 2 evaluation
-     episodes per task); else a line naming the missing package.
+     episodes per task); else a line naming the missing package;
+ 34. the port's benchmark harness at full width with fewer calls: ``tools/bench.py``
+     (one round of 5 calls of 200 updates; its JSON line), ``tools/bench_roofline.py``
+     (batch 1024, one round of 5 calls of 50; ``flops_per_update`` must equal the
+     count from the networks' shapes, 61,985,792,000), ``tools/bench_breakdown.py``
+     (one round of 3 calls of each program), ``tools/bench_scaling.py`` at world size 1
+     on one NCCL process, and ``tools/gen_scaling_record.py`` (4 updates of
+     ``train_multihost`` in 2 gloo processes, a dry run of 2): each line's keys are the
+     JAX tool's and every value is finite and positive. The harness times the plain
+     loss: the fused launches must be 0 by both counts.
 
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -325,8 +334,9 @@ from controllable_agent_torch.orchestration import EntryPoint
 from controllable_agent_torch.parallel import make_dp_offline_trainer, make_group, multihost
 from controllable_agent_torch.pretrain import build_workspace
 from controllable_agent_torch.train.workspace import OfflineWorkspace, make_env
-from controllable_agent_torch.tools import (collect_mujoco_buffer, dynamics_check, env_step,
-                                            eval_mujoco, mujoco_bridge)
+from controllable_agent_torch.tools import (bench, bench_breakdown, bench_roofline, bench_scaling,
+                                            collect_mujoco_buffer, dynamics_check, env_step,
+                                            eval_mujoco, gen_scaling_record, mujoco_bridge)
 from controllable_agent_torch.train import checkpoint as ckpt_lib
 from controllable_agent_torch.train import hiplogs
 from controllable_agent_torch.train.loops import (WARMUP_RUNS, CapturedProgram,
@@ -350,7 +360,7 @@ EVAL_EPISODES, FINAL_TESTS = 10, 10  # phases 4 and 11
 WALKER_TASKS = tuple(f"walker_{t}" for t in ("stand", "walk", "run", "flip"))
 COMPARED_STEPS = 20  # captured against eager, and the profiled window
 ROLLOUT_SIZES = (10, 1024, 16384)  # environments advanced together
-QUAD_STEP_SIZES = {"quadruped_stand": ROLLOUT_SIZES}  # phase 20; the other tasks to 1,024 (a cut)
+QUAD_STEP_SIZES = {"quadruped_stand": ROLLOUT_SIZES}  # phase 20; the other tasks at 10 (a cut)
 # device kernels of each wrapper, as the profiler names them
 KERNEL_NAMES = {"fwd": ("fb_fwd_tile_kernel", "fb_fwd_reduce_kernel"),
                 "bwd": ("fb_bwd_tile_kernel", "fb_bwd_reduce_kernel")}
@@ -383,8 +393,6 @@ GRID_SIZES = (10, 1024, 16384)  # phase 17: environments advanced together
 GRID_EPISODES = 64  # phase 18: random-policy episodes of grid_simple in the replay
 GRID_CYCLE_STEPS = ONLINE_ENVS * GRID_LENGTH  # phase 19: environment steps of one cycle
 GRID_CYCLES = 4  # phase 19: a seed cycle, then three of 400 updates
-QUAD_TASKS = tuple(f"quadruped_{t}" for t in ("stand", "walk", "run", "jump", "roll",
-                                                "roll_fast", "escape", "fetch"))
 QUAD_BATTERY = tuple(f"quadruped_{t}" for t in ("stand", "walk", "run", "jump"))
 QUAD_STEP_TASKS = ("quadruped_stand", "quadruped_escape", "quadruped_fetch")  # phase 20
 QUAD_PROFILED = QUAD_STEP_TASKS + ("jaco_reach_top_left",)
@@ -405,12 +413,12 @@ PIXEL_RUN_ENVS, PIXEL_REPLAY_EPISODES, PIXEL_EPISODE_LENGTH = 1, 64, 250
 PIXEL_CYCLE_STEPS = PIXEL_RUN_ENVS * PIXEL_EPISODE_LENGTH
 PIXEL_COMPARED_UPDATES, PIXEL_FIRST = 20, 5  # phase 24: captured vs eager, timed after 5
 EXPLORERS = ("diayn", "icm", "icm_apt", "disagreement", "max_ent")  # phase 25
-EXPLORER_UPDATES = 100  # phase 25: updates per explorer, captured and eager
+EXPLORER_UPDATES = 50  # phase 25: updates per explorer, captured and eager (cut from 100)
 TF32_TIMED = 10  # phase 24: pixel updates timed with cuDNN's TF32 off and on
 # phase 26: the last seven agents at the JAX defaults, and NEWAPS's hindsight z
 ITEM13_AGENTS = ("aps", "new_aps", "new_aps future_ratio=0.5", "smm", "proto", "uvf",
                  "goal_td3", "goal_sm")
-ITEM13_UPDATES = 100  # phase 26: updates per agent, captured and eager
+ITEM13_UPDATES = 50  # phase 26: updates per agent, captured and eager (cut from 100)
 ITEM13_EXPLORERS = ("aps", "new_aps", "smm", "proto")  # phase 27, on walker_walk
 ITEM13_ENVS = 1  # phase 27's environments (cut from 4, then 2)
 MAZE_AGENTS = ("uvf", "goal_td3", "goal_sm")  # phase 28, on the point-mass maze
@@ -444,7 +452,20 @@ MJ_ACTS = 1000  # acts of the collector's policy, and of the evaluator's for eac
 MJ_OFFLINE_STEPS = 300  # train_offline physics_format=mujoco_walker, the fused loss
 MJ_TASKS = ("walker_stand", "walker_walk", "walker_run")
 MJ_HOST_EPISODES, MJ_HOST_EVAL_EPISODES = 3, 2  # (d), where dm_control is installed
-LAST_PHASE = 33
+# phase 34: the benchmark harness at full width, with fewer calls than its defaults
+HARNESS_BENCH = ["--rounds", "1", "--calls", "5"]  # bench and bench_roofline (3 x 20)
+HARNESS_BREAKDOWN = ["--rounds", "1", "--calls", "3"]  # bench_breakdown (3 x 10)
+HARNESS_SCALING = ["--world", "1", "--repeats", "1"]  # bench_scaling: one NCCL process (3)
+# gen_scaling_record: 4 updates of train_multihost (100), a dry run of 2 processes (8)
+HARNESS_RECORD = ["--grad-steps", "4", "--dryrun-processes", "2"]
+HARNESS_KEYS = {
+    "bench": ["metric", "value", "unit", "vs_baseline"],
+    "bench_roofline": ["batch_size", "steps_per_call", "updates_per_s", "flops_per_update",
+                       "bytes_per_update", "achieved_tflops", "achieved_gbps",
+                       "op_intensity_flop_per_byte"],
+    "bench_breakdown": ["full_us", "fwdbwd_us", "opt_us", "implied_opt_share"],
+    "bench_scaling": ["metric", "devices", "value", "unit", "efficiency"]}
+LAST_PHASE = 34
 F32_EPS = float(torch.finfo(torch.float32).eps)
 HBM_BYTES_PER_S = 3.35e12
 FWD_RTOL = 2e-4  # as tests/test_pallas_fb.py: order of f32 sums over n^2
@@ -1863,7 +1884,7 @@ def check_3d_engine() -> None:
         if not ok:
             raise AssertionError(f"the {domain}'s dynamics on the card disagree with the CPU's")
 
-    for task in QUAD_TASKS + ("jaco_reach_top_left",):
+    for task in QUAD_PROFILED:
         env = make_env(task, COMPARED_STEPS)
         agent = FBDDPGAgent(FBDDPGConfig(compute_dtype="bfloat16"), env.spec.obs_dim,
                             env.spec.action_dim, device="cuda", seed=SEED)
@@ -1884,14 +1905,13 @@ def check_3d_engine() -> None:
               f"per control step, captured {1e3 * captured_s / COMPARED_STEPS:.3f}, on {card}")
         if not (bitwise and finite):
             raise AssertionError(f"{task}: the captured control step disagrees with the eager one")
-        if task in QUAD_PROFILED:
-            profile_rollout(captured, z, state, ts, env.n_substeps, f"phase 20 {task}")
+        profile_rollout(captured, z, state, ts, env.n_substeps, f"phase 20 {task}")
         del agent, captured, eager, got, want
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     for task in QUAD_STEP_TASKS:
         env = make_env(task)
-        for envs in QUAD_STEP_SIZES.get(task, ROLLOUT_SIZES[:2]):
+        for envs in QUAD_STEP_SIZES.get(task, ROLLOUT_SIZES[:1]):
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             t = env_step.step_timing(env, envs, gen)
@@ -2386,8 +2406,8 @@ def item13_episodes(name: str, cfg: tp.Any, maze: bool) -> tp.List[tp.Dict[str, 
 def check_item13_agents(fb_rate: float) -> None:
     """Phase 26: the last seven agents at the JAX defaults (hidden 1024,
     batch 1024, float32; Proto's 2,048-row queue) and NEWAPS with
-    ``future_ratio=0.5``, 100 updates each captured against eager on a twin,
-    to the bit."""
+    ``future_ratio=0.5``, ITEM13_UPDATES each captured against eager on a
+    twin, to the bit."""
     card = card_name_and_power_limit()
     out = []
     for label in ITEM13_AGENTS:
@@ -3255,6 +3275,56 @@ def check_mujoco_tools(tmp: str) -> tp.Dict[str, int]:
     return counts
 
 
+def _check_harness_line(tool: str, line: tp.Dict[str, tp.Any]) -> None:
+    """A tool's JSON line: the JAX tool's keys, every number finite and > 0."""
+    if list(line) != HARNESS_KEYS[tool]:
+        raise AssertionError(f"{tool} printed the keys {list(line)}, not {HARNESS_KEYS[tool]}")
+    numbers = [v for v in line.values() if not isinstance(v, str)]
+    if not all(math.isfinite(v) and v > 0 for v in numbers):
+        raise AssertionError(f"{tool}: a value is not finite and positive: {line}")
+
+
+def run_bench_harness(tmp: str) -> None:
+    """Phase 34: the port's benchmark harness (``tools/bench*.py``,
+    ``tools/gen_scaling_record.py``) at full width with fewer calls; the
+    plain loss, so no fused kernel launches. Each tool's seconds are printed."""
+    def timed_tool(name: str, fn: tp.Callable[[], tp.Any]) -> tp.Any:
+        out, seconds = _timed(fn)
+        print(f"phase 34: {name} in {seconds:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    line = timed_tool("bench", lambda: bench.main(HARNESS_BENCH))
+    _check_harness_line("bench", line)
+    if line["metric"] != "fb_gradient_updates_per_s" or line["unit"] != "updates/s":
+        raise AssertionError(f"bench printed {line}")
+
+    roofline = timed_tool("bench_roofline", lambda: bench_roofline.main(HARNESS_BENCH))
+    _check_harness_line("bench_roofline", roofline)
+    # the count of one update from the networks' shapes (61.99 GFLOP at batch 1024)
+    agent = bench.bench_agent(bench.bench_config(), torch.device("cpu"))
+    want = bench_roofline.plain_update_flops(agent, roofline["batch_size"])
+    print(f"phase 34: flops_per_update {roofline['flops_per_update']} counted on the card, "
+          f"{want} from the networks' shapes")
+    if roofline["flops_per_update"] != want:
+        raise AssertionError(f"bench_roofline counted {roofline['flops_per_update']} FLOPs per "
+                             f"update, the networks' shapes give {want}")
+
+    _check_harness_line("bench_breakdown", timed_tool(
+        "bench_breakdown", lambda: bench_breakdown.main(HARNESS_BREAKDOWN)))
+
+    scaling = timed_tool("bench_scaling", lambda: bench_scaling.main(HARNESS_SCALING))
+    if [s["devices"] for s in scaling] != [1]:
+        raise AssertionError(f"bench_scaling at one process printed {scaling}")
+    _check_harness_line("bench_scaling", scaling[0])
+
+    oks = timed_tool("gen_scaling_record", lambda: gen_scaling_record.main(
+        HARNESS_RECORD + ["--out", f"{tmp}/SCALING_torch.json"]))
+    if oks != {"gloo_2process": True, "virtual_mesh_dryrun": True}:
+        raise AssertionError(f"gen_scaling_record: {oks}")
+
+
 def measure_fb_rate() -> float:
     """FB's captured updates/s at phase 4's geometry (bf16, the fused loss,
     batch 1024) on its episodes, for a selection of phases without phase 4:
@@ -3504,6 +3574,10 @@ class SmokeRun:
                 row["launches"] = mujoco_counts[row["wrapper"]]
             self.by_path("train_offline physics_format=mujoco_walker (phase 33)",
                          mujoco_counts)
+        gc.collect()
+        torch.cuda.empty_cache()
+        self.zero_launches((34,), "benchmark harness (phase 34)", (
+            (34, lambda: run_bench_harness(tmp)),))
 
 
 def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:

@@ -140,18 +140,19 @@ def worker(rank: int, world: int, init_method: str, device: str,
         multihost.shutdown()
 
 
-def run(world: int, device: str = "cuda", timeout: float = 240.0,
-        agent: str = "fb_ddpg") -> tp.List[str]:
-    """The dry run of ``agent`` at ``world`` processes; their report lines,
-    in rank order. Raises if a process fails or does not finish in
-    ``timeout`` seconds."""
+def spawn(module: str, world: int, args: tp.Callable[[int, str], tp.Sequence[str]],
+          timeout: float, what: str) -> tp.List[tp.Tuple[int, str]]:
+    """``python -m module *args(rank, init_method)`` in ``world`` processes
+    that join through a file in a fresh temporary folder (``init_method``);
+    each process's exit code and output, in rank order. If a process does
+    not finish within ``timeout`` seconds, every process is stopped and it
+    raises with what each said (``what`` names the run)."""
     root = str(Path(__file__).resolve().parents[2])
     env = dict(os.environ, OMP_NUM_THREADS="1",
                PYTHONPATH=os.pathsep.join(filter(None, [root, os.environ.get("PYTHONPATH")])))
     with tempfile.TemporaryDirectory() as tmp:
         init = f"file://{tmp}/rendezvous"
-        procs = [subprocess.Popen([sys.executable, "-m", WORKER_MODULE, "--worker", str(rank),
-                                   str(world), init, device, agent],
+        procs = [subprocess.Popen([sys.executable, "-m", module, *args(rank, init)],
                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
                                   env=env) for rank in range(world)]
         outs = []
@@ -163,17 +164,28 @@ def run(world: int, device: str = "cuda", timeout: float = 240.0,
                 p.kill()
             said = "\n".join(f"--- process {rank}:\n{p.communicate()[0][-3000:]}"
                              for rank, p in enumerate(procs))
-            raise RuntimeError(f"a process of the dry run did not finish in {timeout} s; "
+            raise RuntimeError(f"a process of {what} did not finish in {timeout} s; "
                                f"what each said:\n{said}") from None
         finally:
             for p in procs:
                 if p.poll() is None:
                     p.kill()
                     p.wait()
+    return [(p.returncode, out) for p, out in zip(procs, outs)]
+
+
+def run(world: int, device: str = "cuda", timeout: float = 240.0,
+        agent: str = "fb_ddpg") -> tp.List[str]:
+    """The dry run of ``agent`` at ``world`` processes; their report lines,
+    in rank order. Raises if a process fails or does not finish in
+    ``timeout`` seconds."""
+    results = spawn(WORKER_MODULE, world,
+                    lambda rank, init: ["--worker", str(rank), str(world), init, device, agent],
+                    timeout, "the dry run")
     lines = []
-    for rank, (p, out) in enumerate(zip(procs, outs)):
+    for rank, (code, out) in enumerate(results):
         report = [line for line in out.splitlines() if line.startswith(f"rank {rank} of")]
-        if p.returncode != 0 or not report or not report[-1].endswith("ok"):
+        if code != 0 or not report or not report[-1].endswith("ok"):
             raise RuntimeError(f"process {rank} of the dry run failed:\n{out[-4000:]}")
         lines.append(report[-1])
     return lines

@@ -67,38 +67,53 @@ class MultiHostOfflineWorkspace(OfflineWorkspace):
         super().save_checkpoint(path, exclude)
 
 
+@dataclasses.dataclass
+class MultiHostArgs:
+    """The options this CLI reads itself; ``rest`` goes to the workspace's
+    config (``pretrain.build_config``)."""
+
+    coordinator: tp.Optional[str] = None
+    num_processes: tp.Optional[int] = None
+    process_id: tp.Optional[int] = None
+    replay_dir: tp.Optional[str] = None
+    relabel: bool = True
+    physics_format: str = "native"
+    rest: tp.List[str] = dataclasses.field(default_factory=list)
+
+
+def parse_args(argv: tp.Sequence[str]) -> MultiHostArgs:
+    args = MultiHostArgs()
+    for arg in argv:
+        key, _, val = arg.partition("=")
+        if key == "coordinator":
+            args.coordinator = val
+        elif key == "num_processes":
+            args.num_processes = int(val)
+        elif key == "process_id":
+            args.process_id = int(val)
+        elif key == "replay_dir":
+            args.replay_dir = val
+        elif key == "relabel":
+            args.relabel = val.lower() == "true"
+        elif key == "physics_format":
+            args.physics_format = val
+        else:
+            args.rest.append(arg)
+    return args
+
+
 def main(argv: tp.Optional[tp.Sequence[str]] = None) -> tp.Optional[MultiHostOfflineWorkspace]:
     """Runs the CLI; returns the trained workspace, None after ``--help``."""
     argv = list(argv if argv is not None else sys.argv[1:])
     if wants_help(argv, __doc__):
         return None
-    coordinator: tp.Optional[str] = None
-    num_processes: tp.Optional[int] = None
-    process_id: tp.Optional[int] = None
-    replay_dir: tp.Optional[str] = None
-    relabel = True
-    physics_format = "native"
-    rest: tp.List[str] = []
-    for arg in argv:
-        key, _, val = arg.partition("=")
-        if key == "coordinator":
-            coordinator = val
-        elif key == "num_processes":
-            num_processes = int(val)
-        elif key == "process_id":
-            process_id = int(val)
-        elif key == "replay_dir":
-            replay_dir = val
-        elif key == "relabel":
-            relabel = val.lower() == "true"
-        elif key == "physics_format":
-            physics_format = val
-        else:
-            rest.append(arg)
-    cfg, agent_overrides, agent_cfg_base = build_config(rest)
-    joined = multihost.initialize(coordinator, num_processes, process_id, device=cfg.device)
+    args = parse_args(argv)
+    cfg, agent_overrides, agent_cfg_base = build_config(args.rest)
+    joined = multihost.initialize(args.coordinator, args.num_processes, args.process_id,
+                                  device=cfg.device)
     try:
-        return _run(cfg, agent_overrides, agent_cfg_base, replay_dir, relabel, physics_format)
+        return _run(cfg, agent_overrides, agent_cfg_base, args.replay_dir, args.relabel,
+                    args.physics_format)
     finally:
         if joined:
             multihost.shutdown()

@@ -76,7 +76,14 @@ def test_port_has_modules_to_check() -> None:
             "controllable_agent_torch/tools/mujoco_bridge.py",
             "controllable_agent_torch/tools/eval_mujoco.py",
             "controllable_agent_torch/tools/collect_mujoco_buffer.py",
-            "controllable_agent_torch/tools/gen_parity_report.py"} <= names
+            "controllable_agent_torch/tools/gen_parity_report.py",
+            "controllable_agent_torch/tools/bench.py",
+            "controllable_agent_torch/tools/bench_roofline.py",
+            "controllable_agent_torch/tools/bench_breakdown.py",
+            "controllable_agent_torch/tools/bench_scaling.py",
+            "controllable_agent_torch/tools/gen_scaling_record.py"} <= names
+    # the harness's shell recipe has no imports to check, only a place
+    assert (PORT / "tools" / "run_pod_scaling.sh").is_file()
 
 
 def test_engine_differentiates_by_hand() -> None:
