@@ -5,7 +5,7 @@
     python3 chip_smoke.py --phases 4,11,21
 
 Drives ``controllable_agent_torch`` (and nothing of the JAX package) in
-thirty-four phases, each printed on its own lines with its seconds; any
+thirty-five phases, each printed on its own lines with its seconds; any
 failure exits non-zero. A selection always builds the kernels (phase 1),
 and builds the least of what its phases read from earlier ones: phase 4's
 workspace for phases 5-11 and its folder for phase 31 (by running phase 4), its episodes on disk for
@@ -61,15 +61,15 @@ running phase 15), one collected quadruped cycle for phase 22. The phases:
      ``evaluate()`` with 10 episodes x 1,000 steps as replays of the captured
      step, twice more (other initial states), then ``finalize()`` with
      ``final_tests=10`` (four walker tasks in one batch of 40 episodes) into
-     ``test_rewards.json``; captured against eager rollouts over 20 steps;
-     a ``torch.profiler`` trace of 20 replayed steps at 10 and at 16,384
+     ``test_rewards.json``; captured against eager rollouts over 10 steps;
+     a ``torch.profiler`` trace of 10 replayed steps at 10 and at 16,384
      environments; environment steps/s and peak memory at 10, 1,024 and
-     16,384 environments.
+     16,384 environments, over episodes of 250 steps.
 
  12. online FB pretraining through its entry point, ``pretrain.main``, at
      full width in bf16 with ``agent.use_pallas_loss=true``: ``walker_walk``,
-     4 environments, one seed cycle of 4,000 steps, then two cycles of
-     4,000 steps and 2,000 updates each; per cycle the collection's seconds
+     4 environments, episodes of 500 steps, one seed cycle of 2,000 steps,
+     then two cycles of 2,000 steps and 1,000 updates each; per cycle the collection's seconds
      and environment steps/s (the captured control step), the updates/s and
      the buffer's size; the update program captured once across the cycles'
      commits; each fused wrapper's launches, by its count and by the
@@ -79,7 +79,7 @@ running phase 15), one collected quadruped cycle for phase 22. The phases:
      one more cycle, continuing the step, the replay and the agent's step;
  13. the other online paths: ``train_online.main`` with half of each
      cycle's episodes directed by a task z (``task_episode_reward``);
-     ``pretrain.main agent=rnd`` at full width, 2 environments, two cycles; a captured
+     ``pretrain.main agent=rnd`` at full width, 1 environment, two cycles; a captured
      RND update, a captured collector step and two programs replayed in
      turns on one generator, each against its eager counterpart to the bit;
      the cheetah's reset with its settling steps captured against the same
@@ -87,7 +87,7 @@ running phase 15), one collected quadruped cycle for phase 22. The phases:
  14. successor features at the JAX defaults (hidden 1024, feature 512,
      backward hidden 512, z 100, batch 1024, float32): SF with each of its
      thirteen feature learners, with ``q_loss=false``, ``boltzmann=true``
-     and ``mix_ratio=0.5``, and SF-SVD, each 20 updates through the
+     and ``mix_ratio=0.5``, and SF-SVD, each 10 updates through the
      captured trainer and the same updates eagerly on a twin from the same
      generator state (held to the bit, else to phase 7's tolerance); per
      agent the updates/s both ways, the kernel launches and device time per
@@ -97,7 +97,7 @@ running phase 15), one collected quadruped cycle for phase 22. The phases:
  15. SF (``lap``) and SF-SVD through ``train_offline.main`` at full width on
      phase 4's episodes, relabeled, 300 updates with an evaluation,
      ``finalize()`` into ``test_rewards.json`` and a resumed run;
-     ``pretrain.main agent=sf`` (2 environments) for a seed cycle and a
+     ``pretrain.main agent=sf`` (1 environment) for a seed cycle and a
      training cycle, resumed for one more;
  16. the SF agents' inference on 5,120 replay samples, float32 on the card
      against float64 on the CPU: SF's least squares with full rank and with
@@ -110,7 +110,7 @@ running phase 15), one collected quadruped cycle for phase 22. The phases:
      actions, physics, the state and the goal observation); ``simple``'s
      goals over 16,384 resets (every free cell but the start, none else);
      one control step of discrete FB at full width captured and replayed
-     over 20 steps against eager, to the bit (the greedy rollout and the
+     over 10 steps against eager, to the bit (the greedy rollout and the
      epsilon-greedy collector); environment steps/s of ``env.step`` alone
      and of the evaluation rollout at 10, 1,024 and 16,384 environments;
  18. the discrete agents at the JAX defaults (discrete FB: hidden 1024, z 50,
@@ -133,7 +133,7 @@ running phase 15), one collected quadruped cycle for phase 22. The phases:
      random states against float64 on the CPU (``tools/dynamics_check.py``,
      each model's allowance); for stand, escape, fetch and jaco (the other
      quadruped tasks step stand's physics), a full-width FB policy's
-     rollout of 10 episodes over 20 steps as replays of one captured control
+     rollout of 10 episodes over 10 steps as replays of one captured control
      step against eager, to the bit, and the kernel launches and device ms
      per control step under the profiler; ``env.step`` alone at 10, 1,024
      and 16,384 environments for stand, at 10 for escape and fetch
@@ -143,7 +143,7 @@ running phase 15), one collected quadruped cycle for phase 22. The phases:
      ``agent=fb_ddpg task=quadruped_stand goal_space=quad_pos_speed`` at
      full width (hidden 1024, feature 512, backward hidden 526, z 50, batch
      1024) in bf16 with ``agent.use_pallas_loss=true``, two cycles of 4
-     episodes x 1,000 steps and 1,000 updates; per cycle the collection's
+     episodes x 500 steps and 250 updates; per cycle the collection's
      seconds and share and the updates/s; one capture of the update program;
      the fused kernels' launches by the wrappers' count and by the kernels'
      own, equal and > 0; then ``evaluate()`` (10 episodes, its video) and
@@ -155,7 +155,7 @@ running phase 15), one collected quadruped cycle for phase 22. The phases:
      on phase 21's replay relabeled for ``quadruped_walk`` (400 captured
      updates, the relabeled rewards against the reward function), and
      ``anytrain`` on ``quadruped_fetch`` and ``quadruped_escape`` for one
-     cycle of 2 environments x 1,000 steps and 1,000 updates each;
+     cycle of 2 environments x 500 steps and 500 updates each;
  23. pixels on the card: 84 x 84 frames with a stack of 3 of the walker,
      cheetah, hopper and point-mass maze, 1,024 environments x 20 steps,
      against the same physics rendered on the CPU (uint8 within 1, equal on
@@ -166,15 +166,15 @@ running phase 15), one collected quadruped cycle for phase 22. The phases:
  24. this slice's main path: ``pretrain agent=ddpg obs_type=pixels
      task=walker_walk`` at the JAX DDPG defaults (hidden 1024, batch 1024,
      n-step 3, float32, 84 x 84 x 9 uint8 frames, pad 4), cut to 1
-     environment, episodes of 250 steps and a replay of 64 episodes: a seed
-     cycle and a cycle of 125 updates, one capture of the update, a uint8 replay; a resumed
+     environment, episodes of 100 steps and a replay of 64 episodes: a seed
+     cycle and a cycle of 50 updates, one capture of the update, a uint8 replay; a resumed
      workspace; the launches and device time of an update; ``evaluate()``
-     (10 episodes, its video) and ``finalize()`` (``{}``); 20 full-width
+     (10 episodes, its video) and ``finalize()`` (``{}``); 10 full-width
      pixel updates captured against eager on a twin, to the bit; the
      captured update with cuDNN's TF32 off and on;
  25. the five explorers (DIAYN, ICM, ICM-APT, Disagreement, MaxEnt) at the
-     JAX defaults, 50 updates each captured against eager on a twin, to
-     the bit; ``pretrain agent=diayn`` with the skill resampled in the
+     JAX defaults, 25 updates each captured against eager on a twin, to
+     the bit; ``pretrain agent=diayn`` (episodes of 500 steps) with the skill resampled in the
      captured collector. No fused FB kernel is on phases 23-25: their
      launches must be 0 by both counts;
  26. the last seven agents of the JAX registry at the JAX defaults (hidden
@@ -183,18 +183,19 @@ running phase 15), one collected quadruped cycle for phase 22. The phases:
      Proto on phase 4's walker-shaped episodes with the meta column each
      reads (``task``, ``z``), UVF, GoalTD3 and GoalSM with
      ``goal_space=simplified_point_mass_maze`` on maze-shaped episodes with
-     2-D goals and a ``g`` column; 50 updates each captured against eager
+     2-D goals and a ``g`` column; 25 updates each captured against eager
      on a twin, to the bit, with updates/s both ways, launches and device
      ms per update and the peak memory;
  27. ``pretrain agent={aps,new_aps,smm,proto} task=walker_walk`` at full
-     width, 1 environment, a seed cycle and a training cycle each: APS's
+     width, 1 environment, episodes of 500 steps, a seed cycle and a
+     training cycle each: APS's
      task changes in the replay only at multiples of 5 steps, SMM's one-hot
      z only at multiples of 50, NEWAPS's ``test_rewards.json`` has the four
      walker rows, and Proto, resumed from its folder, keeps its queue;
  28. ``pretrain agent={uvf,goal_td3,goal_sm}
      task=point_mass_maze_reach_top_left
      goal_space=simplified_point_mass_maze custom_reward=maze_multi_goal``,
-     a seed cycle, a training cycle and ``finalize()`` (the 20-goal sweep,
+     episodes of 500 steps, a seed cycle, a training cycle and ``finalize()`` (the 20-goal sweep,
      2 episodes each, one batch) into a finite ``test_rewards.json`` in [0,
      1]; then ``train_offline agent=goal_td3`` on that run's replay. No
      fused FB kernel is on phases 26-28: their launches must be 0 by both
@@ -221,7 +222,7 @@ running phase 15), one collected quadruped cycle for phase 22. The phases:
      in turns; ``train_multihost.main`` with one NCCL process on phase 4's
      episodes (300 updates, one evaluation and a checkpoint from process 0,
      one capture); one ``OnlineTrainer`` cycle with the group on the walker
-     (4 x 1,000 steps collected, 1,000 data-parallel updates). A failed
+     (4 x 1,000 steps collected, 500 data-parallel updates). A failed
      NCCL start or capture fails the phase; there is no gloo on the card;
  31. serving on the card from phase 4's folder: the demo's engine
      (``demo.serve._build_engine``, 5,120 inference rows) behind the real
@@ -273,7 +274,17 @@ running phase 15), one collected quadruped cycle for phase 22. The phases:
      on one NCCL process, and ``tools/gen_scaling_record.py`` (4 updates of
      ``train_multihost`` in 2 gloo processes, a dry run of 2): each line's keys are the
      JAX tool's and every value is finite and positive. The harness times the plain
-     loss: the fused launches must be 0 by both counts.
+     loss: the fused launches must be 0 by both counts;
+ 35. this slice's main path, the recipe mode of ``tools/online_curve.py``:
+     ``recipe=results/quad_one entry=train_online`` with two cuts,
+     ``num_train_frames`` at three cycles (10 episodes x 1,000 steps and
+     5,000 updates each; the recipe has 201) and ``final_tests`` at 2 (10):
+     the resolved ``config.json`` is the stored one but for the replaced
+     keys and the two cuts, with the fused loss and bf16; the fused
+     launches by the wrappers' counts equal the kernels' own and the
+     updates plus the capture's warm-up runs; ``check.json`` is written
+     with the quadruped's four battery rows, each with its verdict, and no
+     checkpoint is left.
 
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -336,7 +347,8 @@ from controllable_agent_torch.pretrain import build_workspace
 from controllable_agent_torch.train.workspace import OfflineWorkspace, make_env
 from controllable_agent_torch.tools import (bench, bench_breakdown, bench_roofline, bench_scaling,
                                             collect_mujoco_buffer, dynamics_check, env_step,
-                                            eval_mujoco, gen_scaling_record, mujoco_bridge)
+                                            eval_mujoco, gen_scaling_record, mujoco_bridge,
+                                            online_curve)
 from controllable_agent_torch.train import checkpoint as ckpt_lib
 from controllable_agent_torch.train import hiplogs
 from controllable_agent_torch.train.loops import (WARMUP_RUNS, CapturedProgram,
@@ -358,7 +370,9 @@ DYNAMICS_STATES = 4096  # phase 10
 EVAL_EVERY = 300  # phase 4 evaluates between replays of the training graph, twice
 EVAL_EPISODES, FINAL_TESTS = 10, 10  # phases 4 and 11
 WALKER_TASKS = tuple(f"walker_{t}" for t in ("stand", "walk", "run", "flip"))
-COMPARED_STEPS = 20  # captured against eager, and the profiled window
+COMPARED_STEPS = 10  # captured against eager, and the profiled window (cut from 20)
+COLLECTOR_STEPS = 20  # phase 13: the collector captured against eager
+RATE_STEPS = 250  # phase 11: the rollout's rate by environments over episodes of 250 steps (1,000)
 ROLLOUT_SIZES = (10, 1024, 16384)  # environments advanced together
 QUAD_STEP_SIZES = {"quadruped_stand": ROLLOUT_SIZES}  # phase 20; the other tasks at 10 (a cut)
 # device kernels of each wrapper, as the profiler names them
@@ -368,22 +382,25 @@ KERNEL_NAMES = {"fwd": ("fb_fwd_tile_kernel", "fb_fwd_reduce_kernel"),
 # the rate of float32-accurate products on the tensor cores: 3xTF32 does
 # three TF32 products per product, so a third of the 495 TFLOP/s TF32 peak.
 F32_ACCURATE_TC_FLOP_PER_S = 495e12 / 3
-# phase 12: a seed cycle, then two of 2,000 updates (cut from three)
+# phase 12: a seed cycle, then two of 1,000 updates (cut from three, then from 2,000 updates)
 ONLINE_ENVS, ONLINE_CYCLES = 4, 3
 CYCLE_STEPS = ONLINE_ENVS * EPISODE_LENGTH  # environment steps of one cycle
-ONLINE_EVAL_EVERY = 8000  # crossed at 8,000 steps (16,000 by the resumed run)
-DIRECTED_CYCLES, DIRECTED_UPDATES = 3, 50  # phase 13's train_online run
-RND_CYCLES, RND_ENVS = 2, 2  # phase 13: a seed cycle, then one of 1,000 updates
+# episodes of phases 12, 21, 22's anytrain, 25's DIAYN run, 27 and 28 (a cut from 1,000 steps)
+SHORT_LENGTH = 500
+SHORT_CYCLE = ONLINE_ENVS * SHORT_LENGTH  # phases 12, 21, 25 and 28: environment steps of a cycle
+ONLINE_EVAL_EVERY = 2 * SHORT_CYCLE  # crossed at 4,000 steps (8,000 by the resumed run)
+DIRECTED_CYCLES, DIRECTED_UPDATES = 2, 50  # phase 13's train_online run (cut from 3 cycles)
+RND_CYCLES, RND_ENVS = 2, 1  # phase 13: a seed cycle, then one of 500 updates (cut from 2 envs)
 RND_CYCLE_STEPS = RND_ENVS * EPISODE_LENGTH
 CHEETAH_RESETS = 10  # environments of phase 13's cheetah reset, an evaluation's
-# phases 14, 18: updates per agent, in calls of 5 then 15 (cut from 30)
-SF_UPDATES, SF_FIRST = 20, 5
+# phases 14, 18: updates per agent, in calls of 5 then 5 (cut from 30, then 20)
+SF_UPDATES, SF_FIRST = 10, 5
 SF_PROFILED = 5  # phase 14: updates under the profiler per agent (the launch count)
 # phase 14's variants beyond the thirteen learners at their defaults
 SF_VARIANTS = (("lap", "q_loss", False), ("icm", "boltzmann", True), ("svd_sr", "mix_ratio", 0.5))
 SF_RESUMED_STEPS = 100  # phase 15: updates of the resumed offline runs
 SF_OFFLINE_STEPS = 300  # phase 15: updates of the offline runs, one evaluation
-SF_ONLINE_ENVS = 2  # phase 15: pretrain agent=sf, cycles of 2 x 1,000 steps
+SF_ONLINE_ENVS = 1  # phase 15: pretrain agent=sf, cycles of 1 x 1,000 steps (cut from 2)
 SF_CYCLE_STEPS = SF_ONLINE_ENVS * EPISODE_LENGTH
 INFERENCE_SAMPLES = 5120  # phase 16: the agents' num_inference_steps
 GRID_ENVS, GRID_LENGTH = 1024, 200  # phase 17: environments per pair; the JAX default episode
@@ -396,29 +413,29 @@ GRID_CYCLES = 4  # phase 19: a seed cycle, then three of 400 updates
 QUAD_BATTERY = tuple(f"quadruped_{t}" for t in ("stand", "walk", "run", "jump"))
 QUAD_STEP_TASKS = ("quadruped_stand", "quadruped_escape", "quadruped_fetch")  # phase 20
 QUAD_PROFILED = QUAD_STEP_TASKS + ("jaco_reach_top_left",)
-QUAD_CYCLES, QUAD_UPDATES = 2, 1000  # phase 21
+QUAD_CYCLES, QUAD_UPDATES = 2, 250  # phase 21 (updates cut from 1,000; phase 35 runs 5,000)
 QUAD_ANYTRAIN_ENVS = 2  # phase 22: anytrain on fetch and escape, one cycle of 2 x 1,000 steps
 QUAD_REPLAY_EPISODES = 2000  # results/quad_one's replay_buffer_episodes
 JACO_LENGTH = 250  # phase 22
 QUAD_OFFLINE_UPDATES = 400  # phase 22: train_offline on phase 21's replay
 PIXEL_TASKS = ("walker_walk", "cheetah_run", "hopper_hop", "point_mass_maze_reach_top_left")
 PIXEL_ENVS, PIXEL_STEPS = 1024, 20  # phase 23: frames on the card
-PIXEL_CPU_ENVS = 16  # phase 23: of them rendered again on the CPU at every step
+PIXEL_CPU_ENVS = 8  # phase 23: of them rendered again on the CPU at every step (cut from 16)
 PIXEL_EQUAL_SHARE = 0.999  # uint8 frames: within 1 everywhere, equal on this share
 AUG_PAD, ENCODER_BATCH = 4, 64  # phase 23: DrQ's pad (the JAX default); encoder's check
 # the encoder's features, card against CPU: float32 sums of 81 x 32 products in another order
 ENCODER_RTOL, ENCODER_ATOL = 1e-4, 1e-5
 # phase 24's cuts (the recipe: 4 environments, 5,000 episodes of 1,000 steps)
-PIXEL_RUN_ENVS, PIXEL_REPLAY_EPISODES, PIXEL_EPISODE_LENGTH = 1, 64, 250
+PIXEL_RUN_ENVS, PIXEL_REPLAY_EPISODES, PIXEL_EPISODE_LENGTH = 1, 64, 100  # 100: cut from 250
 PIXEL_CYCLE_STEPS = PIXEL_RUN_ENVS * PIXEL_EPISODE_LENGTH
-PIXEL_COMPARED_UPDATES, PIXEL_FIRST = 20, 5  # phase 24: captured vs eager, timed after 5
+PIXEL_COMPARED_UPDATES, PIXEL_FIRST = 10, 5  # phase 24: captured vs eager, timed after 5 (cut from 20)
 EXPLORERS = ("diayn", "icm", "icm_apt", "disagreement", "max_ent")  # phase 25
-EXPLORER_UPDATES = 50  # phase 25: updates per explorer, captured and eager (cut from 100)
-TF32_TIMED = 10  # phase 24: pixel updates timed with cuDNN's TF32 off and on
+EXPLORER_UPDATES = 25  # phase 25: updates per explorer, captured and eager (cut from 100, then 50)
+TF32_TIMED = 5  # phase 24: pixel updates timed with cuDNN's TF32 off and on (cut from 10)
 # phase 26: the last seven agents at the JAX defaults, and NEWAPS's hindsight z
 ITEM13_AGENTS = ("aps", "new_aps", "new_aps future_ratio=0.5", "smm", "proto", "uvf",
                  "goal_td3", "goal_sm")
-ITEM13_UPDATES = 50  # phase 26: updates per agent, captured and eager (cut from 100)
+ITEM13_UPDATES = 25  # phase 26: updates per agent, captured and eager (cut from 100, then 50)
 ITEM13_EXPLORERS = ("aps", "new_aps", "smm", "proto")  # phase 27, on walker_walk
 ITEM13_ENVS = 1  # phase 27's environments (cut from 4, then 2)
 MAZE_AGENTS = ("uvf", "goal_td3", "goal_sm")  # phase 28, on the point-mass maze
@@ -428,10 +445,10 @@ MAZE_OFFLINE_UPDATES = 400  # phase 28: train_offline agent=goal_td3
 D4RL_DOMAIN, D4RL_EPISODES, D4RL_ROWS, D4RL_OBS, D4RL_ACTION = "halfcheetah", 1000, 1000, 17, 6
 D4RL_STEPS, D4RL_SEED_FRAMES = 300, 100  # updates; the profiled call starts at step 100
 # phase 30: data parallelism on one card
-DP_UPDATES, DP_TIMED = 100, 200  # updates held to the plain ones to the bit; timed, in turns
+DP_UPDATES, DP_TIMED = 100, 100  # updates held to the plain ones to the bit; timed, in turns (200)
 DP_GATHERS = 9  # all-gathers per DP update: goals, then F1, F2, B, TF1, TF2, TB, z, discount
 MH_STEPS = 300  # train_multihost's updates
-DP_ONLINE_UPDATES = 1000  # the online cycle with a group: 4 x 1,000 steps, 1,000 updates
+DP_ONLINE_UPDATES = 500  # the online cycle with a group: 4 x 1,000 steps, 500 updates (1,000)
 # phase 31: serving on the card from phase 4's folder
 SERVE_ROWS, SERVE_STEPS = 5120, 500  # the demo's inference rows and rollout steps
 SERVE_COMPARED = 100  # steps of each served rollout held to an eager one (a cut from 500)
@@ -444,7 +461,7 @@ DP_AGENTS = (("ddpg", {}), ("rnd", {}), ("icm_apt", {}), ("proto", {}),
              ("new_aps", {"future_ratio": 0.5}), ("sf", {"feature_learner": "svd_sr"}),
              ("sf", {"mix_ratio": 0.5}), ("discrete_fb", {"q_loss": True}))
 # updates held to the plain ones to the bit; timed a turn, in turns (plain, dp, dp, plain)
-DP_AGENT_UPDATES, DP_AGENT_TIMED = 20, 50
+DP_AGENT_UPDATES, DP_AGENT_TIMED = 20, 25  # (timed cut from 50)
 # phase 33: the dm_control tools' device halves at full width
 MJ_EPISODES = 8  # synthetic episodes in dm_control walker's layout (obs 24, action 6, physics 18)
 MJ_BURSTS = 5  # bursts of collect_mujoco_buffer.UPDATES_PER_CALL captured RND updates
@@ -465,7 +482,10 @@ HARNESS_KEYS = {
                        "op_intensity_flop_per_byte"],
     "bench_breakdown": ["full_us", "fwdbwd_us", "opt_us", "implied_opt_share"],
     "bench_scaling": ["metric", "devices", "value", "unit", "efficiency"]}
-LAST_PHASE = 34
+# phase 35: results/quad_one's recipe through online_curve, cut to three cycles
+RECIPE = Path(__file__).resolve().parent / "results" / "quad_one"
+RECIPE_CYCLES, RECIPE_FINAL_TESTS = 3, 2
+LAST_PHASE = 35
 F32_EPS = float(torch.finfo(torch.float32).eps)
 HBM_BYTES_PER_S = 3.35e12
 FWD_RTOL = 2e-4  # as tests/test_pallas_fb.py: order of f32 sums over n^2
@@ -1136,18 +1156,19 @@ def check_evaluation(ws: tp.Any) -> None:
     profile_rollout(wide, z, state, ts, env.n_substeps)
     del captured, wide, state, ts
 
+    rate_env = locomotion.make(ws.cfg.task, RATE_STEPS)
     for envs in ROLLOUT_SIZES:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()
-        rollout = Rollout(ws.env, ws.agent, envs)
-        state, ts = ws.env.reset(ws.generator, envs)
+        rollout = Rollout(rate_env, ws.agent, envs)
+        state, ts = rate_env.reset(ws.generator, envs)
         _, capture_s = _timed(lambda: rollout(z, state, ts))
         (totals, physics, _), run_s = _timed(lambda: rollout(z, state, ts))
         peak = torch.cuda.max_memory_allocated()
         finite = bool(torch.isfinite(totals).all() & torch.isfinite(physics).all())
-        print(f"phase 11 rollout E={envs}: {horizon} steps in {run_s:.3f} s "
-              f"({1e3 * run_s / horizon:.3f} ms per control step, {envs * horizon / run_s:.0f} "
+        print(f"phase 11 rollout E={envs}: {RATE_STEPS} steps in {run_s:.3f} s "
+              f"({1e3 * run_s / RATE_STEPS:.3f} ms per control step, {envs * RATE_STEPS / run_s:.0f} "
               f"environment steps/s; {capture_s:.3f} s with the capture); peak device memory "
               f"{peak / 2**20:.1f} MiB, {(peak - held) / 2**20:.1f} MiB above what was held "
               f"before, the [E, T, .] buffers included; mean return {float(totals.mean()):.2f}; "
@@ -1165,8 +1186,8 @@ def online_args(folder: str, frames: int, *extra: str) -> tp.List[str]:
     """Phase 12's command line: FB at full width, bf16, the fused loss."""
     return ["task=walker_walk", "agent=fb_ddpg", "agent.use_pallas_loss=true",
             "agent.compute_dtype=bfloat16", f"num_envs={ONLINE_ENVS}",
-            f"num_seed_frames={CYCLE_STEPS}", f"num_train_frames={frames}",
-            f"eval_every_steps={ONLINE_EVAL_EVERY}", f"num_eval_episodes={EVAL_EPISODES}",
+            f"episode_length={SHORT_LENGTH}", f"num_seed_frames={SHORT_CYCLE}",
+            f"num_train_frames={frames}", f"eval_every_steps={ONLINE_EVAL_EVERY}", f"num_eval_episodes={EVAL_EPISODES}",
             f"final_tests={FINAL_TESTS}", f"folder={folder}", f"seed={SEED}", *extra]
 
 
@@ -1199,7 +1220,7 @@ def run_online(tmp: str) -> tp.Tuple[tp.Dict[str, int], tp.Any]:
     resumed run on its folder."""
     card = card_name_and_power_limit()
     folder = f"{tmp}/online"
-    frames = ONLINE_CYCLES * CYCLE_STEPS
+    frames = ONLINE_CYCLES * SHORT_CYCLE
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
     ff.reset_launches()
@@ -1220,7 +1241,7 @@ def run_online(tmp: str) -> tp.Tuple[tp.Dict[str, int], tp.Any]:
           f"of {ws.cfg.replay_buffer_episodes} episodes, {replay_bytes(ws) / 2**20:.1f} MiB, "
           f"allocated at the first commit), on {card}")
     if captures != 1 or ws.agent.step != updates \
-            or updates != (ONLINE_CYCLES - 1) * CYCLE_STEPS // 2 \
+            or updates != (ONLINE_CYCLES - 1) * SHORT_CYCLE // 2 \
             or any(c != expected for c in counts.values()) or ran != counts \
             or ws.global_step != frames or len(ws.buffer) != ONLINE_CYCLES * ONLINE_ENVS:
         raise AssertionError(f"online run: captures {captures}, agent step {ws.agent.step}, "
@@ -1254,18 +1275,18 @@ def run_online(tmp: str) -> tp.Tuple[tp.Dict[str, int], tp.Any]:
           + ", ".join(f"{t} {np.mean(written[t]):.2f}" for t in WALKER_TASKS))
 
     ff.reset_launches()
-    resumed, wall = _timed(lambda: pretrain.main(online_args(folder, frames + CYCLE_STEPS,
+    resumed, wall = _timed(lambda: pretrain.main(online_args(folder, frames + SHORT_CYCLE,
                                                              "final_tests=0")))
     rows = read_csv(resumed.work_dir / "train.csv")
-    more = CYCLE_STEPS // 2
+    more = SHORT_CYCLE // 2
     report_cycles(resumed, "phase 12 resumed")
     print(f"phase 12 resumed: a fresh run on the folder continued from step {frames} to "
           f"{resumed.global_step} (train rows at steps {[int(float(r['step'])) for r in rows]}), "
           f"agent step {updates} -> {resumed.agent.step}, buffer {len(ws.buffer)} -> "
           f"{len(resumed.buffer)} episodes, launches {dict(ff.launches)} in {wall:.1f} s")
-    if resumed.global_step != frames + CYCLE_STEPS or resumed.agent.step != updates + more \
+    if resumed.global_step != frames + SHORT_CYCLE or resumed.agent.step != updates + more \
             or len(resumed.buffer) != len(ws.buffer) + ONLINE_ENVS \
-            or int(float(rows[-1]["step"])) != frames + CYCLE_STEPS \
+            or int(float(rows[-1]["step"])) != frames + SHORT_CYCLE \
             or any(c != more + WARMUP_RUNS for c in ff.launches.values()):
         raise AssertionError("the resumed online run did not continue the saved one")
     return counts, resumed
@@ -1338,9 +1359,9 @@ def check_online_paths(tmp: str, fb_agent: tp.Any) -> None:
         raise AssertionError("captured and eager RND updates disagree")
     del rnd, agents, program
 
-    # the collector at full width: captured against eager over COMPARED_STEPS steps,
+    # the collector at full width: captured against eager over COLLECTOR_STEPS steps,
     # across the exploration schedule's end and an in-episode z resample
-    env = locomotion.make("walker_walk", COMPARED_STEPS)
+    env = locomotion.make("walker_walk", COLLECTOR_STEPS)
     gens = [torch.Generator(device="cuda").manual_seed(SEED + 5) for _ in range(2)]
     collectors = [EpisodeCollector(env, fb_agent, ONLINE_ENVS, gens[0]),
                   EpisodeCollector(env, fb_agent, ONLINE_ENVS, gens[1], capture=False)]
@@ -1351,7 +1372,7 @@ def check_online_paths(tmp: str, fb_agent: tp.Any) -> None:
         runs.append({k: v.clone() for k, v in collector(meta, state, ts, 0).items()})
     unequal = [k for k, v in runs[1].items() if not torch.equal(runs[0][k], v)]
     print(f"phase 13 collector captured vs eager: {ONLINE_ENVS} walker episodes x "
-          f"{COMPARED_STEPS} steps, full-width bf16 policy with its noise; columns that "
+          f"{COLLECTOR_STEPS} steps, full-width bf16 policy with its noise; columns that "
           f"differ: {unequal or 'none'}; generators in the same state after: "
           f"{torch.equal(gens[0].get_state(), gens[1].get_state())}")
     if unequal or not torch.equal(gens[0].get_state(), gens[1].get_state()):
@@ -1941,12 +1962,13 @@ def run_quadruped(tmp: str) -> tp.Tuple[tp.Dict[str, int], tp.Any]:
     """Phase 21: ``train_online`` on the quadruped with ``quad_pos_speed``
     at full width, then ``evaluate()`` and ``finalize()``."""
     card = card_name_and_power_limit()
-    frames = QUAD_CYCLES * CYCLE_STEPS
+    frames = QUAD_CYCLES * SHORT_CYCLE
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
     ff.reset_launches()
     ws, wall = _timed(lambda: train_online.main(quad_args(
         f"{tmp}/quad", "task=quadruped_stand", "goal_space=quad_pos_speed",
+        f"episode_length={SHORT_LENGTH}",
         f"num_rollout_episodes={ONLINE_ENVS}", f"num_agent_updates={QUAD_UPDATES}",
         f"num_train_frames={frames}", "eval_every_steps=0",
         f"replay_buffer_episodes={QUAD_REPLAY_EPISODES}")))
@@ -1957,7 +1979,7 @@ def run_quadruped(tmp: str) -> tp.Tuple[tp.Dict[str, int], tp.Any]:
     for i, (timing, row) in enumerate(zip(ws.cycle_timings, rows)):
         collect, update = timing["collect"], timing["update"]
         print(f"phase 21 cycle {i + 1}: {collect + update:.3f} s: collection of {ONLINE_ENVS} x "
-              f"{EPISODE_LENGTH} steps {collect:.3f} s ({ONLINE_ENVS * EPISODE_LENGTH / collect:.0f}"
+              f"{SHORT_LENGTH} steps {collect:.3f} s ({SHORT_CYCLE / collect:.0f}"
               f" environment steps/s{', the capture of the control step included' if i == 0 else ''}"
               f"), {int(timing['updates'])} updates and the commit {update:.3f} s "
               f"({timing['updates'] / update:.1f} updates/s"
@@ -1983,7 +2005,7 @@ def run_quadruped(tmp: str) -> tp.Tuple[tp.Dict[str, int], tp.Any]:
                              f"launches {counts}, device runs {ran}, row {ws.last_row}")
     metrics, eval_s = _timed(ws.evaluate)
     video = ws.work_dir / "eval_video" / f"{ws.global_step}.png"
-    print(f"phase 21 evaluate: {EVAL_EPISODES} episodes x {EPISODE_LENGTH} steps in {eval_s:.3f} s "
+    print(f"phase 21 evaluate: {EVAL_EPISODES} episodes x {SHORT_LENGTH} steps in {eval_s:.3f} s "
           f"(the capture of the control step, z inferred from the replay ({ws.cfg.z_inference_draws}"
           f" draws), the csv row and the video included): episode_reward "
           f"{metrics['episode_reward']:.2f}, z_norm {metrics['z_norm']:.4f}, phys_up_mean "
@@ -1994,7 +2016,7 @@ def run_quadruped(tmp: str) -> tp.Tuple[tp.Dict[str, int], tp.Any]:
     rewards, final_s = _timed(ws.finalize)
     written = check_test_rewards(ws, rewards, QUAD_BATTERY)
     print(f"phase 21 finalize: {len(QUAD_BATTERY)} tasks x {FINAL_TESTS} episodes x "
-          f"{EPISODE_LENGTH} steps in one batch of {len(QUAD_BATTERY) * FINAL_TESTS} in "
+          f"{SHORT_LENGTH} steps in one batch of {len(QUAD_BATTERY) * FINAL_TESTS} in "
           f"{final_s:.3f} s; test_rewards.json mean returns "
           + ", ".join(f"{t} {np.mean(written[t]):.2f}" for t in QUAD_BATTERY) + f", on {card}")
     return counts, ws
@@ -2048,17 +2070,18 @@ def run_quadruped_paths(tmp: str) -> None:
     for task in ("quadruped_fetch", "quadruped_escape"):
         run, wall = _timed(lambda: anytrain.main(quad_args(
             f"{tmp}/{task}", f"task={task}", f"num_envs={QUAD_ANYTRAIN_ENVS}",
-            "num_seed_frames=0", f"num_train_frames={QUAD_ANYTRAIN_ENVS * EPISODE_LENGTH}",
+            f"episode_length={SHORT_LENGTH}", "num_seed_frames=0",
+            f"num_train_frames={QUAD_ANYTRAIN_ENVS * SHORT_LENGTH}",
             "eval_every_steps=0", "final_tests=0")))
         timing = run.cycle_timings[0]
         row = run.last_row
         print(f"phase 22 anytrain task={task}: one cycle of {QUAD_ANYTRAIN_ENVS} x "
-              f"{EPISODE_LENGTH} "
+              f"{SHORT_LENGTH} "
               f"steps (collection {timing['collect']:.3f} s, the capture included) and "
               f"{run.agent.step} updates ({timing['update']:.3f} s) in {wall:.1f} s; "
               f"episode_reward {row['episode_reward']:.2f}, fb_loss {row['fb_loss']:.4f}, "
               f"on {card}")
-        if run.agent.step != QUAD_ANYTRAIN_ENVS * EPISODE_LENGTH // 2 \
+        if run.agent.step != QUAD_ANYTRAIN_ENVS * SHORT_LENGTH // 2 \
                 or not all(math.isfinite(v) for v in row.values()):
             raise AssertionError(f"{task}: agent step {run.agent.step}, row {row}")
         del run
@@ -2348,10 +2371,11 @@ def check_explorers(tmp: str, episodes: tp.List[tp.Dict[str, np.ndarray]],
         f"{r['label']} {r['captured']:.1f} ({r['launches']:.0f} launches, {r['busy_ms']:.3f} ms)"
         for r in out) + f"; all equal to eager to the bit; on {card}")
 
-    frames = 2 * CYCLE_STEPS
+    frames = 2 * SHORT_CYCLE
     ws, wall = _timed(lambda: pretrain.main([
         "agent=diayn", "task=walker_walk", f"num_envs={ONLINE_ENVS}",
-        f"num_seed_frames={CYCLE_STEPS}", f"num_train_frames={frames}", "eval_every_steps=0",
+        f"episode_length={SHORT_LENGTH}", f"num_seed_frames={SHORT_CYCLE}",
+        f"num_train_frames={frames}", "eval_every_steps=0",
         "final_tests=0", f"folder={tmp}/diayn", f"seed={SEED}"]))
     report_cycles(ws, "phase 25 diayn")
     skill = ws.buffer.state.storage["skill"][:len(ws.buffer)]
@@ -2440,10 +2464,11 @@ def check_item13_agents(fb_rate: float) -> None:
 def item13_args(agent: str, folder: str, frames: int, *extra: str,
                 envs: int = ONLINE_ENVS) -> tp.List[str]:
     """Phases 27 and 28: ``pretrain`` at the JAX defaults, ``envs``
-    environments, a seed cycle, no evaluation."""
-    return [f"agent={agent}", f"num_envs={envs}", f"num_seed_frames={envs * EPISODE_LENGTH}",
-            f"num_train_frames={frames}", "eval_every_steps=0", f"folder={folder}",
-            f"seed={SEED}", *extra]
+    environments, episodes of ``SHORT_LENGTH`` steps, a seed cycle, no
+    evaluation."""
+    return [f"agent={agent}", f"num_envs={envs}", f"episode_length={SHORT_LENGTH}",
+            f"num_seed_frames={envs * SHORT_LENGTH}", f"num_train_frames={frames}",
+            "eval_every_steps=0", f"folder={folder}", f"seed={SEED}", *extra]
 
 
 def meta_changes(ws: tp.Any, key: str) -> tp.Tuple[int, int, torch.Tensor]:
@@ -2461,7 +2486,7 @@ def run_item13_explorers(tmp: str) -> None:
     the meta resampled in the captured collector; NEWAPS's final battery;
     Proto resumed from its folder, its queue with it."""
     card = card_name_and_power_limit()
-    cycle = ITEM13_ENVS * EPISODE_LENGTH
+    cycle = ITEM13_ENVS * SHORT_LENGTH
     frames = 2 * cycle
     updates = cycle // 2
     for agent in ITEM13_EXPLORERS:
@@ -2536,7 +2561,7 @@ def run_item13_goal_agents(tmp: str) -> None:
     training cycle and ``finalize()``; ``train_offline agent=goal_td3`` on
     the GoalTD3 run's replay."""
     card = card_name_and_power_limit()
-    frames = 2 * CYCLE_STEPS
+    frames = 2 * SHORT_CYCLE
     maze = ["task=point_mass_maze_reach_top_left", f"goal_space={MAZE_GOAL_SPACE}",
             "custom_reward=maze_multi_goal", "final_tests=2"]
 
@@ -2565,7 +2590,7 @@ def run_item13_goal_agents(tmp: str) -> None:
               f"collection {cycles[-1]['share']:.4f} of it; the {key} column "
               f"{tuple(meta.shape)}, all zeros {zeros} (GoalSM's init_meta is zeros); "
               + ", ".join(f"{k} {v:.4f}" for k, v in row.items() if "loss" in k))
-        if captures != 1 or ws.agent.step != CYCLE_STEPS // 2 or zeros != (agent == "goal_sm") \
+        if captures != 1 or ws.agent.step != SHORT_CYCLE // 2 or zeros != (agent == "goal_sm") \
                 or not all(math.isfinite(v) for v in row.values()):
             raise AssertionError(f"the {agent} run: captures {captures}, step {ws.agent.step}, "
                                  f"g zeros {zeros}, {row}")
@@ -3325,6 +3350,48 @@ def run_bench_harness(tmp: str) -> None:
         raise AssertionError(f"gen_scaling_record: {oks}")
 
 
+def run_recipe(tmp: str) -> tp.Dict[str, int]:
+    """Phase 35: ``tools/online_curve.py``'s recipe mode on ``results/quad_one``,
+    cut to ``RECIPE_CYCLES`` cycles and a battery of ``RECIPE_FINAL_TESTS``
+    episodes per task; returns the run's fused launches."""
+    card = card_name_and_power_limit()
+    stored = json.loads((RECIPE / "config.json").read_text())
+    cycle = stored["num_rollout_episodes"] * EPISODE_LENGTH
+    frames = RECIPE_CYCLES * cycle
+    folder = Path(tmp) / "recipe"
+    cuts = [f"num_train_frames={frames}", f"final_tests={RECIPE_FINAL_TESTS}"]
+    rc, wall = _timed(lambda: online_curve.main([
+        f"recipe={RECIPE}", "entry=train_online", f"folder={folder}", *cuts]))
+    if rc != 0:
+        raise AssertionError(f"online_curve recipe={RECIPE} returned {rc}")
+    saved = json.loads((folder / "config.json").read_text())
+    cut = {c.split("=")[0] for c in cuts}
+    differ = {k: (v, saved.get(k)) for k, v in stored.items() if saved.get(k) != v
+              and k not in set(online_curve.RECIPE_REPLACED) | cut}
+    if differ or not saved["agent.use_pallas_loss"] or saved["agent.compute_dtype"] != \
+            "bfloat16" or saved["checkpoint_every"] <= stored["num_train_frames"] \
+            or saved["num_train_frames"] != frames or saved["final_tests"] != RECIPE_FINAL_TESTS:
+        raise AssertionError(f"the recipe resolved to {saved}; stored keys that differ: {differ}")
+    check = json.loads((folder / "check.json").read_text())
+    counts, runs = check["launches"], check["device_runs"]
+    updates = RECIPE_CYCLES * stored["num_agent_updates"]
+    print(f"phase 35 online_curve recipe=results/quad_one entry=train_online, {RECIPE_CYCLES} "
+          f"cycles of {cycle} frames: {check['frames']} frames, {check['updates']} updates in "
+          f"{check['seconds']:.1f} s of run ({wall:.1f} s with the records), collection "
+          f"{check['collection_share']:.4f} of a cycle; fused launches {counts} by the "
+          f"wrappers' counts, {runs} by the kernels' own; battery "
+          + ", ".join(f"{t} {r['port_mean']:.1f} ({r['verdict']})"
+                      for t, r in check["battery"].items()) + f"; on {card}")
+    if check["frames"] != frames or check["updates"] != updates or runs != counts \
+            or not check["launches_equal"] \
+            or any(c != updates + WARMUP_RUNS for c in counts.values()) \
+            or list(check["battery"]) != list(QUAD_BATTERY) \
+            or not all(r["verdict"] in ("inside", "outside") for r in check["battery"].values()) \
+            or (folder / "models").exists():
+        raise AssertionError(f"phase 35: {check}")
+    return counts
+
+
 def measure_fb_rate() -> float:
     """FB's captured updates/s at phase 4's geometry (bf16, the fused loss,
     batch 1024) on its episodes, for a selection of phases without phase 4:
@@ -3349,8 +3416,9 @@ def quad_replay(tmp: str) -> None:
     cycle of ``train_online`` on the quadruped, collected without updates."""
     train_online.main(quad_args(
         f"{tmp}/quad", "task=quadruped_stand", "goal_space=quad_pos_speed",
-        f"num_rollout_episodes={ONLINE_ENVS}", "num_agent_updates=0",
-        f"num_train_frames={CYCLE_STEPS}", "eval_every_steps=0", "final_tests=0",
+        f"episode_length={SHORT_LENGTH}", f"num_rollout_episodes={ONLINE_ENVS}",
+        "num_agent_updates=0", f"num_train_frames={SHORT_CYCLE}", "eval_every_steps=0",
+        "final_tests=0",
         f"replay_buffer_episodes={QUAD_REPLAY_EPISODES}"))
 
 
@@ -3578,6 +3646,14 @@ class SmokeRun:
         torch.cuda.empty_cache()
         self.zero_launches((34,), "benchmark harness (phase 34)", (
             (34, lambda: run_bench_harness(tmp)),))
+        gc.collect()
+        torch.cuda.empty_cache()
+        if 35 in selected:
+            # this slice's main path: the kernels' launches of the recipe's run
+            recipe_counts = self.timed(35, lambda: run_recipe(tmp))
+            for row in self.rows or []:
+                row["launches"] = recipe_counts[row["wrapper"]]
+            self.by_path("online_curve recipe=results/quad_one (phase 35)", recipe_counts)
 
 
 def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:

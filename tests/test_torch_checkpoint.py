@@ -15,6 +15,7 @@ from controllable_agent_torch.data import ReplayBuffer
 from controllable_agent_torch.data.exorl import synthetic_episodes
 from controllable_agent_torch.train import checkpoint as ckpt
 from controllable_agent_torch.train.workspace import OfflineWorkspace, WorkspaceConfig
+from torch_threads import one_thread  # noqa: F401
 
 OBS, ACT = 4, 2  # the default task's environment, the point-mass maze
 SMALL = dict(hidden_dim=32, backward_hidden_dim=32, feature_dim=16, z_dim=8, batch_size=16)

@@ -36,6 +36,7 @@ from controllable_agent_torch.data import replay as treplay
 from controllable_agent_torch.data.episode_batch import EpisodeBatch
 from controllable_agent_torch.ops.pbe import RMSState, rms_update
 from controllable_agent_torch.pretrain import build_workspace
+from torch_threads import one_thread  # noqa: F401
 
 N, OBS, ACT = 16, 6, 3
 SMALL = dict(hidden_dim=32, batch_size=N)

@@ -32,6 +32,7 @@ from controllable_agent_torch.agents.fb_ddpg import build_train_z
 from controllable_agent_torch.convert import flax_to_state_dict, load_discrete_fb_train_state
 from controllable_agent_torch.data.episode_batch import EpisodeBatch
 from controllable_agent_torch.models.networks import DiscreteForwardMap
+from torch_threads import one_thread  # noqa: F401
 
 N, OBS, GOAL, ACTIONS = 16, 4, 3, 5
 SMALL = dict(hidden_dim=32, backward_hidden_dim=32, feature_dim=16, z_dim=8, batch_size=N)

@@ -29,6 +29,7 @@ from controllable_agent_torch.convert import flax_to_state_dict, load_discrete_s
 from controllable_agent_torch.data.episode_batch import EpisodeBatch
 from controllable_agent_torch.train import jax_checkpoint
 from test_torch_discrete_fb import ACTIONS, GRAD_RTOL, N, OBS, _close, _close_params
+from torch_threads import one_thread  # noqa: F401
 
 SMALL = dict(hidden_dim=32, backward_hidden_dim=32, feature_dim=16, z_dim=8, batch_size=N)
 LEARNERS = ["icm", "identity", "random", "lap", "contrastive"]

@@ -22,6 +22,7 @@ from controllable_agent_torch.envs.base import EnvSpec, StepType, TimeStep
 from controllable_agent_torch.envs.wrappers import (ActionRepeatWrapper, FrameStackWrapper,
                                                     GoalAppendWrapper, StatefulEnv)
 from controllable_agent_torch.train import physics_stats as tstats
+from torch_threads import one_thread  # noqa: F401
 
 ENVS = 4
 TASKS = ["walker_walk", "cheetah_run", "hopper_hop"]

@@ -27,6 +27,7 @@ from controllable_agent_torch.envs import locomotion
 from controllable_agent_torch.goals import get_reward_function
 from controllable_agent_torch.pretrain import build_workspace
 from controllable_agent_torch.train.loops import Rollout
+from torch_threads import one_thread  # noqa: F401
 
 HORIZON, EPISODES = 20, 3
 SMALL = ["agent.hidden_dim=32", "agent.backward_hidden_dim=32", "agent.feature_dim=16",

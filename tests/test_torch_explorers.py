@@ -37,6 +37,7 @@ from controllable_agent_torch.ops.pbe import RMSState, pbe
 from controllable_agent_torch.pretrain import build_workspace
 from controllable_agent_torch.train.loops import init_meta_batched
 from test_torch_ddpg import _close_params, jax_ddpg_noise
+from torch_threads import one_thread  # noqa: F401
 
 N, OBS, ACT, SKILLS = 16, 6, 3, 5
 SMALL = dict(hidden_dim=32, batch_size=N)

@@ -25,6 +25,7 @@ from controllable_agent_torch.data.episode_batch import EpisodeBatch
 from controllable_agent_torch.data.exorl import synthetic_episodes
 from controllable_agent_torch.optim import Adam
 from controllable_agent_torch.utils.schedules import schedule
+from torch_threads import one_thread  # noqa: F401
 
 N, OBS, ACT = 16, 6, 3
 SMALL = dict(hidden_dim=32, backward_hidden_dim=32, feature_dim=16, z_dim=8,

@@ -16,6 +16,7 @@ from controllable_agent_tpu.ops.pallas_fb import fb_loss_terms_fused as jax_fuse
 from controllable_agent_torch.agents import FBDDPGAgent, FBDDPGConfig, UpdateNoise
 from controllable_agent_torch.data.episode_batch import EpisodeBatch
 from controllable_agent_torch.ops import fused_fb as ff
+from torch_threads import one_thread  # noqa: F401
 
 
 def _inputs(n: int, d: int, seed: int):

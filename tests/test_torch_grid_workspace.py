@@ -22,6 +22,7 @@ from controllable_agent_torch.data.exorl import save_exorl_episodes
 from controllable_agent_torch.envs import build_gridworld_task
 from controllable_agent_torch.ops import fused_fb
 from controllable_agent_torch.train.loops import make_offline_trainer
+from torch_threads import one_thread  # noqa: F401
 
 HORIZON = 20
 SMALL = ["agent.hidden_dim=32", "agent.backward_hidden_dim=32", "agent.feature_dim=16",

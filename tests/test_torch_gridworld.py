@@ -17,6 +17,7 @@ from controllable_agent_torch.envs import build_gridworld_task
 from controllable_agent_torch.envs import gridworld as tgrid
 from controllable_agent_torch.envs.base import StepType
 from controllable_agent_torch.train.video import Renderer
+from torch_threads import one_thread  # noqa: F401
 
 E, STEPS, HORIZON = 24, 40, 30  # past the episode's end: LAST, then the episode goes on
 LAYOUTS = ["simple", "obstacle", "random_goal"]

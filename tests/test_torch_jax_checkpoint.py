@@ -20,6 +20,7 @@ from controllable_agent_torch.data.exorl import save_exorl_episodes
 from controllable_agent_torch.envs import locomotion
 from controllable_agent_torch.pretrain import build_workspace
 from controllable_agent_torch.train import jax_checkpoint
+from torch_threads import one_thread  # noqa: F401
 
 SMALL = ["agent.hidden_dim=32", "agent.backward_hidden_dim=32", "agent.feature_dim=16",
          "agent.z_dim=8", "agent.batch_size=16"]

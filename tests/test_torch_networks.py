@@ -10,6 +10,7 @@ import torch
 from controllable_agent_tpu.models import networks as jnets
 from controllable_agent_torch.convert import flax_to_state_dict
 from controllable_agent_torch.models import networks as tnets
+from torch_threads import one_thread  # noqa: F401
 
 OBS, Z, ACT, FEAT, HID = 6, 8, 3, 16, 32
 RTOL, ATOL = 1e-5, 1e-5  # float32 products of width <= 64, summed in another order

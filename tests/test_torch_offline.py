@@ -25,6 +25,7 @@ from controllable_agent_torch.goals import get_reward_function
 from controllable_agent_torch.ops import fused_fb
 from controllable_agent_torch.train import checkpoint as ckpt
 from controllable_agent_torch.train.loops import make_offline_trainer
+from torch_threads import one_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 SMALL = ["agent.hidden_dim=32", "agent.backward_hidden_dim=32",

@@ -38,6 +38,7 @@ from controllable_agent_torch.envs import locomotion as tloco
 from controllable_agent_torch.envs import pointmass as tpm
 from controllable_agent_torch.train.loops import (EpisodeCollector, OnlineTrainer,
                                                   init_meta_batched)
+from torch_threads import one_thread  # noqa: F401
 
 E = 3
 FB_SMALL = dict(hidden_dim=32, backward_hidden_dim=32, feature_dim=16, z_dim=8, batch_size=16)

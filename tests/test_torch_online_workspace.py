@@ -13,6 +13,7 @@ import pytest
 
 from controllable_agent_torch import anytrain, pretrain, train_offline, train_online
 from controllable_agent_torch.agents import AGENTS
+from torch_threads import one_thread  # noqa: F401
 
 HORIZON = 20
 SMALL = ["agent.hidden_dim=32", "agent.batch_size=16"]

@@ -21,6 +21,7 @@ from controllable_agent_tpu.envs import physics2d as jp2d
 from controllable_agent_torch.envs import locomotion as tloco
 from controllable_agent_torch.envs import physics2d as tp2d
 from controllable_agent_torch.tools import dynamics_check
+from torch_threads import one_thread  # noqa: F401
 
 STATES = 64
 RTOL, ATOL_OF_MAX = 1e-4, 1e-5

@@ -19,6 +19,7 @@ from controllable_agent_torch.data.exorl import load_exorl_episodes, save_exorl_
 from controllable_agent_torch.data.replay import SampleConfig, sample
 from controllable_agent_torch.envs import locomotion
 from controllable_agent_torch.goals import get_reward_function, goal_spaces
+from torch_threads import one_thread  # noqa: F401
 
 
 def _episode(ep: int, length: int, obs_dim: int = 2):

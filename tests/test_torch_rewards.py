@@ -29,6 +29,7 @@ from controllable_agent_torch.goals import registry as tregistry
 from controllable_agent_torch.goals import rewards as trewards
 from controllable_agent_torch.goals import yoga as tyoga
 from controllable_agent_torch.ops.tolerance import tolerance
+from torch_threads import one_thread  # noqa: F401
 
 DOMAINS = ("walker", "cheetah", "hopper")
 SIGMOIDS = ("gaussian", "hyperbolic", "long_tail", "reciprocal", "cosine", "linear",

@@ -32,6 +32,7 @@ from controllable_agent_torch.convert import (flax_to_state_dict, load_fb_train_
 from controllable_agent_torch.ops.linalg import lstsq, pinv
 from test_torch_sf_learners import (ACT, OBS, SMALL, batch_pair, close, close_grads,
                                     close_params, close_update, jax_sf_noise, sf_pair)
+from torch_threads import one_thread  # noqa: F401
 
 N = SMALL["batch_size"]
 

@@ -25,6 +25,7 @@ from controllable_agent_torch.agents import FEATURE_LEARNERS, SFAgent, SFConfig,
 from controllable_agent_torch.agents.sf import FROZEN_LEARNERS
 from controllable_agent_torch.convert import flax_to_state_dict, load_sf_train_state
 from controllable_agent_torch.data.episode_batch import EpisodeBatch
+from torch_threads import one_thread  # noqa: F401
 
 N, OBS, ACT = 16, 6, 3
 SMALL = dict(hidden_dim=32, backward_hidden_dim=32, feature_dim=16, z_dim=8, batch_size=N)

@@ -21,6 +21,7 @@ from controllable_agent_torch.convert import flax_to_state_dict
 from controllable_agent_torch.data import ReplayBuffer
 from controllable_agent_torch.data.exorl import save_exorl_episodes
 from controllable_agent_torch.envs import locomotion
+from torch_threads import one_thread  # noqa: F401
 
 SMALL = ["agent.hidden_dim=32", "agent.backward_hidden_dim=32", "agent.feature_dim=16",
          "agent.z_dim=8", "agent.batch_size=16", "agent.num_inference_steps=64"]

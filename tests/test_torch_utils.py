@@ -27,6 +27,7 @@ from controllable_agent_torch.utils import Stopwatch, crossed, resolve_device
 from controllable_agent_torch.utils import distributions as tdist
 from controllable_agent_torch.utils.schedules import schedule
 from controllable_agent_torch.utils.tree import soft_update
+from torch_threads import one_thread  # noqa: F401
 
 RTOL, ATOL = 1e-5, 1e-6  # float32 elementwise math in another order
 
