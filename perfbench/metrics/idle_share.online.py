@@ -1,0 +1,10 @@
+"""The device's idle share of one whole profiled cycle (collection, commit
+and updates), in percent: one minus the union of its operations'
+intervals over the cycle."""
+
+
+def read(record):
+    trace = record.get("trace")
+    if trace is None or trace.window_s <= 0 or trace.busy_s <= 0:
+        return None
+    return 100.0 * (1.0 - trace.busy_s / trace.window_s)
