@@ -206,8 +206,11 @@ running phase 15), one collected quadruped cycle for phase 22. The phases:
      ``train_offline.main task=d4rl_halfcheetah d4rl_dataset=...`` at the
      JAX FB defaults in bf16 with ``agent.use_pallas_loss=true``, 300
      captured updates, ``profile_dir`` set: the fused launches equal the
-     updates + 2 by both counts, the Chrome trace of the cycle after the
-     seed frames names the fused kernels, the run's evaluation and one more
+     updates + 6 by both counts (the profiled call turns the program's
+     tracing on and the next call off again, each a capture with its two
+     warm-up runs), the Chrome trace of the cycle after the seed frames
+     names the fused kernels and the program's spans, the run's evaluation
+     and one more
      have a ``normalized_score`` equal to d4rl's score, on the host, of the
      dataset's returns of the episodes the resets drew; the replay
      environment's captured control step against eager, to the bit;
@@ -2668,7 +2671,8 @@ def run_d4rl(tmp: str) -> tp.Tuple[tp.Dict[str, int], tp.Any]:
         f"folder={tmp}/d4rl", f"seed={SEED}"]))
     counts, ran = dict(ff.launches), ff.device_runs()
     peak = torch.cuda.max_memory_allocated()
-    expected = D4RL_STEPS + WARMUP_RUNS
+    # three captures: the first call's, the profiled (traced) call's, the next call's
+    expected = D4RL_STEPS + 3 * WARMUP_RUNS
     print(f"phase 29 train_offline task=d4rl_{D4RL_DOMAIN}: {len(ws.buffer)} episodes of "
           f"{ws.buffer.state.max_episode_length} transitions in the replay, {ws.global_step} "
           f"updates as replays of one captured graph in {wall:.1f} s (the load, the capture, "
@@ -2695,12 +2699,16 @@ def run_d4rl(tmp: str) -> tp.Tuple[tp.Dict[str, int], tp.Any]:
     traces = sorted(Path(profiles).iterdir())
     text = traces[0].read_text() if len(traces) == 1 else ""
     found = {part: text.count(part) for parts in KERNEL_NAMES.values() for part in parts}
+    spans = {name: text.count(f'"{name}"') for name in ("sample", "update", "optimizer",
+                                                         "graph_replay")}
+    marks = text.count('"trace_begin_')
     print(f"phase 29 profile_dir: {[t.name for t in traces]}, {len(text) / 1e6:.1f} MB; "
-          f"mentions of the fused kernels: {found}")
+          f"mentions of the fused kernels: {found}; of the program's spans: {spans}; "
+          f"begin marks on the device: {marks}")
     if len(traces) != 1 or traces[0].name != f"trace_{D4RL_SEED_FRAMES}.json" \
-            or not all(found.values()):
+            or not all(found.values()) or not all(spans.values()) or not marks:
         raise AssertionError("expected one Chrome trace of the cycle after the seed frames, "
-                             "with the fused kernels in it")
+                             "with the fused kernels, the program's spans and its marks in it")
 
     env, agent, gen = ws.env, ws.agent, torch.Generator(device="cuda").manual_seed(SEED)
     state, ts = env.reset(gen, EVAL_EPISODES)

@@ -403,8 +403,8 @@ class LocomotionEnv(Environment):
                 held_q.copy_(new_q)
                 held_qd.copy_(new_qd)
 
-            self._settlers[key] = (CapturedProgram(one_step, q.device, [held_q, held_qd]),
-                                   held_q, held_qd)
+            self._settlers[key] = (CapturedProgram(one_step, q.device, [held_q, held_qd],
+                                                   name="settle"), held_q, held_qd)
         program, held_q, held_qd = self._settlers[key]
         held_q.copy_(q)
         held_qd.copy_(qd)

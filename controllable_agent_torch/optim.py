@@ -29,6 +29,8 @@ import typing as tp
 import torch
 from torch import nn
 
+from .utils import trace
+
 
 class Adam:
     """Adam over a module's parameters, or over named parameters (a
@@ -64,30 +66,32 @@ class Adam:
 
     @torch.no_grad()
     def step(self, grads: tp.Sequence[torch.Tensor]) -> None:
-        """Apply one update; ``grads`` are in ``self.params`` order."""
-        params, grads = list(self.params.values()), list(grads)
-        mus, nus = list(self.mu.values()), list(self.nu.values())
-        self.count_t += 1
-        count = self.count_t.float()
-        bc1 = 1.0 - torch.pow(self.b1, count)
-        bc2 = 1.0 - torch.pow(self.b2, count)
+        """Apply one update; ``grads`` are in ``self.params`` order. The
+        step is the device span ``optimizer`` (``utils/trace.py``)."""
+        with trace.device_span("optimizer", self.count_t.device):
+            params, grads = list(self.params.values()), list(grads)
+            mus, nus = list(self.mu.values()), list(self.nu.values())
+            self.count_t += 1
+            count = self.count_t.float()
+            bc1 = 1.0 - torch.pow(self.b1, count)
+            bc2 = 1.0 - torch.pow(self.b2, count)
 
-        decayed = torch._foreach_mul(mus, self.b1)  # rounds in mu's dtype
-        if decayed[0].dtype != torch.float32:
-            widened = [torch.empty_like(g) for g in grads]
-            torch._foreach_copy_(widened, decayed)
-            decayed = widened
-        mu = torch._foreach_mul(grads, 1.0 - self.b1)
-        torch._foreach_add_(mu, decayed)
-        squares = torch._foreach_mul(grads, grads)
-        torch._foreach_mul_(squares, 1.0 - self.b2)
-        torch._foreach_mul_(nus, self.b2)
-        torch._foreach_add_(nus, squares)
+            decayed = torch._foreach_mul(mus, self.b1)  # rounds in mu's dtype
+            if decayed[0].dtype != torch.float32:
+                widened = [torch.empty_like(g) for g in grads]
+                torch._foreach_copy_(widened, decayed)
+                decayed = widened
+            mu = torch._foreach_mul(grads, 1.0 - self.b1)
+            torch._foreach_add_(mu, decayed)
+            squares = torch._foreach_mul(grads, grads)
+            torch._foreach_mul_(squares, 1.0 - self.b2)
+            torch._foreach_mul_(nus, self.b2)
+            torch._foreach_add_(nus, squares)
 
-        denom = torch._foreach_div(nus, bc2)
-        torch._foreach_sqrt_(denom)
-        torch._foreach_add_(denom, self.eps)
-        update = torch._foreach_div(mu, bc1)
-        torch._foreach_div_(update, denom)
-        torch._foreach_add_(params, update, alpha=-self.lr)
-        torch._foreach_copy_(mus, mu)
+            denom = torch._foreach_div(nus, bc2)
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, self.eps)
+            update = torch._foreach_div(mu, bc1)
+            torch._foreach_div_(update, denom)
+            torch._foreach_add_(params, update, alpha=-self.lr)
+            torch._foreach_copy_(mus, mu)

@@ -26,6 +26,7 @@ import torch
 from ..agents.base import MetaDict, StepNoise
 from ..data import replay as replay_lib
 from ..data.replay import ReplayState, SampleConfig
+from ..utils import trace
 from ..utils.dist import Shard
 from ..utils.graphs import WARMUP_RUNS, CapturedProgram
 
@@ -40,9 +41,11 @@ class OfflineTrainer:
     (deeper graphs measured no faster). The graph is bound to the replay's
     tensors and the generator it was captured with, not to its fill level
     (the sampler reads none): episodes committed in place keep it serving,
-    and it is captured anew only for another generator or another storage
-    (``captures`` counts the captures). ``capture=False`` on a CUDA device is
-    the eager loop, kept to be measured beside the captured one.
+    and it is captured anew only for another generator or another storage,
+    or after the tracing switch flipped (``captures`` counts the captures).
+    ``capture=False`` on a CUDA device is the eager loop, kept to be
+    measured beside the captured one. Each update is the device spans
+    ``sample`` and ``update`` (``utils/trace.py``).
 
     With a process ``group`` the updates are data-parallel (the JAX
     ``make_dp_offline_trainer``): every process draws the same global batch
@@ -85,12 +88,15 @@ class OfflineTrainer:
 
     def _run_updates(self, replay_state: ReplayState, generator: torch.Generator,
                      count: int) -> None:
+        device = self.agent.device
         for _ in range(count):
-            batch = self._sample(replay_state, generator)
-            if self.group is None:
-                metrics = self.agent.update(batch, generator)
-            else:
-                metrics = self.agent.update(batch, generator, group=self.group)
+            with trace.device_span("sample", device):
+                batch = self._sample(replay_state, generator)
+            with trace.device_span("update", device):
+                if self.group is None:
+                    metrics = self.agent.update(batch, generator)
+                else:
+                    metrics = self.agent.update(batch, generator, group=self.group)
             for k, v in metrics.items():
                 if k in self._sums:
                     self._sums[k] += v.float()
@@ -102,13 +108,14 @@ class OfflineTrainer:
         steps = self.steps_per_call if steps is None else steps
         if self.capture:
             binding = (generator, replay_state.ep_lengths.data_ptr(),
-                       tuple(v.data_ptr() for v in replay_state.storage.values()))
+                       tuple(v.data_ptr() for v in replay_state.storage.values()),
+                       trace.enabled())
             if self._bound_to is None or self._bound_to[0] is not generator \
                     or self._bound_to[1:] != binding[1:]:
                 self._program = CapturedProgram(
                     lambda: self._run_updates(replay_state, generator, 1),
                     self.agent.device, self.agent.train_state().values(),
-                    self._generators(generator))
+                    self._generators(generator), name="trainer")
                 self._bound_to = binding
                 self.captures += 1
         if self._sums:
@@ -173,8 +180,10 @@ class Rollout:
     episodes of 84 x 84 x 9 frames would be 6.4 GB. ``rewards`` [E, T] holds
     each step's reward. ``horizon`` (the environment's episode length by
     default) is the number of steps of a run: the demo rolls out its own
-    number of steps. ``capture_seconds`` is the host time that building the
-    captured program took (its warm-up steps included), None before then.
+    number of steps. ``capture_seconds`` is the seconds its captured
+    program's build took (its warm-up steps included; ``trace.captures()``),
+    None before then. A step is the device spans ``act`` and ``env_step``;
+    the step is captured anew after the tracing switch flipped.
     """
 
     def __init__(self, env: tp.Any, agent: tp.Any, num_envs: int,
@@ -191,7 +200,6 @@ class Rollout:
                      for key, dim in _meta_dims(agent).items()}
         self.totals = torch.zeros(num_envs, device=device)
         self.rewards = torch.zeros((num_envs, self.horizon), device=device)
-        self.capture_seconds: tp.Optional[float] = None
         self.physics = torch.zeros((num_envs, self.horizon, spec.physics_dim), device=device)
         self.observations = (None if spec.obs_shape else torch.zeros(
             (num_envs, self.horizon, spec.obs_dim), device=device))
@@ -200,10 +208,17 @@ class Rollout:
         self._state: tp.Any = None
         self._program: tp.Optional[CapturedProgram] = None
 
+    @property
+    def capture_seconds(self) -> tp.Optional[float]:
+        return None if self._program is None else self._program.record.seconds
+
     @torch.no_grad()
     def _step(self) -> None:
-        action = self.agent.policy_act(self._obs, self.meta, 10 ** 9, eval_mode=True)
-        state, ts = self.env.step(self._state, action.float())
+        device = self.agent.device
+        with trace.device_span("act", device):
+            action = self.agent.policy_act(self._obs, self.meta, 10 ** 9, eval_mode=True)
+        with trace.device_span("env_step", device):
+            state, ts = self.env.step(self._state, action.float())
         for held, new in zip(_tensors_of(self._state), _tensors_of(state)):
             held.copy_(new)
         self._obs.copy_(ts.observation)
@@ -234,14 +249,14 @@ class Rollout:
         if self._state is None:
             self._state = _cloned(state)
         self._set_inputs(z, state, ts)
-        if self.capture and self._program is None:
+        if self.capture and (self._program is None
+                             or self._program.traced != trace.enabled()):
             # the capture's warm-up steps run from these inputs, which are set again
             # below; each writes its column of the buffers, so an episode of one step
             # warms up once
-            started = time.perf_counter()
             self._program = CapturedProgram(self._step, self.agent.device,
-                                            warmup_runs=min(WARMUP_RUNS, self.horizon))
-            self.capture_seconds = time.perf_counter() - started
+                                            warmup_runs=min(WARMUP_RUNS, self.horizon),
+                                            name="rollout")
             self._set_inputs(z, state, ts)
         if self._program is not None:
             self._program.replay(self.horizon)
@@ -271,8 +286,10 @@ class EpisodeCollector:
     environments' state, the meta, the index inside the episode and the
     global step that the exploration schedules take. So on a CUDA device the
     step is captured once (``CapturedProgram``, its draws from ``generator``,
-    which is registered with the graph) and replayed ``T`` times; on the CPU
-    the same function runs eagerly.
+    which is registered with the graph; again after the tracing switch
+    flipped) and replayed ``T`` times; on the CPU the same function runs
+    eagerly. A step is the device spans ``act`` (the noise, the meta and the
+    policy) and ``env_step``; the rest is the writes.
 
     ``collector(meta, state, timestep, step)`` takes the initial meta
     ([E, ...] per key), the state and first timestep of a ``reset`` of
@@ -320,15 +337,17 @@ class EpisodeCollector:
     @torch.no_grad()
     def _step(self) -> None:
         agent = self.agent
-        if self._noise is not None:
-            noise = self._noise[int(self._t)]
-        else:
-            noise = agent.step_noise(self.num_envs, self.generator)
-        meta = self.meta if self.hold_meta else agent.rollout_update_meta(
-            self.meta, self._t, noise)
-        action = agent.policy_act(self._obs, meta, self._step_t, eval_mode=False,
-                                  noise=noise)
-        state, ts = self.env.step(self._state, action.float())
+        with trace.device_span("act", agent.device):
+            if self._noise is not None:
+                noise = self._noise[int(self._t)]
+            else:
+                noise = agent.step_noise(self.num_envs, self.generator)
+            meta = self.meta if self.hold_meta else agent.rollout_update_meta(
+                self.meta, self._t, noise)
+            action = agent.policy_act(self._obs, meta, self._step_t, eval_mode=False,
+                                      noise=noise)
+        with trace.device_span("env_step", agent.device):
+            state, ts = self.env.step(self._state, action.float())
         for held, new in zip(_tensors_of(self._state), _tensors_of(state)):
             held.copy_(new)
         self._obs.copy_(ts.observation)
@@ -385,12 +404,13 @@ class EpisodeCollector:
             finally:
                 self._noise = None
         elif self.capture:
-            if self._program is None:
+            if self._program is None or self._program.traced != trace.enabled():
                 # the warm-up steps change the held tensors and the generator;
                 # the capture puts both back
                 self._program = CapturedProgram(self._step, self.agent.device, self._held(),
                                                 [self.generator],
-                                                warmup_runs=min(WARMUP_RUNS, self.horizon))
+                                                warmup_runs=min(WARMUP_RUNS, self.horizon),
+                                                name="collector")
             self._program.replay(self.horizon)
         else:
             for _ in range(self.horizon):
@@ -412,8 +432,11 @@ class OnlineTrainer:
     ``OfflineTrainer``, in calls of at most ``max_steps_per_call``. The
     collector draws from ``collect_generator``, the updates from
     ``generator``: each is registered with its own graph. ``timings`` holds
-    the last cycle's seconds of collection (reset included) and of commit
-    and updates.
+    the last cycle's seconds of collection (reset included; ``collect``), of
+    the commit (``commit``, the host's time: the commit's device work
+    finishes inside the updates') and of commit and updates (``update``),
+    and the number of updates (``updates``); the host spans ``collect``,
+    ``commit`` and ``updates`` cover the same intervals.
 
     With a process ``group`` (the JAX trainer's ``mesh``), each process steps
     ``num_envs / world`` of the environments (from its own
@@ -455,36 +478,40 @@ class OnlineTrainer:
                                               collect_generator, self.goal_fn,
                                               self.hold_meta)
         started = time.perf_counter()
-        if meta is None:
-            meta = init_meta_batched(self.agent, collect_generator, self.local_envs)
-        else:
-            meta = {k: v[self.shard.rows(self.num_envs)] for k, v in meta.items()}
-        state, ts = self.env.reset(collect_generator, self.local_envs)
-        traj = self.collector(meta, state, ts, self.global_step)
-        if self.shard.group is not None:
-            # [T+1, E/world, ...] on each process -> [T+1, E, ...] in rank order
-            with torch.no_grad():
-                traj = {k: self.shard.gather(v.transpose(0, 1)).transpose(0, 1)
-                        for k, v in traj.items()}
-        episode_reward = traj["reward"][1:].sum(0).mean()
-        self._sync()
+        with trace.span("collect"):
+            if meta is None:
+                meta = init_meta_batched(self.agent, collect_generator, self.local_envs)
+            else:
+                meta = {k: v[self.shard.rows(self.num_envs)] for k, v in meta.items()}
+            state, ts = self.env.reset(collect_generator, self.local_envs)
+            traj = self.collector(meta, state, ts, self.global_step)
+            if self.shard.group is not None:
+                # [T+1, E/world, ...] on each process -> [T+1, E, ...] in rank order
+                with torch.no_grad():
+                    traj = {k: self.shard.gather(v.transpose(0, 1)).transpose(0, 1)
+                            for k, v in traj.items()}
+            episode_reward = traj["reward"][1:].sum(0).mean()
+            self._sync()
         collected = time.perf_counter()
         horizon = self.collector.horizon
-        self.buffer.add_trajectory(traj, horizon)
-        self.global_step += horizon * self.num_envs
-        self.global_episode += self.num_envs
+        with trace.span("commit"):
+            self.buffer.add_trajectory(traj, horizon)
+            self.global_step += horizon * self.num_envs
+            self.global_episode += self.num_envs
+        committed = time.perf_counter()
 
         n_updates = int(horizon * self.num_envs * self.updates_per_step)
         metrics: tp.Dict[str, float] = {}
-        if n_updates > 0 and len(self.buffer) > 0:
-            done = 0
-            while done < n_updates:
-                chunk = min(self.max_steps_per_call, n_updates - done)
-                last = self.trainer(self.buffer.state, generator, steps=chunk)
-                done += chunk
-            metrics = {k: float(v) for k, v in last.items()}
-        metrics["episode_reward"] = float(episode_reward)
-        self._sync()
-        self.timings = {"collect": collected - started,
+        with trace.span("updates"):
+            if n_updates > 0 and len(self.buffer) > 0:
+                done = 0
+                while done < n_updates:
+                    chunk = min(self.max_steps_per_call, n_updates - done)
+                    last = self.trainer(self.buffer.state, generator, steps=chunk)
+                    done += chunk
+                metrics = {k: float(v) for k, v in last.items()}
+            metrics["episode_reward"] = float(episode_reward)
+            self._sync()
+        self.timings = {"collect": collected - started, "commit": committed - collected,
                         "update": time.perf_counter() - collected, "updates": n_updates}
         return metrics

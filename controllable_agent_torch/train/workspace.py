@@ -46,7 +46,7 @@ from ..envs.gridworld import build_gridworld_task
 from ..envs.pointmass import TASKS as _PMM_TASKS
 from ..envs.pointmass import PointMassMaze
 from ..goals import get_goal_space_dim, get_reward_function, goal_spaces, goals
-from ..utils import Stopwatch, crossed, frames_remaining, resolve_device
+from ..utils import Stopwatch, crossed, frames_remaining, resolve_device, trace
 from . import checkpoint as ckpt_lib
 from . import jax_checkpoint
 from .logger import Logger
@@ -150,13 +150,16 @@ _FINAL_TASKS = {
 
 @contextlib.contextmanager
 def _chrome_trace(path: Path, device: torch.device) -> tp.Iterator[None]:
-    """Profile the block's host and (on a card) device activity into ``path``;
-    the block's device work is waited for before the trace ends."""
+    """Profile the block's host and (on a card) device activity into ``path``,
+    with the program's tracing on (``utils/trace.py``: the spans of each
+    update and control step, which the captured programs take anew for the
+    block and again after it); the block's device work is waited for before
+    the trace ends."""
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
+    with profile(activities=activities) as prof, trace.traced():
         yield
         if device.type == "cuda":
             torch.cuda.synchronize(device)

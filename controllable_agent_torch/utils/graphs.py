@@ -13,11 +13,13 @@ the graphs with the eager steps between them.
 from __future__ import annotations
 
 import gc
+import time
 import typing as tp
 
 import torch
 
 from ..ops import fused_fb
+from . import trace
 
 # eager runs before a capture: they build the kernels, opt into their shared
 # memory and let cuBLAS and the allocator reach their steady state
@@ -71,13 +73,21 @@ class CapturedProgram:
     after the capture as the warm-up's is. The graphs share one memory pool
     and are always replayed in capture order. ``warmup_runs`` is at least 1.
     A failure to capture raises.
+
+    Each build is recorded (``trace.captures()``) under ``name``: its
+    seconds from the first warm-up run to the end of the capture, the bytes
+    the allocator reserved for its graphs, and the device spans' marks one
+    replay runs. ``traced`` is whether tracing was on when it was captured;
+    each replay is the host span ``graph_replay`` while tracing is on.
     """
 
     def __init__(self, fn: tp.Callable[[], tp.Any], device: torch.device,
                  state: tp.Iterable[torch.Tensor] = (),
                  generators: tp.Sequence[torch.Generator] = (),
-                 warmup_runs: int = WARMUP_RUNS) -> None:
+                 warmup_runs: int = WARMUP_RUNS, name: str = "program") -> None:
+        started = time.perf_counter()
         self.fn = fn
+        self.traced = trace.enabled()
         state = list(state)
         saved = [t.clone() for t in state]
         self._generators = list(generators)
@@ -105,6 +115,7 @@ class CapturedProgram:
         torch.cuda.synchronize(device)
         gc.collect()
         torch.cuda.empty_cache()
+        reserved, marks = torch.cuda.memory_reserved(device), trace.marks_launched()
         _capturing.append(self)
         try:
             with fused_fb.held_by_capture() as self.held, torch.cuda.stream(side):
@@ -124,6 +135,10 @@ class CapturedProgram:
         if self.steps:
             torch.cuda.synchronize(device)
             restore()
+        self.record = trace.Capture(
+            name, time.perf_counter() - started, torch.cuda.memory_reserved(device) - reserved,
+            trace.marks_launched() - marks)
+        trace.record_capture(self.record)
 
     def _begin(self) -> None:
         graph = torch.cuda.CUDAGraph()
@@ -152,7 +167,8 @@ class CapturedProgram:
     def replay(self, times: int = 1) -> None:
         for _ in range(times):
             for i, graph in enumerate(self.graphs):
-                graph.replay()
+                with trace.span("graph_replay"):
+                    graph.replay()
                 if i < len(self.steps):
                     fn, out = self.steps[i]
                     out.copy_(fn())

@@ -5,6 +5,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from . import trace
+
 
 @torch.no_grad()
 def soft_update(module: nn.Module, target: nn.Module, tau: float) -> None:
@@ -14,5 +16,8 @@ def soft_update(module: nn.Module, target: nn.Module, tau: float) -> None:
     target's parameters in place (target + tau * (p - target)), all of them
     in one ``_foreach_lerp_``: no second copy of the target net is allocated
     per step, and the step costs one launch instead of one per parameter.
+    It is the device span ``optimizer`` (``utils/trace.py``).
     """
-    torch._foreach_lerp_(list(target.parameters()), list(module.parameters()), tau)
+    params = list(module.parameters())
+    with trace.device_span("optimizer", params[0].device):
+        torch._foreach_lerp_(list(target.parameters()), params, tau)

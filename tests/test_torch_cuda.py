@@ -33,6 +33,7 @@ from controllable_agent_torch.tools import dynamics_check
 from controllable_agent_torch.train.loops import (WARMUP_RUNS, CapturedProgram,
                                                   EpisodeCollector, OnlineTrainer, Rollout,
                                                   init_meta_batched, make_offline_trainer)
+from controllable_agent_torch.utils import trace
 
 
 @pytest.fixture
@@ -261,6 +262,46 @@ def test_captured_trainer_trains_and_counts(cuda_device) -> None:
     assert ff.device_runs() == ff.launches
     eager = make_offline_trainer(agent, buf.cfg, 128, steps_per_call=2, capture=False)
     assert np.isfinite(float(eager(buf.state, gen)["fb_loss"])) and agent.step == 20
+
+
+@pytest.mark.cuda
+def test_traced_trainer_marks_every_replay(cuda_device) -> None:
+    """Tracing on makes the trainer capture anew with its device spans'
+    marks (``sample``, ``update`` and FB's five optimizer steps: seven
+    pairs a replay), which every replay runs and the profiler sees; the
+    updates are those of an untraced twin to the bit; tracing off captures
+    again, without marks."""
+    a, buf = _agent_and_buffer(cuda_device)
+    b, _ = _agent_and_buffer(cuda_device)
+    gen_a = torch.Generator(device=cuda_device).manual_seed(3)
+    gen_b = torch.Generator(device=cuda_device).manual_seed(3)
+    traced = make_offline_trainer(a, buf.cfg, 128, steps_per_call=3)
+    plain = make_offline_trainer(b, buf.cfg, 128, steps_per_call=3)
+    trace.reset_captures()
+    try:
+        traced(buf.state, gen_a)
+        trace.enable()
+        traced(buf.state, gen_a)  # captured anew, its warm-up runs marked too
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            traced(buf.state, gen_a)
+            torch.cuda.synchronize()
+    finally:
+        trace.disable()
+    traced(buf.state, gen_a)
+    for _ in range(4):
+        plain(buf.state, gen_b)
+    names = [e.name() for e in prof.profiler.kineto_results.events()]
+    spans = trace.device_span_names()
+    assert sorted(spans.values()) == ["optimizer", "sample", "update"]
+    for i, name in spans.items():
+        per_update = 5 if name == "optimizer" else 1
+        assert names.count(f"trace_begin_{i}") == names.count(f"trace_end_{i}") == 3 * per_update
+    assert [(r.name, r.marks) for r in trace.captures()] == [
+        ("trainer", 0), ("trainer", 14), ("trainer", 0), ("trainer", 0)]  # the last: plain's
+    assert traced.captures == 3 and plain.captures == 1
+    for k, v in b.train_state().items():
+        assert torch.equal(a.train_state()[k], v), k
 
 
 @pytest.mark.cuda

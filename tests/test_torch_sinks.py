@@ -13,6 +13,7 @@ from tensorboardX.proto import event_pb2
 from controllable_agent_tpu.train.logger import Logger as JaxLogger
 from controllable_agent_torch import pretrain
 from controllable_agent_torch.train.logger import Logger
+from controllable_agent_torch.utils import trace
 
 
 @pytest.fixture(autouse=True)
@@ -73,7 +74,8 @@ def test_wandb_without_the_package_raises_as_jax(tmp_path) -> None:
 def test_profile_dir_traces_one_cycle(tmp_path) -> None:
     """``pretrain`` with ``profile_dir``: the first cycle after the seed
     frames (one of three cycles) is traced, into one Chrome trace that holds
-    that cycle's updates."""
+    that cycle's updates and the program's spans (tracing is on for that
+    cycle alone)."""
     ws = pretrain.main([
         "device=cpu", "task=point_mass_maze_reach_top_left", "episode_length=20", "num_envs=2",
         "replay_buffer_episodes=16", "agent.hidden_dim=32", "agent.backward_hidden_dim=32",
@@ -86,3 +88,6 @@ def test_profile_dir_traces_one_cycle(tmp_path) -> None:
     events = json.loads(traces[0].read_text())["traceEvents"]
     names = {e.get("name", "") for e in events}
     assert any("addmm" in name or "mm" == name.split("::")[-1] for name in names)
+    assert {"collect", "commit", "updates", "sample", "update", "optimizer", "act",
+            "env_step"} <= names
+    assert not trace.enabled()
