@@ -5,7 +5,7 @@
     python3 chip_smoke.py --phases 4,11,21
 
 Drives ``controllable_agent_torch`` (and nothing of the JAX package) in
-thirty-five phases, each printed on its own lines with its seconds; any
+thirty-six phases, each printed on its own lines with its seconds; any
 failure exits non-zero. A selection always builds the kernels (phase 1),
 and builds the least of what its phases read from earlier ones: phase 4's
 workspace for phases 5-11 and its folder for phase 31 (by running phase 4), its episodes on disk for
@@ -287,7 +287,16 @@ running phase 15), one collected quadruped cycle for phase 22. The phases:
      launches by the wrappers' counts equal the kernels' own and the
      updates plus the capture's warm-up runs; ``check.json`` is written
      with the quadruped's four battery rows, each with its verdict, and no
-     checkpoint is left.
+     checkpoint is left;
+ 36. the optimizer layer of one full-width FB update (bf16 mu): the three
+     Adam steps and the two soft-updates through the multi-tensor kernels
+     (``csrc/fused_optim.cu``) and through the ``_foreach`` versions, three
+     updates each from one state, equal to the bit; the fused launches of a
+     call (3 Adam, 2 lerp, by ``optim.launches``); device ms per call in one
+     CUDA graph, in turns, and per step beside its bound (the bytes at 3.35
+     TB/s). Phases 4 and 35 count the kernels' launches on their runs (3
+     Adam and 2 lerp an update, the capture's warm-up runs included), and
+     the ``kernels`` line gains a row for each kernel.
 
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -320,8 +329,8 @@ import torch
 
 import torch.distributed as dist
 
-from controllable_agent_torch import (_build, anytrain, export_replay, play_behaviors, pretrain,
-                                      train_multihost, train_offline, train_online)
+from controllable_agent_torch import (_build, anytrain, export_replay, optim, play_behaviors,
+                                      pretrain, train_multihost, train_offline, train_online)
 from controllable_agent_torch.agents import (FEATURE_LEARNERS, DDPGAgent, DDPGConfig, DDPGNoise,
                                              DiscreteFBAgent, DiscreteFBConfig, DiscreteSFAgent,
                                              DiscreteSFConfig, FBDDPGAgent, FBDDPGConfig, RNDAgent,
@@ -358,6 +367,7 @@ from controllable_agent_torch.train.loops import (WARMUP_RUNS, CapturedProgram,
                                                   EpisodeCollector, OnlineTrainer, Rollout,
                                                   init_meta_batched, make_offline_trainer)
 from controllable_agent_torch.utils.device import card_name_and_power_limit, query_card
+from controllable_agent_torch.utils.tree import soft_update
 
 SEED = 0
 N, N_RAGGED, D = 1024, 300, 50
@@ -488,7 +498,7 @@ HARNESS_KEYS = {
 # phase 35: results/quad_one's recipe through online_curve, cut to three cycles
 RECIPE = Path(__file__).resolve().parent / "results" / "quad_one"
 RECIPE_CYCLES, RECIPE_FINAL_TESTS = 3, 2
-LAST_PHASE = 35
+LAST_PHASE = 36
 F32_EPS = float(torch.finfo(torch.float32).eps)
 HBM_BYTES_PER_S = 3.35e12
 FWD_RTOL = 2e-4  # as tests/test_pallas_fb.py: order of f32 sums over n^2
@@ -686,6 +696,7 @@ def run_slice(tmp: str) -> tp.Tuple[tp.Dict[str, int], tp.Any]:
     written = write_slice_episodes(tmp)
     torch.cuda.reset_peak_memory_stats()
     ff.reset_launches()
+    optim.reset_launches()
     t0 = time.perf_counter()
     ws = train_offline.main(slice_args(f"{tmp}/run", f"{tmp}/episodes"))
     torch.cuda.synchronize()
@@ -701,6 +712,7 @@ def run_slice(tmp: str) -> tp.Tuple[tp.Dict[str, int], tp.Any]:
           f"{SLICE_STEPS} replayed updates (replays x the launches the graph holds) + "
           f"{WARMUP_RUNS} eager warm-up runs of the capture; runs counted on the device by "
           f"the kernels themselves over the same run: {ran}")
+    check_optimizer_launches(4, SLICE_STEPS, "train_offline (phase 4)")
     if ws.global_step != SLICE_STEPS or ws.agent.step != SLICE_STEPS \
             or any(c != expected for c in counts.values()) or ran != counts:
         raise AssertionError(f"expected {expected} launches of every kernel, as many runs "
@@ -3368,6 +3380,7 @@ def run_recipe(tmp: str) -> tp.Dict[str, int]:
     frames = RECIPE_CYCLES * cycle
     folder = Path(tmp) / "recipe"
     cuts = [f"num_train_frames={frames}", f"final_tests={RECIPE_FINAL_TESTS}"]
+    optim.reset_launches()
     rc, wall = _timed(lambda: online_curve.main([
         f"recipe={RECIPE}", "entry=train_online", f"folder={folder}", *cuts]))
     if rc != 0:
@@ -3397,7 +3410,166 @@ def run_recipe(tmp: str) -> tp.Dict[str, int]:
             or not all(r["verdict"] in ("inside", "outside") for r in check["battery"].values()) \
             or (folder / "models").exists():
         raise AssertionError(f"phase 35: {check}")
+    check_optimizer_launches(35, updates, "online_curve recipe=results/quad_one (phase 35)")
     return counts
+
+
+# the optimizer kernels' launches by main path (phases 4 and 35), for the kernels line
+OPTIMIZER_LAUNCHES: tp.Dict[str, tp.Dict[str, int]] = {}
+
+
+def check_optimizer_launches(phase: int, updates: int, path: str) -> None:
+    """The optimizer kernels' launches of a FB run of ``updates`` captured
+    updates since ``optim.reset_launches()``: 3 Adam steps and 2
+    soft-updates each, the capture's warm-up runs included; kept by path."""
+    runs = updates + WARMUP_RUNS
+    expected = {"adam": 3 * runs, "lerp": 2 * runs}
+    print(f"phase {phase} optimizer launches {dict(optim.launches)} by optim.launches "
+          f"(expected {expected}: {updates} updates + {WARMUP_RUNS} warm-up runs)")
+    if optim.launches != expected:
+        raise AssertionError(f"phase {phase}: optimizer launches {optim.launches}, "
+                             f"expected {expected}")
+    OPTIMIZER_LAUNCHES[path] = expected
+
+
+def time_optimizer() -> tp.Dict[str, tp.Dict[str, float]]:
+    """Phase 36: the optimizer layer of one full-width FB update (bf16 mu):
+    the forward, backward and actor Adam steps and the two soft-updates,
+    fused (``Adam.step``, ``soft_update``) and by _foreach (``adam_plain``,
+    ``lerp_plain``): three updates of each from one state equal to the bit;
+    the fused launches of a call by ``optim.launches``; device ms per call in
+    one CUDA graph each, in turns, and per step, beside the bound of the
+    bytes at 3.35 TB/s. Returns, for each kernel, the summed ms of its
+    calls in one update by kernel and by _foreach and their bound."""
+    agent = FBDDPGAgent(FBDDPGConfig(use_pallas_loss=True, compute_dtype="bfloat16"),
+                        OBS_DIM, ACTION_DIM, device="cuda", seed=SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    opts = {"fw_opt": agent.fw_opt, "bw_opt": agent.bw_opt, "actor_opt": agent.actor_opt}
+    grads = {name: [1e-3 * torch.randn(p.shape, device="cuda", generator=gen)
+                    for p in opt.params.values()] for name, opt in opts.items()}
+    pairs = {"forward": (agent.forward_net, agent.target_forward_net),
+             "backward": (agent.backward_net, agent.target_backward_net)}
+    tau = agent.cfg.fb_target_tau
+
+    def adam_plain(opt: tp.Any, g: tp.Sequence[torch.Tensor]) -> None:
+        optim.adam_plain(list(opt.params.values()), g, list(opt.mu.values()),
+                         list(opt.nu.values()), opt.count_t, opt.lr, opt.b1, opt.b2, opt.eps)
+
+    steps = {"fused": (lambda opt, g: opt.step(g), soft_update),
+             "plain": (adam_plain, lambda net, target, w: optim.lerp_plain(
+                 list(target.parameters()), list(net.parameters()), w))}
+
+    def update(way: str) -> tp.Callable[[], None]:
+        adam_step, lerp_step = steps[way]
+
+        def run() -> None:
+            with torch.no_grad():
+                for name, opt in opts.items():
+                    adam_step(opt, grads[name])
+                for net, target in pairs.values():
+                    lerp_step(net, target, tau)
+        return run
+
+    state = [*agent.train_state().values()]
+    saved = [t.clone() for t in state]
+    results = {}
+    for way in steps:
+        with torch.no_grad():
+            for t, before in zip(state, saved):
+                t.copy_(before)
+        for _ in range(3):
+            update(way)()
+        torch.cuda.synchronize()
+        results[way] = [t.clone() for t in state]
+    names = list(agent.train_state())
+    differ = [n for n, a, b in zip(names, results["fused"], results["plain"])
+              if not torch.equal(a, b)]
+    if differ:
+        raise AssertionError(f"phase 36: fused and plain differ after 3 updates in {differ}")
+    print("phase 36: fused and plain equal to the bit after 3 updates "
+          f"({len(names)} tensors of the train state)")
+
+    # the wrappers' counts, not a profiler: a profiler session over these
+    # graphs saw none of the fused kernels (PERF.md, kernel table)
+    before = dict(optim.launches)
+    update("fused")()
+    launched = {k: optim.launches[k] - before[k] for k in before}
+    print(f"phase 36 launches per call: fused {launched} by optim.launches")
+    if launched != {"adam": 3, "lerp": 2}:
+        raise AssertionError(f"phase 36: expected 3 Adam and 2 lerp launches, counted {launched}")
+
+    # bytes each needs: Adam reads p, g, mu, nu and writes p, mu, nu once; a
+    # soft-update reads both nets and writes the target
+    def adam_bytes(opt: tp.Any) -> int:
+        mu_bytes = next(iter(opt.mu.values())).element_size()
+        return sum(p.numel() for p in opt.params.values()) * (4 + 4 + 4 + 2 * mu_bytes + 4 + 4)
+
+    least = {name: adam_bytes(opt) for name, opt in opts.items()}
+    least.update({name: 12 * sum(p.numel() for p in target.parameters())
+                  for name, (_, target) in pairs.items()})
+    total = sum(least.values())
+    order = ["plain", "fused", "fused", "plain"]
+    times: tp.Dict[str, tp.List[float]] = {way: [] for way in steps}
+    for way in order:
+        times[way].append(time_ms(update(way), calls=10))
+    bound_ms = 1e3 * total / HBM_BYTES_PER_S
+    best = {way: min(ts) for way, ts in times.items()}
+    print(f"phase 36 one update's optimizer layer (3 Adam steps, 2 soft-updates; "
+          f"{total / 1e6:.1f} MB): " + ", ".join(
+              f"{way} {'/'.join(f'{t:.5f}' for t in ts)} ms" for way, ts in times.items())
+          + f" (CUDA graph, in turns {order}); bound {bound_ms:.5f} ms (bytes at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s); fused {best['fused'] / bound_ms:.2f}x the "
+          f"bound, {best['plain'] / best['fused']:.2f}x faster than plain")
+    rows = {kernel: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0} for kernel in ("adam", "lerp")}
+    for name, nbytes in least.items():
+        if name in opts:
+            opt, g = opts[name], grads[name]
+            one = {"fused": lambda: opt.step(g), "plain": lambda: adam_plain(opt, g)}
+        else:
+            net, target = pairs[name]
+            one = {"fused": lambda: optim.lerp_(list(target.parameters()),
+                                                list(net.parameters()), tau),
+                   "plain": lambda: optim.lerp_plain(list(target.parameters()),
+                                                     list(net.parameters()), tau)}
+        with torch.no_grad():
+            ms, plain_ms = time_ms(one["fused"], calls=20), time_ms(one["plain"], calls=20)
+        least_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        turns = f"kernel {ms:.5f} ms, plain {plain_ms:.5f} ms"
+        print(f"phase 36 {name}: {turns} (CUDA graph); {nbytes / 1e6:.2f} MB, bound "
+              f"{least_ms:.5f} ms; {ms / least_ms:.2f}x the bound, "
+              f"{1e-6 * nbytes / ms:.0f} GB/s")
+        row = rows["adam" if name in opts else "lerp"]
+        row["ms"] += ms
+        row["plain_ms"] += plain_ms
+        row["bound_ms"] += least_ms
+    print(f"phase 36 card: {card_name_and_power_limit()}")
+    return rows
+
+
+def optimizer_rows(times: tp.Dict[str, tp.Dict[str, float]],
+                   launches: tp.Dict[str, tp.Dict[str, int]]) -> tp.List[tp.Dict[str, tp.Any]]:
+    """The ``kernels`` line's rows of the optimizer kernels: phase 36's
+    times of one FB update's calls, the launches of phases 4 and 35 (the
+    main path: the last of them that ran)."""
+    source = "controllable_agent_torch/csrc/fused_optim.cu"
+    note = ("one FB update's calls (3 Adam steps; 2 soft-updates), 20 calls a CUDA graph on "
+            "the same tensors: a set under the 50 MB L2 partly stays there")
+    rows = []
+    for name, kernel, wrapper, library in (
+            ("adam (bf16 mu)", "adam_multi_tensor_apply_kernel", "optim.adam", None),
+            ("lerp (soft-update)", "lerp_multi_tensor_apply_kernel", "optim.lerp_",
+             "torch._foreach_lerp_")):
+        key = "adam" if library is None else "lerp"
+        t = times[key]
+        by_path = {path: counts[key] for path, counts in launches.items()}
+        rows.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": "none (optax's Adam and the target updates, left to XLA)",
+                     "launches": list(by_path.values())[-1] if by_path else None,
+                     "max_abs_err": 0.0, "ms": t["ms"], "plain_ms": t["plain_ms"],
+                     "bound_ms": t["bound_ms"], "bound_by": "bytes",
+                     "library_ms": t["plain_ms"] if library else None, "wrapper": wrapper,
+                     "kernel": kernel, "launches_by_path": by_path, "note": note})
+    return rows
 
 
 def measure_fb_rate() -> float:
@@ -3662,6 +3834,11 @@ class SmokeRun:
             for row in self.rows or []:
                 row["launches"] = recipe_counts[row["wrapper"]]
             self.by_path("online_curve recipe=results/quad_one (phase 35)", recipe_counts)
+            gc.collect()
+            torch.cuda.empty_cache()
+        if 36 in selected:
+            times = self.timed(36, time_optimizer)
+            self.rows = (self.rows or []) + optimizer_rows(times, OPTIMIZER_LAUNCHES)
 
 
 def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:

@@ -37,9 +37,9 @@ CUDA tensors it checks device, dtype, shape and contiguity, launches the
 kernel, and raises if the launch fails. ``launches[name]`` counts kernel
 launches, so a run can show that its main path went through the kernels.
 Inside a CUDA graph capture a launch is recorded and not run:
-``held_by_capture`` takes those out of the counters and notes them, and
-``count_replay`` adds them back each time the graph is replayed. That part
-of a count is arithmetic; ``device_runs`` is the observation beside it: the
+``utils/graphs.py`` (``counted``) takes those out of the counters and notes
+them, and adds them back each time the graph is replayed. That part of a
+count is arithmetic; ``device_runs`` is the observation beside it: the
 kernels themselves count, in device memory, how often they have run, a
 graph's replays included.
 
@@ -52,7 +52,6 @@ O(n·d²) work rather than O(n²·d).
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 import typing as tp
@@ -60,10 +59,11 @@ import typing as tp
 import torch
 
 from .. import _build
+from ..utils import graphs
 
 Tensor = torch.Tensor
 
-launches: tp.Dict[str, int] = {"fwd": 0, "bwd": 0}
+launches: tp.Dict[str, int] = graphs.counted({"fwd": 0, "bwd": 0})
 
 
 def reset_launches() -> None:
@@ -88,28 +88,6 @@ def device_runs() -> tp.Dict[str, int]:
         raise RuntimeError(f"fused FB loss: reading the device's run counts "
                            f"failed: CUDA error {rc}")
     return {"fwd": int(counts[0]), "bwd": int(counts[1])}
-
-
-@contextlib.contextmanager
-def held_by_capture() -> tp.Iterator[tp.Dict[str, int]]:
-    """Around a CUDA graph capture: the launches the wrappers count inside
-    are recorded into the graph, not run, so on exit the counters are what
-    they were on entry and the yielded dict holds, by wrapper, how many
-    launches one replay of the graph makes."""
-    before = dict(launches)
-    held: tp.Dict[str, int] = {}
-    try:
-        yield held
-    finally:
-        for name in launches:
-            held[name] = launches[name] - before[name]
-            launches[name] = before[name]
-
-
-def count_replay(held: tp.Mapping[str, int], times: int = 1) -> None:
-    """Count ``times`` replays of a graph that holds ``held`` launches."""
-    for name, count in held.items():
-        launches[name] += count * times
 
 
 # -- plain versions -----------------------------------------------------------

@@ -12,19 +12,22 @@ the graphs with the eager steps between them.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import time
 import typing as tp
 
 import torch
 
-from ..ops import fused_fb
 from . import trace
 
 # eager runs before a capture: they build the kernels, opt into their shared
 # memory and let cuBLAS and the allocator reach their steady state
 WARMUP_RUNS = 2
 
+# the kernel wrappers' launch counts (``ops/fused_fb.py``, ``optim.py``), which
+# every capture holds back and every replay adds again
+_counted: tp.List[tp.Dict[str, int]] = []
 # the program being captured, if any (a capture does not nest)
 _capturing: tp.List["CapturedProgram"] = []
 # one side stream per device for every warm-up and capture: cuBLAS keeps a
@@ -33,10 +36,41 @@ _capturing: tp.List["CapturedProgram"] = []
 _side_streams: tp.Dict[torch.device, torch.cuda.Stream] = {}
 
 
+def counted(counts: tp.Dict[str, int]) -> tp.Dict[str, int]:
+    """``counts``, a wrapper's launches by kernel, made known to every
+    ``CapturedProgram``: a capture holds back the launches it records and a
+    replay counts them again (``held_by_capture``, ``count_replay``)."""
+    _counted.append(counts)
+    return counts
+
+
 def _side_stream(device: torch.device) -> torch.cuda.Stream:
     if device not in _side_streams:
         _side_streams[device] = torch.cuda.Stream(device)
     return _side_streams[device]
+
+
+@contextlib.contextmanager
+def held_by_capture(counts: tp.Dict[str, int]) -> tp.Iterator[tp.Dict[str, int]]:
+    """Around a CUDA graph capture: the kernel launches a wrapper counts in
+    ``counts`` inside it are recorded into the graph, not run, so on exit
+    the counts are what they were on entry and the yielded dict holds, by
+    name, how many launches one replay of the graph makes."""
+    before = dict(counts)
+    held: tp.Dict[str, int] = {}
+    try:
+        yield held
+    finally:
+        for name in counts:
+            held[name] = counts[name] - before[name]
+            counts[name] = before[name]
+
+
+def count_replay(counts: tp.Dict[str, int], held: tp.Mapping[str, int], times: int = 1) -> None:
+    """Count in ``counts`` ``times`` replays of a graph that holds ``held``
+    launches."""
+    for name, count in held.items():
+        counts[name] += count * times
 
 
 def eager_step(fn: tp.Callable[[], torch.Tensor]) -> torch.Tensor:
@@ -118,7 +152,10 @@ class CapturedProgram:
         reserved, marks = torch.cuda.memory_reserved(device), trace.marks_launched()
         _capturing.append(self)
         try:
-            with fused_fb.held_by_capture() as self.held, torch.cuda.stream(side):
+            with contextlib.ExitStack() as holding, torch.cuda.stream(side):
+                # (counts, the launches one replay makes) of each counted wrapper
+                self.held = [(counts, holding.enter_context(held_by_capture(counts)))
+                             for counts in _counted]
                 self._begin()
                 try:
                     self.out = fn()
@@ -172,4 +209,5 @@ class CapturedProgram:
                 if i < len(self.steps):
                     fn, out = self.steps[i]
                     out.copy_(fn())
-        fused_fb.count_replay(self.held, times)
+        for counts, held in self.held:
+            count_replay(counts, held, times)

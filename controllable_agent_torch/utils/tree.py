@@ -5,6 +5,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from .. import optim
 from . import trace
 
 
@@ -14,10 +15,11 @@ def soft_update(module: nn.Module, target: nn.Module, tau: float) -> None:
 
     Unlike the JAX version, which returns a new tree, this updates the
     target's parameters in place (target + tau * (p - target)), all of them
-    in one ``_foreach_lerp_``: no second copy of the target net is allocated
-    per step, and the step costs one launch instead of one per parameter.
-    It is the device span ``optimizer`` (``utils/trace.py``).
+    in one ``optim.lerp_``: ``torch._foreach_lerp_``, or on a card one launch
+    of the multi-tensor lerp kernel. No second copy of the target net is
+    allocated per step, and the step costs one launch instead of one per
+    parameter. It is the device span ``optimizer`` (``utils/trace.py``).
     """
     params = list(module.parameters())
     with trace.device_span("optimizer", params[0].device):
-        torch._foreach_lerp_(list(target.parameters()), params, tau)
+        optim.lerp_(list(target.parameters()), params, tau)

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from controllable_agent_torch import pretrain
+from controllable_agent_torch import optim, pretrain
 from controllable_agent_torch.agents import (AGENTS, DDPGAgent, DDPGConfig, DDPGNoise,
                                              DiscreteFBAgent, DiscreteFBConfig, DiscreteSFAgent,
                                              DiscreteSFConfig, FBDDPGAgent, FBDDPGConfig,
@@ -200,7 +200,7 @@ def test_captured_update_matches_eager(cuda_device) -> None:
     program = CapturedProgram(lambda: agent._update(batch, noise), agent.device,
                               agent.train_state().values())
     assert agent.step == 0 and ff.launches == {"fwd": WARMUP_RUNS, "bwd": WARMUP_RUNS}
-    assert program.held == {"fwd": 1, "bwd": 1}
+    assert next(h for c, h in program.held if c is ff.launches) == {"fwd": 1, "bwd": 1}
     assert ff.device_runs() == ff.launches  # the capture itself ran nothing
     program.replay(3)
     assert ff.launches == {"fwd": WARMUP_RUNS + 3, "bwd": WARMUP_RUNS + 3}
@@ -1015,3 +1015,239 @@ def test_captured_dp_update_at_one_process_equals_plain(nccl_group, case) -> Non
     for name, value in agents[0].train_state().items():
         assert torch.equal(agents[1].train_state()[name], value), name
     del plain, dp
+
+
+# -- the optimizer layer: csrc/fused_optim.cu against the _foreach versions ----------
+OPTIM_SIZES = (6, 50, 526, 276_676, 1_048_576)
+OPTIM_OFFSETS = (0, 1, 3, 0, 2)  # elements past a 16-byte boundary: 1-3 misalign
+LR, B1, B2, EPS = 1e-3, 0.9, 0.999, 1e-8
+
+
+def _misaligned(sizes, offsets, device, dtype=torch.float32, fill=None, gen=None):
+    """A tensor of each size, ``offset`` elements into a buffer of its own."""
+    out = []
+    for n, off in zip(sizes, offsets):
+        buf = torch.zeros(n + off, device=device, dtype=dtype)
+        if fill == "randn":
+            buf.normal_(generator=gen)
+        out.append(buf[off:])
+    return out
+
+
+class _Grads:
+    """Gradients of every step as views into one flat tensor, as the
+    data-parallel update's all-reduce leaves them: each step draws a fresh
+    source on the host's side of a capture, and the views are made from it
+    by one product (inside a capture, in the graph's pool)."""
+
+    def __init__(self, sizes, offsets, device, seed):
+        self.gen = torch.Generator(device=device).manual_seed(seed)
+        self.starts, at = [], 0
+        for n, off in zip(sizes, offsets):
+            self.starts.append(at + off)
+            at += n + off
+        self.sizes = sizes
+        self.src = torch.empty(at, device=device)
+        scales = np.repeat(10.0 ** np.arange(-3, 2, dtype=np.float64)[
+            np.arange(len(sizes)) % 5], [n + off for n, off in zip(sizes, offsets)])
+        self.scale = torch.tensor(scales, dtype=torch.float32, device=device)
+
+    def draw(self):
+        self.src.normal_(generator=self.gen)
+
+    def __call__(self):
+        flat = self.src * self.scale
+        return [flat[s:s + n] for s, n in zip(self.starts, self.sizes)]
+
+
+def _adam_state(sizes, offsets, mu_dtype, device, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = _misaligned(sizes, offsets, device, fill="randn", gen=gen)
+    mus = _misaligned(sizes, offsets, device, dtype=mu_dtype)
+    nus = _misaligned(sizes, offsets, device)
+    count = torch.zeros((), dtype=torch.int32, device=device)
+    ticket = torch.zeros((), dtype=torch.int32, device=device)
+    return params, mus, nus, count, ticket
+
+
+def _assert_bitwise(got, want, what):
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert torch.equal(a, b), (f"{what}[{i}] ({a.numel()} elements): "
+                                   f"{int((a != b).sum())} differ")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("captured", [False, True], ids=["eager", "captured"])
+@pytest.mark.parametrize("mu_dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_fused_adam_equals_foreach_to_the_bit(cuda_device, mu_dtype, captured) -> None:
+    """200 steps of ``adam_multi_tensor_apply_kernel`` against ``adam_plain``
+    (the _foreach calls) from the same state on the same gradients: p, mu,
+    nu and the count equal to the bit at every 50th step, eagerly and as
+    replays of one captured step whose gradients live in the graph's pool;
+    tensors of 6 to 1,048,576 elements, some misaligned for 16-byte access.
+    One launch a step, replays included; the fused FB counts untouched."""
+    kernel = _adam_state(OPTIM_SIZES, OPTIM_OFFSETS, mu_dtype, cuda_device)
+    plain = [[x.clone() for x in xs] for xs in kernel[:3]] + [kernel[3].clone()]
+    grads = _Grads(OPTIM_SIZES, OPTIM_OFFSETS, cuda_device, seed=1)
+    params, mus, nus, count, ticket = kernel
+    step = lambda: optim.adam(params, grads(), mus, nus, count, ticket,  # noqa: E731
+                              LR, B1, B2, EPS)
+    fb_before, before = dict(ff.launches), dict(optim.launches)
+    program = None
+    if captured:
+        grads.draw()
+        program = CapturedProgram(step, cuda_device, [*params, *mus, *nus, count])
+        assert next(h for c, h in program.held if c is optim.launches) == {"adam": 1, "lerp": 0}
+        assert optim.launches["adam"] == before["adam"] + WARMUP_RUNS
+        before = dict(optim.launches)
+    for i in range(1, 201):
+        grads.draw()
+        if program is None:
+            step()
+        else:
+            program.replay()
+        optim.adam_plain(plain[0], grads(), plain[1], plain[2], plain[3], LR, B1, B2, EPS)
+        if i % 50 == 0:
+            torch.cuda.synchronize()
+            for name, got, want in zip(("p", "mu", "nu"), kernel[:3], plain[:3]):
+                _assert_bitwise(got, want, f"{name} at step {i}")
+            assert int(count) == int(plain[3]) == i and int(ticket) == 0
+    assert optim.launches == {"adam": before["adam"] + 200, "lerp": before["lerp"]}
+    assert ff.launches == fb_before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("captured", [False, True], ids=["eager", "captured"])
+@pytest.mark.parametrize("tau", [0.01, 0.7])
+def test_fused_soft_update_equals_foreach_lerp_to_the_bit(cuda_device, tau, captured) -> None:
+    """200 soft-updates by ``lerp_multi_tensor_apply_kernel`` against
+    ``torch._foreach_lerp_`` (both of PyTorch's formulas: tau below and
+    above 0.5), eagerly and captured, misaligned tensors included: equal to
+    the bit; one launch a soft-update."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    targets = _misaligned(OPTIM_SIZES, OPTIM_OFFSETS, cuda_device, fill="randn", gen=gen)
+    sources = _misaligned(OPTIM_SIZES, OPTIM_OFFSETS[::-1], cuda_device, fill="randn", gen=gen)
+    twin = [t.clone() for t in targets]
+    step = lambda: optim.lerp_(targets, sources, tau)  # noqa: E731
+    program = CapturedProgram(step, cuda_device, targets) if captured else None
+    before = dict(optim.launches)
+    for i in range(1, 201):
+        for s in sources:
+            s.normal_(generator=gen)
+        step() if program is None else program.replay()
+        torch._foreach_lerp_(twin, sources, tau)
+        if i % 50 == 0:
+            torch.cuda.synchronize()
+            _assert_bitwise(targets, twin, f"target at step {i}")
+    assert optim.launches == {"adam": before["adam"], "lerp": before["lerp"] + 200}
+
+
+@pytest.mark.cuda
+def test_lists_longer_than_an_argument_block_split_and_stay_exact(cuda_device) -> None:
+    """150 tensors of 0 to 5,000 elements (and one of 300,000): Adam takes
+    three launches a step (64 + 64 + 22 tensors) and advances the count
+    once; the soft-update two (128 + 22); both equal the _foreach versions
+    to the bit."""
+    rng = np.random.RandomState(0)
+    sizes = tuple(int(n) for n in rng.randint(0, 5001, 150))
+    sizes = sizes[:70] + (300_000,) + sizes[71:]
+    offsets = tuple(int(o) for o in rng.randint(0, 4, 150))
+    assert len(optim.plan(len(sizes), 64)) == 3 and len(optim.plan(len(sizes), 128)) == 2
+    for mu_dtype in (torch.bfloat16, torch.float32):
+        kernel = _adam_state(sizes, offsets, mu_dtype, cuda_device)
+        plain = [[x.clone() for x in xs] for xs in kernel[:3]] + [kernel[3].clone()]
+        grads = _Grads(sizes, offsets, cuda_device, seed=4)
+        before = dict(optim.launches)
+        for _ in range(5):
+            grads.draw()
+            optim.adam(kernel[0], grads(), kernel[1], kernel[2], kernel[3], kernel[4],
+                       LR, B1, B2, EPS)
+            optim.adam_plain(plain[0], grads(), plain[1], plain[2], plain[3], LR, B1, B2, EPS)
+        torch.cuda.synchronize()
+        assert optim.launches["adam"] == before["adam"] + 15
+        assert int(kernel[3]) == int(plain[3]) == 5 and int(kernel[4]) == 0
+        for name, got, want in zip(("p", "mu", "nu"), kernel[:3], plain[:3]):
+            _assert_bitwise(got, want, f"{name} ({mu_dtype})")
+    targets = _misaligned(sizes, offsets, cuda_device, fill="randn",
+                          gen=torch.Generator(device=cuda_device).manual_seed(5))
+    sources = [torch.randn(n, device=cuda_device) for n in sizes]
+    twin = [t.clone() for t in targets]
+    before = optim.launches["lerp"]
+    optim.lerp_(targets, sources, 0.01)
+    torch._foreach_lerp_(twin, sources, 0.01)
+    assert optim.launches["lerp"] == before + 2
+    _assert_bitwise(targets, twin, "target")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1])
+def test_lerp_kernel_covers_every_element_once(cuda_device, seed) -> None:
+    """One soft-update at weight 0.5 from 0 towards 1 leaves every element
+    at 0.5: an element no block took stays 0 and one taken twice reads
+    0.75. 300 tensors of 0 to 9,000 elements (one of 2,000,000) over three
+    launches, the blocks mapped to (tensor, chunk) by the kernel's table."""
+    rng = np.random.RandomState(seed)
+    sizes = [int(n) for n in rng.randint(0, 9001, 300)]
+    sizes[rng.randint(300)] = 2_000_000
+    targets = [torch.zeros(n, device=cuda_device) for n in sizes]
+    optim.lerp_(targets, [torch.ones(n, device=cuda_device) for n in sizes], 0.5)
+    flat = torch.cat(targets)
+    assert flat.numel() == sum(sizes) and bool((flat == 0.5).all()), (
+        f"{int((flat == 0).sum())} elements untouched, {int((flat == 0.75).sum())} taken twice")
+
+
+@pytest.mark.cuda
+def test_the_kernels_refuse_what_they_do_not_take(cuda_device) -> None:
+    """On a card the wrappers launch the kernels or raise: a non-contiguous
+    or bfloat16 parameter, a bfloat16 target, each a ``ValueError`` that
+    names it, with nothing launched and no state changed. A gradient in
+    another layout (a transposed view, as cuDNN's channels-last weight
+    gradients are) is copied and read: one launch, equal to ``adam_plain``
+    to the bit."""
+    net = torch.nn.Sequential(torch.nn.Linear(5, 7), torch.nn.Linear(7, 3)).to(cuda_device)
+    opt = optim.Adam(net, 1e-3, torch.bfloat16)
+    grads = [torch.randn_like(p) for p in opt.params.values()]
+    grads[2] = grads[2].t().contiguous().t()
+    assert not grads[2].is_contiguous()
+    params, mus, nus = ([x.clone() for x in d.values()] for d in (opt.params, opt.mu, opt.nu))
+    count = opt.count_t.clone()
+    before = dict(optim.launches)
+    opt.step(grads)
+    optim.adam_plain(params, grads, mus, nus, count, 1e-3, 0.9, 0.999, 1e-8)
+    torch.cuda.synchronize()
+    assert optim.launches["adam"] == before["adam"] + 1 and opt.count == int(count) == 1
+    for name, got, want in (("p", opt.params, params), ("mu", opt.mu, mus), ("nu", opt.nu, nus)):
+        _assert_bitwise(list(got.values()), want, name)
+
+    before = dict(optim.launches)
+    net[1].weight.data = net[1].weight.data.t().contiguous().t()
+    opt = optim.Adam(net, 1e-3, torch.bfloat16)
+    with pytest.raises(ValueError, match=r"adam: params\[2\] is not contiguous"):
+        opt.step(grads)
+    net[1].weight.data = net[1].weight.data.contiguous().bfloat16()
+    opt = optim.Adam(net, 1e-3, torch.bfloat16)
+    with pytest.raises(ValueError, match=r"adam: params\[2\] is torch.bfloat16"):
+        opt.step(grads)
+    targets = [torch.zeros(4, device=cuda_device, dtype=torch.bfloat16)]
+    with pytest.raises(ValueError, match=r"lerp: targets\[0\] is torch.bfloat16"):
+        optim.lerp_(targets, [torch.ones(4, device=cuda_device)], 0.01)
+    torch.cuda.synchronize()
+    assert optim.launches == before and opt.count == 0
+
+
+@pytest.mark.cuda
+def test_every_optimizer_step_of_an_update_goes_through_the_kernels(cuda_device) -> None:
+    """The captured FB trainer: three Adam launches and two soft-update
+    launches an update (forward, backward and actor; both targets), by the
+    counts held through the capture and added back at each replay; the
+    fused FB loss's counts as before, one of each an update."""
+    agent, buf = _agent_and_buffer(cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    trainer = make_offline_trainer(agent, buf.cfg, 128, steps_per_call=4)
+    ff.reset_launches()
+    optim.reset_launches()
+    trainer(buf.state, gen)
+    trainer(buf.state, gen)
+    runs = WARMUP_RUNS + 8
+    assert optim.launches == {"adam": 3 * runs, "lerp": 2 * runs}
+    assert ff.launches == {"fwd": runs, "bwd": runs}
