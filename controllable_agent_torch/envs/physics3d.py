@@ -54,6 +54,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils import trace
+
 Tensor = torch.Tensor
 
 GRAVITY = 9.81
@@ -520,6 +522,19 @@ def joint_forces(model: Model3D, q: Tensor, qd: Tensor, action: Tensor) -> Tenso
     return F.pad(_joint_torques(model, c, q, qd, action), (6, 0))
 
 
+def _solve(model: Model3D, c: ModelTensors, kin: _Kinematics, m: Tensor, inertial: Tensor,
+           contact: Tensor, tau: Tensor) -> Tensor:
+    """qdd from the mass matrix without its armature ``m``, the inertial
+    column forces, the contact forces and the joint torques."""
+    columns = c.gravity + _column_forces(model.nb, contact) - inertial
+    if model.fixed_base:
+        rhs = _generalized(kin, columns)[..., 6:] + tau
+        # no error check: it would wait for the device, and M is positive definite
+        return F.pad(torch.linalg.solve_ex(m[..., 6:, 6:] + c.solve_shift, rhs)[0], (6, 0))
+    rhs = _generalized(kin, columns) + F.pad(tau, (6, 0))
+    return torch.linalg.solve_ex(m + c.solve_shift, rhs)[0]
+
+
 def forward_dynamics(model: Model3D, q: Tensor, qd: Tensor, action: Tensor,
                      hfield: tp.Optional[Heightfield] = None) -> tp.Tuple[Tensor, Tensor]:
     """qdd = M^-1 (tau + J_c^T f_contact + gravity - h), and the contact
@@ -527,28 +542,40 @@ def forward_dynamics(model: Model3D, q: Tensor, qd: Tensor, action: Tensor,
     root)."""
     c, kin = _constants_and_kinematics(model, q)
     contact, fn = _contact_forces(model, c, kin, q, qd, hfield)
-    columns = c.gravity + _column_forces(model.nb, contact) - _inertial_forces(c, kin, qd)
     tau = _joint_torques(model, c, q, qd, action)
-    m = _mass_matrix(c, kin)
-    if model.fixed_base:
-        rhs = _generalized(kin, columns)[..., 6:] + tau
-        # no error check: it would wait for the device, and M is positive definite
-        return F.pad(torch.linalg.solve_ex(m[..., 6:, 6:] + c.solve_shift, rhs)[0], (6, 0)), fn
-    rhs = _generalized(kin, columns) + F.pad(tau, (6, 0))
-    return torch.linalg.solve_ex(m + c.solve_shift, rhs)[0], fn
+    return _solve(model, c, kin, _mass_matrix(c, kin), _inertial_forces(c, kin, qd), contact,
+                  tau), fn
 
 
 def step(model: Model3D, q: Tensor, qd: Tensor, action: Tensor, dt: float, n_substeps: int,
          hfield: tp.Optional[Heightfield] = None) -> tp.Tuple[Tensor, Tensor, Tensor]:
     """Semi-implicit Euler with substeps; returns (q, qd, touch), touch the
-    largest normal force of each contact over the substeps."""
+    largest normal force of each contact over the substeps.
+
+    Each substep is three device spans (``utils/trace.py``), which together
+    hold every operation of the step: ``p3d_kinematics`` (pose, Jacobians,
+    mass matrix, inertial forces), ``p3d_contacts`` (contact state and
+    forces) and ``p3d_solve`` (joint torques, the generalized forces,
+    ``solve_ex`` and the Euler update). The counter ``physics3d.substeps``
+    advances by ``n_substeps``."""
     h = dt / n_substeps
-    touch = torch.zeros((), dtype=q.dtype, device=q.device)
+    touch: tp.Optional[Tensor] = None
     for _ in range(n_substeps):
-        qdd, fn = forward_dynamics(model, q, qd, action, hfield)
-        qd = torch.add(qd, qdd, alpha=h).clamp(-100.0, 100.0)
-        q = torch.add(q, qd, alpha=h)
-        touch = torch.maximum(touch, fn)
+        with trace.device_span("p3d_kinematics", q.device):
+            c, kin = _constants_and_kinematics(model, q)
+            m = _mass_matrix(c, kin)
+            inertial = _inertial_forces(c, kin, qd)
+        with trace.device_span("p3d_contacts", q.device):
+            contact, fn = _contact_forces(model, c, kin, q, qd, hfield)
+            # the normal forces are >= 0: the first substep's are the running maximum
+            touch = fn if touch is None else torch.maximum(touch, fn)
+        with trace.device_span("p3d_solve", q.device):
+            tau = _joint_torques(model, c, q, qd, action)
+            qdd = _solve(model, c, kin, m, inertial, contact, tau)
+            qd = torch.add(qd, qdd, alpha=h).clamp(-100.0, 100.0)
+            q = torch.add(q, qd, alpha=h)
+    trace.count("physics3d.substeps", n_substeps)
+    assert touch is not None, "a step has at least one substep"
     return q, qd, touch
 
 

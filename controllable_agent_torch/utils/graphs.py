@@ -25,9 +25,10 @@ from . import trace
 # memory and let cuBLAS and the allocator reach their steady state
 WARMUP_RUNS = 2
 
-# the kernel wrappers' launch counts (``ops/fused_fb.py``, ``optim.py``), which
-# every capture holds back and every replay adds again
-_counted: tp.List[tp.Dict[str, int]] = []
+# the kernel wrappers' launch counts (``ops/fused_fb.py``, ``optim.py``) and the
+# program's counters (``trace.counters``), which every capture holds back and
+# every replay adds again
+_counted: tp.List[tp.Dict[str, int]] = [trace.counters]
 # the program being captured, if any (a capture does not nest)
 _capturing: tp.List["CapturedProgram"] = []
 # one side stream per device for every warm-up and capture: cuBLAS keeps a

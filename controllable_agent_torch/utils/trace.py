@@ -28,6 +28,12 @@ their capture (``CapturedProgram.traced``).
 run to the end of its capture, the bytes the allocator reserved for it
 (its graphs' pool, with what the warm-up left), and how many marks one
 replay of it runs.
+
+``counters`` holds the program's counts of work by name, advanced on the
+host where the work is issued (``count``), whether tracing is on or off:
+``physics3d.substeps``, the 3-D engine's substeps (``envs/physics3d.py:step``).
+A capture holds back what it records and each replay adds it again
+(``utils/graphs.py``), as the kernel wrappers' launch counts are.
 """
 
 from __future__ import annotations
@@ -56,6 +62,17 @@ class Capture(tp.NamedTuple):
 
 
 _captures: tp.List[Capture] = []
+
+counters: tp.Dict[str, int] = {"physics3d.substeps": 0}
+
+
+def count(name: str, n: int = 1) -> None:
+    counters[name] += n
+
+
+def reset_counters() -> None:
+    for name in counters:
+        counters[name] = 0
 
 
 def enable() -> None:

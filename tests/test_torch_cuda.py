@@ -1251,3 +1251,60 @@ def test_every_optimizer_step_of_an_update_goes_through_the_kernels(cuda_device)
     runs = WARMUP_RUNS + 8
     assert optim.launches == {"adam": 3 * runs, "lerp": 2 * runs}
     assert ff.launches == {"fwd": runs, "bwd": runs}
+
+
+@pytest.mark.cuda
+def test_quadruped_control_step_spans_and_substeps(cuda_device) -> None:
+    """The collector's captured quadruped control step: with tracing off it
+    holds no mark; with it on, each replay runs the pairs of ``act``,
+    ``env_step`` and the engine's three spans in each of its 8 substeps, and
+    the marks are all it adds to the unmarked replay's kernels. The substep
+    counter adds 8 at each replay. (Last in this file: it adds span names
+    that ``test_traced_trainer_marks_every_replay`` does not expect.)"""
+    env = quadruped.QuadrupedEnv("stand", episode_length=6)
+    agent = FBDDPGAgent(FBDDPGConfig(**{**SMALL, "goal_space": "quad_pos_speed"}), 37, 8,
+                        goal_dim=7, device=cuda_device, seed=0)
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    collector = EpisodeCollector(env, agent, 4, gen)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+
+    # the host spans' shadows on the device's timeline
+    shadows = {"graph_replay", "act", "env_step", "p3d_kinematics", "p3d_contacts", "p3d_solve"}
+
+    def episode():
+        """The device operations of an episode's replays by name, and the
+        counter's advance over it."""
+        state, ts = env.reset(gen, 4)
+        meta = init_meta_batched(agent, gen, 4)
+        before = trace.counters["physics3d.substeps"]
+        with torch.profiler.profile(activities=acts) as prof:
+            collector(meta, state, ts, 0)
+            torch.cuda.synchronize()
+        names = [e.name() for e in prof.profiler.kineto_results.events()
+                 if str(e.device_type()).endswith("CUDA") and e.name() not in shadows]
+        return names, trace.counters["physics3d.substeps"] - before
+
+    trace.reset_captures()
+    collector(init_meta_batched(agent, gen, 4), *env.reset(gen, 4), 0)  # the capture
+    plain, counted = episode()
+    assert counted == 8 * 6
+    try:
+        trace.enable()
+        collector(init_meta_batched(agent, gen, 4), *env.reset(gen, 4), 0)  # captured anew
+        marked, counted = episode()
+        spans = trace.device_span_names()
+    finally:
+        trace.disable()
+    assert counted == 8 * 6
+    assert [(r.name, r.marks) for r in trace.captures()] == [
+        ("collector", 0), ("collector", 2 * (2 + 3 * 8))]
+    # a pair a step of the collector's spans, of the engine's one a substep (the
+    # process may know other spans from earlier tests)
+    per_step = {"act": 1, "env_step": 1, "p3d_kinematics": 8, "p3d_contacts": 8, "p3d_solve": 8}
+    assert set(per_step) <= set(spans.values())
+    for i, name in spans.items():
+        runs = 6 * per_step.get(name, 0)
+        assert marked.count(f"trace_begin_{i}") == marked.count(f"trace_end_{i}") == runs, name
+    # a capture made again runs a few of the first capture's copy kernels on the
+    # copy engine, so the operations are counted, not named
+    assert len([n for n in marked if not n.startswith("trace_")]) == len(plain)
