@@ -294,8 +294,13 @@ running phase 15), one collected quadruped cycle for phase 22. The phases:
      updates each from one state, equal to the bit; the fused launches of a
      call (3 Adam, 2 lerp, by ``optim.launches``); device ms per call in one
      CUDA graph, in turns, and per step beside its bound (the bytes at 3.35
-     TB/s). Phases 4 and 35 count the kernels' launches on their runs (3
-     Adam and 2 lerp an update, the capture's warm-up runs included), and
+     TB/s). Then the agent's 56 bf16 copies made stale by a write to every
+     parameter: ``Bf16Copy.refresh`` (``optim.cast_``, one launch of
+     ``bf16_copy_refresh_kernel`` by ``bf16_copy.refreshes``) equal to
+     ``cast_plain`` to the bit, and the cast timed the same way against
+     ``cast_plain`` beside its bound (6 B an element). Phases 4 and 35 count
+     the kernels' launches on their runs (3 Adam and 2 lerp an update, the
+     capture's warm-up runs included; the refresh kernel's as they come), and
      the ``kernels`` line gains a row for each kernel.
 
 The last lines are the ``kernels`` JSON line, the card's name and power
@@ -349,7 +354,8 @@ from controllable_agent_torch.envs.base import EnvSpec
 from controllable_agent_torch.envs.pixels import make_pixel_env
 from controllable_agent_torch.goals import get_reward_function
 from controllable_agent_torch.goals.rewards import MazeMultiGoal
-from controllable_agent_torch.models.networks import PixelEncoder, conv_repr_dim, l2_normalize
+from controllable_agent_torch.models.networks import (Dense, PixelEncoder, conv_repr_dim,
+                                                      l2_normalize)
 from controllable_agent_torch.ops.augment import draw_shifts, random_shift_aug
 from controllable_agent_torch.ops.linalg import lstsq, pinv
 from controllable_agent_torch.ops import fused_fb as ff
@@ -367,6 +373,7 @@ from controllable_agent_torch.train.loops import (WARMUP_RUNS, CapturedProgram,
                                                   EpisodeCollector, OnlineTrainer, Rollout,
                                                   init_meta_batched, make_offline_trainer)
 from controllable_agent_torch.utils.device import card_name_and_power_limit, query_card
+from controllable_agent_torch.utils import trace
 from controllable_agent_torch.utils.tree import soft_update
 
 SEED = 0
@@ -696,7 +703,7 @@ def run_slice(tmp: str) -> tp.Tuple[tp.Dict[str, int], tp.Any]:
     written = write_slice_episodes(tmp)
     torch.cuda.reset_peak_memory_stats()
     ff.reset_launches()
-    optim.reset_launches()
+    reset_optimizer_launches()
     t0 = time.perf_counter()
     ws = train_offline.main(slice_args(f"{tmp}/run", f"{tmp}/episodes"))
     torch.cuda.synchronize()
@@ -3380,7 +3387,7 @@ def run_recipe(tmp: str) -> tp.Dict[str, int]:
     frames = RECIPE_CYCLES * cycle
     folder = Path(tmp) / "recipe"
     cuts = [f"num_train_frames={frames}", f"final_tests={RECIPE_FINAL_TESTS}"]
-    optim.reset_launches()
+    reset_optimizer_launches()
     rc, wall = _timed(lambda: online_curve.main([
         f"recipe={RECIPE}", "entry=train_online", f"folder={folder}", *cuts]))
     if rc != 0:
@@ -3418,46 +3425,77 @@ def run_recipe(tmp: str) -> tp.Dict[str, int]:
 OPTIMIZER_LAUNCHES: tp.Dict[str, tp.Dict[str, int]] = {}
 
 
+def reset_optimizer_launches() -> None:
+    """Zero ``optim.launches`` and the refresh kernel's count
+    (``bf16_copy.refreshes``)."""
+    optim.reset_launches()
+    trace.counters["bf16_copy.refreshes"] = 0
+
+
 def check_optimizer_launches(phase: int, updates: int, path: str) -> None:
     """The optimizer kernels' launches of a FB run of ``updates`` captured
-    updates since ``optim.reset_launches()``: 3 Adam steps and 2
-    soft-updates each, the capture's warm-up runs included; kept by path."""
+    updates since ``reset_optimizer_launches()``: 3 Adam steps and 2
+    soft-updates each, the capture's warm-up runs included; kept by path,
+    with the refresh kernel's launches (set-up only: none is expected in a
+    replay, and their number is the run's own)."""
     runs = updates + WARMUP_RUNS
     expected = {"adam": 3 * runs, "lerp": 2 * runs}
+    cast = trace.counters["bf16_copy.refreshes"]
     print(f"phase {phase} optimizer launches {dict(optim.launches)} by optim.launches "
-          f"(expected {expected}: {updates} updates + {WARMUP_RUNS} warm-up runs)")
+          f"(expected {expected}: {updates} updates + {WARMUP_RUNS} warm-up runs); "
+          f"bf16_copy_refresh_kernel {cast} by bf16_copy.refreshes")
     if optim.launches != expected:
         raise AssertionError(f"phase {phase}: optimizer launches {optim.launches}, "
                              f"expected {expected}")
-    OPTIMIZER_LAUNCHES[path] = expected
+    OPTIMIZER_LAUNCHES[path] = {**expected, "cast": cast}
 
 
 def time_optimizer() -> tp.Dict[str, tp.Dict[str, float]]:
-    """Phase 36: the optimizer layer of one full-width FB update (bf16 mu):
-    the forward, backward and actor Adam steps and the two soft-updates,
-    fused (``Adam.step``, ``soft_update``) and by _foreach (``adam_plain``,
-    ``lerp_plain``): three updates of each from one state equal to the bit;
-    the fused launches of a call by ``optim.launches``; device ms per call in
-    one CUDA graph each, in turns, and per step, beside the bound of the
-    bytes at 3.35 TB/s. Returns, for each kernel, the summed ms of its
-    calls in one update by kernel and by _foreach and their bound."""
+    """Phase 36: the optimizer layer of one full-width FB update (bf16 mu,
+    bf16 networks: the Linear gradients bf16, the copies written with the
+    parameters): the forward, backward and actor Adam steps and the two
+    soft-updates, fused (``Adam.step``, ``soft_update``) and by _foreach
+    (``adam_plain`` on the widened gradients, ``lerp_plain``, each then
+    casting the copies): three updates of each from one state equal to the
+    bit, copies included; the fused launches of a call by
+    ``optim.launches``; device ms per call in one CUDA graph each, in turns,
+    and per step, beside the bound of the bytes at 3.35 TB/s. Returns, for
+    each kernel, the summed ms of its calls in one update by kernel and by
+    _foreach and their bound; for the refresh kernel, one refresh of the
+    agent's copies."""
     agent = FBDDPGAgent(FBDDPGConfig(use_pallas_loss=True, compute_dtype="bfloat16"),
                         OBS_DIM, ACTION_DIM, device="cuda", seed=SEED)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     opts = {"fw_opt": agent.fw_opt, "bw_opt": agent.bw_opt, "actor_opt": agent.actor_opt}
-    grads = {name: [1e-3 * torch.randn(p.shape, device="cuda", generator=gen)
-                    for p in opt.params.values()] for name, opt in opts.items()}
+    # the gradients as an update hands them over: bf16 for a parameter with a copy
+    grads = {name: [(1e-3 * torch.randn(leaf.shape, device="cuda", generator=gen)).to(leaf.dtype)
+                    for leaf in opt.leaves] for name, opt in opts.items()}
     pairs = {"forward": (agent.forward_net, agent.target_forward_net),
              "backward": (agent.backward_net, agent.target_backward_net)}
     tau = agent.cfg.fb_target_tau
 
+    def copies(opt: tp.Any) -> tp.List[tp.Tuple[torch.Tensor, torch.Tensor]]:
+        """(parameter, its copy) of each parameter of ``opt`` that has one."""
+        return [(p, leaf) for p, leaf in zip(opt.params.values(), opt.leaves) if leaf is not p]
+
+    def target_copies(target: tp.Any) -> tp.List[tp.Tuple[torch.Tensor, torch.Tensor]]:
+        params = list(target.parameters())
+        return [(c.param, c.copy) for c in optim.copies_of(target, params) if c is not None]
+
     def adam_plain(opt: tp.Any, g: tp.Sequence[torch.Tensor]) -> None:
-        optim.adam_plain(list(opt.params.values()), g, list(opt.mu.values()),
-                         list(opt.nu.values()), opt.count_t, opt.lr, opt.b1, opt.b2, opt.eps)
+        optim.adam_plain(list(opt.params.values()), [x.float() for x in g],
+                         list(opt.mu.values()), list(opt.nu.values()), opt.count_t, opt.lr,
+                         opt.b1, opt.b2, opt.eps)
+        params, held = zip(*copies(opt))
+        optim.cast_plain(held, params)
+
+    def lerp_plain(net: tp.Any, target: tp.Any, w: float) -> None:
+        optim.lerp_plain(list(target.parameters()), list(net.parameters()), w)
+        params, held = zip(*target_copies(target))
+        optim.cast_plain(held, params)
 
     steps = {"fused": (lambda opt, g: opt.step(g), soft_update),
-             "plain": (adam_plain, lambda net, target, w: optim.lerp_plain(
-                 list(target.parameters()), list(net.parameters()), w))}
+             "plain": (adam_plain, lerp_plain)}
 
     def update(way: str) -> tp.Callable[[], None]:
         adam_step, lerp_step = steps[way]
@@ -3470,6 +3508,8 @@ def time_optimizer() -> tp.Dict[str, tp.Dict[str, float]]:
                     lerp_step(net, target, tau)
         return run
 
+    held_copies = [c for opt in opts.values() for _, c in copies(opt)] + [
+        c for _, target in pairs.values() for _, c in target_copies(target)]
     state = [*agent.train_state().values()]
     saved = [t.clone() for t in state]
     results = {}
@@ -3480,14 +3520,14 @@ def time_optimizer() -> tp.Dict[str, tp.Dict[str, float]]:
         for _ in range(3):
             update(way)()
         torch.cuda.synchronize()
-        results[way] = [t.clone() for t in state]
-    names = list(agent.train_state())
+        results[way] = [t.clone() for t in state + held_copies]
+    names = list(agent.train_state()) + [f"copy {i}" for i in range(len(held_copies))]
     differ = [n for n, a, b in zip(names, results["fused"], results["plain"])
               if not torch.equal(a, b)]
     if differ:
         raise AssertionError(f"phase 36: fused and plain differ after 3 updates in {differ}")
     print("phase 36: fused and plain equal to the bit after 3 updates "
-          f"({len(names)} tensors of the train state)")
+          f"({len(state)} tensors of the train state, {len(held_copies)} bf16 copies)")
 
     # the wrappers' counts, not a profiler: a profiler session over these
     # graphs saw none of the fused kernels (PERF.md, kernel table)
@@ -3498,14 +3538,17 @@ def time_optimizer() -> tp.Dict[str, tp.Dict[str, float]]:
     if launched != {"adam": 3, "lerp": 2}:
         raise AssertionError(f"phase 36: expected 3 Adam and 2 lerp launches, counted {launched}")
 
-    # bytes each needs: Adam reads p, g, mu, nu and writes p, mu, nu once; a
-    # soft-update reads both nets and writes the target
+    # bytes each needs: Adam reads p, g, mu, nu and writes p, mu, nu and the
+    # copy once; a soft-update reads both nets and writes the target and its copy
     def adam_bytes(opt: tp.Any) -> int:
         mu_bytes = next(iter(opt.mu.values())).element_size()
-        return sum(p.numel() for p in opt.params.values()) * (4 + 4 + 4 + 2 * mu_bytes + 4 + 4)
+        return sum(p.numel() * (4 + g.element_size() + 2 * mu_bytes + 4 + 4 + 4)
+                   for p, g in zip(opt.params.values(), opt.leaves)) + sum(
+                       2 * c.numel() for _, c in copies(opt))
 
     least = {name: adam_bytes(opt) for name, opt in opts.items()}
     least.update({name: 12 * sum(p.numel() for p in target.parameters())
+                  + 2 * sum(c.numel() for _, c in target_copies(target))
                   for name, (_, target) in pairs.items()})
     total = sum(least.values())
     order = ["plain", "fused", "fused", "plain"]
@@ -3527,10 +3570,8 @@ def time_optimizer() -> tp.Dict[str, tp.Dict[str, float]]:
             one = {"fused": lambda: opt.step(g), "plain": lambda: adam_plain(opt, g)}
         else:
             net, target = pairs[name]
-            one = {"fused": lambda: optim.lerp_(list(target.parameters()),
-                                                list(net.parameters()), tau),
-                   "plain": lambda: optim.lerp_plain(list(target.parameters()),
-                                                     list(net.parameters()), tau)}
+            one = {"fused": lambda: soft_update(net, target, tau),
+                   "plain": lambda: lerp_plain(net, target, tau)}
         with torch.no_grad():
             ms, plain_ms = time_ms(one["fused"], calls=20), time_ms(one["plain"], calls=20)
         least_ms = 1e3 * nbytes / HBM_BYTES_PER_S
@@ -3542,28 +3583,81 @@ def time_optimizer() -> tp.Dict[str, tp.Dict[str, float]]:
         row["ms"] += ms
         row["plain_ms"] += plain_ms
         row["bound_ms"] += least_ms
+    rows["cast"] = time_refresh(agent)
     print(f"phase 36 card: {card_name_and_power_limit()}")
     return rows
+
+
+def time_refresh(agent: tp.Any) -> tp.Dict[str, float]:
+    """Phase 36's refresh: every parameter of the full-width FB agent
+    written, so all its bf16 copies are stale; ``Bf16Copy.refresh`` over
+    them (``optim.cast_``: one launch of ``bf16_copy_refresh_kernel`` by
+    ``bf16_copy.refreshes``) equal to ``cast_plain`` on the same parameters
+    to the bit; then ``cast_`` and ``cast_plain`` timed in CUDA graphs, in
+    turns, beside the bound of 6 B an element (read 4, write 2) at 3.35
+    TB/s."""
+    held = [c for m in agent.modules() if isinstance(m, Dense) for c in m.bf16 or ()]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 36)
+    with torch.no_grad():
+        for c in held:
+            c.param.add_(1e-3 * torch.randn(c.param.shape, device="cuda", generator=gen))
+    if not held or not all(c.stale() for c in held):
+        raise AssertionError(f"phase 36: {len(held)} copies, not all stale after the write")
+    copies, params = [c.copy for c in held], [c.param for c in held]
+    want = [torch.empty_like(x) for x in copies]
+    optim.cast_plain(want, params)
+    before = trace.counters["bf16_copy.refreshes"]
+    optim.Bf16Copy.refresh(held)
+    launched = trace.counters["bf16_copy.refreshes"] - before
+    torch.cuda.synchronize()
+    differ = [i for i, (a, b) in enumerate(zip(copies, want)) if not torch.equal(a, b)]
+    parts = len(optim.plan(len(held), optim._max_tensors("cast")))
+    print(f"phase 36 refresh: {len(held)} stale copies, {launched} launch(es) of "
+          f"bf16_copy_refresh_kernel by bf16_copy.refreshes (plan: {parts}); "
+          f"{len(held) - len(differ)} of {len(held)} equal to cast_plain to the bit")
+    if differ or launched != parts or any(c.stale() for c in held):
+        raise AssertionError(f"phase 36: refresh differs in copies {differ}, launched "
+                             f"{launched} for {parts}, stale after it "
+                             f"{sum(c.stale() for c in held)}")
+    elements = sum(p.numel() for p in params)
+    least_ms = 1e3 * 6 * elements / HBM_BYTES_PER_S
+    order = ["plain", "kernel", "kernel", "plain"]
+    ways = {"kernel": lambda: optim.cast_(copies, params),
+            "plain": lambda: optim.cast_plain(copies, params)}
+    times: tp.Dict[str, tp.List[float]] = {way: [] for way in ways}
+    for way in order:
+        times[way].append(time_ms(ways[way], calls=20))
+    ms, plain_ms = min(times["kernel"]), min(times["plain"])
+    print(f"phase 36 refresh of {len(held)} copies ({elements} elements, "
+          f"{6 * elements / 1e6:.2f} MB): " + ", ".join(
+              f"{way} {'/'.join(f'{t:.5f}' for t in ts)} ms" for way, ts in times.items())
+          + f" (CUDA graph, in turns {order}); bound {least_ms:.5f} ms; "
+          f"{ms / least_ms:.2f}x the bound, {plain_ms / ms:.2f}x faster than plain")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": least_ms}
 
 
 def optimizer_rows(times: tp.Dict[str, tp.Dict[str, float]],
                    launches: tp.Dict[str, tp.Dict[str, int]]) -> tp.List[tp.Dict[str, tp.Any]]:
     """The ``kernels`` line's rows of the optimizer kernels: phase 36's
-    times of one FB update's calls, the launches of phases 4 and 35 (the
-    main path: the last of them that ran)."""
+    times (one FB update's calls; one refresh of the agent's copies), the
+    launches of phases 4 and 35 (the main path: the last of them that
+    ran)."""
     source = "controllable_agent_torch/csrc/fused_optim.cu"
-    note = ("one FB update's calls (3 Adam steps; 2 soft-updates), 20 calls a CUDA graph on "
-            "the same tensors: a set under the 50 MB L2 partly stays there")
+    note = ("one FB update's calls (3 Adam steps; 2 soft-updates; the refresh: one of the "
+            "agent's 56 copies), 20 calls a CUDA graph on the same tensors: a set under the "
+            "50 MB L2 partly stays there")
     rows = []
-    for name, kernel, wrapper, library in (
-            ("adam (bf16 mu)", "adam_multi_tensor_apply_kernel", "optim.adam", None),
-            ("lerp (soft-update)", "lerp_multi_tensor_apply_kernel", "optim.lerp_",
-             "torch._foreach_lerp_")):
-        key = "adam" if library is None else "lerp"
+    for key, name, kernel, wrapper, library in (
+            ("adam", "adam (bf16 mu)", "adam_multi_tensor_apply_kernel", "optim.adam", None),
+            ("lerp", "lerp (soft-update)", "lerp_multi_tensor_apply_kernel", "optim.lerp_",
+             "torch._foreach_lerp_"),
+            ("cast", "bf16 copy refresh", "bf16_copy_refresh_kernel", "optim.cast_",
+             "Tensor.copy_")):
         t = times[key]
-        by_path = {path: counts[key] for path, counts in launches.items()}
+        by_path = {path: counts[key] for path, counts in launches.items() if key in counts}
         rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": "none (optax's Adam and the target updates, left to XLA)",
+                     "replaces": ("none (XLA's casts of the weights at each use)" if key == "cast"
+                                  else "none (optax's Adam and the target updates, left to XLA)"),
                      "launches": list(by_path.values())[-1] if by_path else None,
                      "max_abs_err": 0.0, "ms": t["ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": "bytes",

@@ -273,7 +273,7 @@ class APSAgent(_IntrinsicSFBase):
         reward = batch.reward
         if cfg.reward_free:
             aps_loss = -_dot(task, self.features(batch.next_obs)).mean()
-            self.aps_opt.step(shard.grad(aps_loss, list(self.aps_opt.params.values())))
+            self.aps_opt.step(shard.grad(aps_loss, self.aps_opt.leaves))
             with torch.no_grad():
                 reward, ent, sf = self._intrinsic(self.features(batch.next_obs, norm=False),
                                                   task, shard)
@@ -289,13 +289,13 @@ class APSAgent(_IntrinsicSFBase):
             target_q = reward + batch.discount * torch.minimum(tq1, tq2)
         q1, q2 = self.critic(obs, batch.action, task)
         critic_loss = (q1 - target_q).square().mean() + (q2 - target_q).square().mean()
-        self.critic_opt.step(shard.grad(critic_loss, list(self.critic_opt.params.values())))
+        self.critic_opt.step(shard.grad(critic_loss, self.critic_opt.leaves))
         # the actor step sees the freshly updated critic, as the JAX update does
         action = TruncatedNormal(self.actor(obs), stddev).sample(noise.actor_normal,
                                                                  clip=cfg.stddev_clip)
         aq1, aq2 = self.critic(obs, action, task)
         actor_loss = -torch.minimum(aq1, aq2).mean()
-        self.actor_opt.step(shard.grad(actor_loss, list(self.actor_opt.params.values())))
+        self.actor_opt.step(shard.grad(actor_loss, self.actor_opt.leaves))
         soft_update(self.critic, self.target_critic, cfg.critic_target_tau)
         self.step_t += 1
         metrics.update(critic_loss=critic_loss, critic_q1=q1.mean(), actor_loss=actor_loss)
@@ -462,7 +462,7 @@ class NEWAPSAgent(_IntrinsicSFBase):
         reward = batch.reward
         if cfg.reward_free:
             phi_loss = -_dot(self.features(next_goal), z).mean()
-            self.phi_opt.step(shard.grad(phi_loss, list(self.phi_opt.params.values())))
+            self.phi_opt.step(shard.grad(phi_loss, self.phi_opt.leaves))
             with torch.no_grad():
                 reward, ent, sf = self._intrinsic(self.features(next_goal, norm=False), z,
                                                   shard)
@@ -479,12 +479,12 @@ class NEWAPSAgent(_IntrinsicSFBase):
             target_q = reward[:, 0] + batch.discount[:, 0] * next_q
         q1, q2 = self._q(self.successor_net, batch.obs, z, batch.action)
         sf_loss = (q1 - target_q).square().mean() + (q2 - target_q).square().mean()
-        self.sf_opt.step(shard.grad(sf_loss, list(self.sf_opt.params.values())))
+        self.sf_opt.step(shard.grad(sf_loss, self.sf_opt.leaves))
         # the actor step sees the freshly updated successor nets
         action = TruncatedNormal(self.actor(batch.obs, z), stddev).sample(
             noise.actor_normal, clip=cfg.stddev_clip)
         actor_loss = -torch.minimum(*self._q(self.successor_net, batch.obs, z, action)).mean()
-        self.actor_opt.step(shard.grad(actor_loss, list(self.actor_opt.params.values())))
+        self.actor_opt.step(shard.grad(actor_loss, self.actor_opt.leaves))
         soft_update(self.successor_net, self.target_successor_net, cfg.sf_target_tau)
         self.step_t += 1
         metrics.update(sf_loss=sf_loss, Q1=q1.mean(), target_Q=target_q.mean(),

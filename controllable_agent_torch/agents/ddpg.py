@@ -254,10 +254,10 @@ class DDPGAgent(nn.Module):
         """Fit reward_model(obs) to ``reward`` by regression, ``num_iters``
         Adam steps."""
         assert self.reward_model is not None and self.reward_opt is not None
-        params = list(self.reward_opt.params.values())
+        leaves = self.reward_opt.leaves
         for _ in range(num_iters):
             loss = (self.reward_model(obs).float() - reward).square().mean()
-            self.reward_opt.step(torch.autograd.grad(loss, params))
+            self.reward_opt.step(torch.autograd.grad(loss, leaves))
 
     # -- the update -----------------------------------------------------
     def update(self, batch: EpisodeBatch, generator: torch.Generator,
@@ -324,14 +324,14 @@ class DDPGAgent(nn.Module):
         q1, q2 = self.critic(obs, batch.action)
         q1, q2 = q1.float(), q2.float()
         critic_loss = (q1 - target_q).square().mean() + (q2 - target_q).square().mean()
-        critic_params = list(self.critic_opt.params.values())
-        encoder_params = (list(self.encoder_opt.params.values())
+        critic_leaves = self.critic_opt.leaves
+        encoder_leaves = (self.encoder_opt.leaves
                           if self.encoder_opt is not None and cfg.update_encoder else [])
-        grads = shard.grad(critic_loss, critic_params + encoder_params)
-        self.critic_opt.step(grads[:len(critic_params)])
-        if encoder_params:
+        grads = shard.grad(critic_loss, critic_leaves + encoder_leaves)
+        self.critic_opt.step(grads[:len(critic_leaves)])
+        if encoder_leaves:
             assert self.encoder_opt is not None
-            self.encoder_opt.step(grads[len(critic_params):])
+            self.encoder_opt.step(grads[len(critic_leaves):])
         # the actor sees the critic's features detached: the encoder's
         # parameters before its step, as in the JAX update
         obs = obs.detach()
@@ -342,7 +342,7 @@ class DDPGAgent(nn.Module):
         action = dist.sample(noise.actor_normal, clip=cfg.stddev_clip)
         aq1, aq2 = self.critic(obs, action)
         actor_loss = -torch.minimum(aq1, aq2).float().mean()
-        self.actor_opt.step(shard.grad(actor_loss, list(self.actor_opt.params.values())))
+        self.actor_opt.step(shard.grad(actor_loss, self.actor_opt.leaves))
         soft_update(self.critic, self.target_critic, cfg.critic_target_tau)
         self.step_t += 1
         metrics = {"batch_reward": reward.mean(), "critic_target_q": target_q.mean(),

@@ -231,11 +231,11 @@ class DiscreteFBAgent(FBMetaMixin, nn.Module):
         next_goal = batch.next_goal if cfg.goal_space is not None else batch.next_obs
         z = build_train_z(cfg, self.backward_net, batch, noise, shard)
         fb_loss, metrics = self._fb_loss(batch, z, next_goal, shard)
-        fw_params = list(self.fw_opt.params.values())
-        bw_params = list(self.bw_opt.params.values())
-        grads = shard.grad(fb_loss, fw_params + bw_params)
-        self.fw_opt.step(grads[:len(fw_params)])
-        self.bw_opt.step(grads[len(fw_params):])
+        fw_leaves = self.fw_opt.leaves
+        bw_leaves = self.bw_opt.leaves
+        grads = shard.grad(fb_loss, fw_leaves + bw_leaves)
+        self.fw_opt.step(grads[:len(fw_leaves)])
+        self.bw_opt.step(grads[len(fw_leaves):])
         soft_update(self.forward_net, self.target_forward_net, cfg.fb_target_tau)
         soft_update(self.backward_net, self.target_backward_net, cfg.fb_target_tau)
         self.step_t += 1

@@ -203,18 +203,18 @@ class DiscreteSFAgent(ZMetaMixin, nn.Module):
         action = one_hot(batch.action, self.n_actions)
 
         sf_loss = self._sf_loss(batch, z, action, next_goal)
-        self.sf_opt.step(shard.grad(sf_loss, list(self.sf_opt.params.values())))
+        self.sf_opt.step(shard.grad(sf_loss, self.sf_opt.leaves))
         metrics: Metrics = {"sf_loss": sf_loss}
         if self.learner_trainable and self.phi_opt is not None:
-            params = list(self.phi_opt.params.values())
+            leaves = self.phi_opt.leaves
             phi_loss = self.feature_learner.loss(
                 goal, action, next_goal, batch.future_goal if use_goal else batch.future_obs,
                 shard)
             if phi_loss is None:  # fb: a frozen φ whose Adam steps on zeros, as in JAX
                 phi_loss = torch.zeros((), device=goal.device)
-                grads: tp.Sequence[Tensor] = [torch.zeros_like(p) for p in params]
+                grads: tp.Sequence[Tensor] = [torch.zeros_like(p) for p in leaves]
             else:
-                grads = shard.grad(phi_loss, params)
+                grads = shard.grad(phi_loss, leaves)
             self.phi_opt.step(grads)
             metrics["phi_loss"] = phi_loss
         soft_update(self.successor_net, self.target_successor_net, cfg.sf_target_tau)

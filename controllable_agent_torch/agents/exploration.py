@@ -190,7 +190,7 @@ class IntrinsicDDPGAgent(nn.Module):
             loss, module_metrics = self._module_loss(batch, goal, next_goal, noise, shard)
             # a frozen part of the module (RND's target) gets a zero gradient,
             # so Adam leaves it where it is, as optax does
-            self.module_opt.step(shard.grad(loss, list(self.module_opt.params.values()),
+            self.module_opt.step(shard.grad(loss, self.module_opt.leaves,
                                             allow_unused=True, materialize_grads=True))
             metrics.update(module_metrics)
         reward = batch.reward
@@ -454,8 +454,9 @@ class _StackedDense(nn.Module):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(n, out_dim, in_dim))
         self.bias = nn.Parameter(torch.zeros(n, out_dim))
-        for w in self.weight.data:
-            nn.init.orthogonal_(w)
+        with torch.no_grad():
+            for w in self.weight:
+                nn.init.orthogonal_(w)
 
     def forward(self, x: Tensor) -> Tensor:
         return torch.baddbmm(self.bias[:, None, :], x, self.weight.transpose(1, 2))

@@ -507,16 +507,16 @@ class FBDDPGAgent(FBMetaMixin, nn.Module):
         z = self._build_train_z(batch, noise, shard)
 
         fb_loss, metrics = self._fb_loss(batch, z, next_goal, noise.next_action_normal, shard)
-        fw_params = list(self.fw_opt.params.values())
-        bw_params = list(self.bw_opt.params.values())
-        grads = shard.grad(fb_loss, fw_params + bw_params)
-        self.fw_opt.step(grads[:len(fw_params)])
-        self.bw_opt.step(grads[len(fw_params):])
+        fw_leaves = self.fw_opt.leaves
+        bw_leaves = self.bw_opt.leaves
+        grads = shard.grad(fb_loss, fw_leaves + bw_leaves)
+        self.fw_opt.step(grads[:len(fw_leaves)])
+        self.bw_opt.step(grads[len(fw_leaves):])
 
         # the actor step uses the freshly updated forward net, as the JAX
         # update does (fb_ddpg.py:471-476)
         actor_loss, actor_metrics = self._actor_loss(batch.obs, z, noise.actor_normal)
-        self.actor_opt.step(shard.grad(actor_loss, list(self.actor_opt.params.values())))
+        self.actor_opt.step(shard.grad(actor_loss, self.actor_opt.leaves))
 
         soft_update(self.forward_net, self.target_forward_net, cfg.fb_target_tau)
         soft_update(self.backward_net, self.target_backward_net, cfg.fb_target_tau)

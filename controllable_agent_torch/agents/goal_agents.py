@@ -278,12 +278,12 @@ class GoalTD3Agent(ZMetaMixin, nn.Module):
             next_action = TruncatedNormal(self.actor(batch.next_obs, desired), stddev).sample(
                 noise.critic_normal, clip=cfg.stddev_clip)
         critic_loss, q1, metrics = self._critic_loss(batch, achieved, desired, next_action)
-        self.critic_opt.step(shard.grad(critic_loss, list(self.critic_opt.params.values())))
+        self.critic_opt.step(shard.grad(critic_loss, self.critic_opt.leaves))
         # the actor step sees the freshly updated critic
         action = TruncatedNormal(self.actor(batch.obs, desired), stddev).sample(
             noise.actor_normal, clip=cfg.stddev_clip)
         actor_loss = -torch.minimum(*self.critic(batch.obs, desired, action)).mean()
-        self.actor_opt.step(shard.grad(actor_loss, list(self.actor_opt.params.values())))
+        self.actor_opt.step(shard.grad(actor_loss, self.actor_opt.leaves))
         soft_update(self.critic, self.target_critic, cfg.critic_target_tau)
         self.step_t += 1
         metrics.update(critic_loss=critic_loss, critic_q1=q1.mean(), actor_loss=actor_loss)

@@ -163,7 +163,7 @@ class ProtoAgent(IntrinsicDDPGAgent):
         every_t = shard.gather(scores_t / cfg.tau)
         q_t = sinkhorn_knopp(every_t)[shard.rows(every_t.shape[0])]
         repr_loss = -(q_t * log_p_s).sum(1).mean()
-        self.module_opt.step(shard.grad(repr_loss, list(self.module_opt.params.values()),
+        self.module_opt.step(shard.grad(repr_loss, self.module_opt.leaves,
                                         allow_unused=True, materialize_grads=True))
         soft_update(self.module.predictor, self.module.target_predictor,
                     cfg.encoder_target_tau)

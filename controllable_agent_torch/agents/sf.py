@@ -527,7 +527,7 @@ class SuccessorFeatureAgent(ZMetaMixin, nn.Module):
         return loss, {"actor_loss": loss, "actor_logprob": log_prob.mean()}
 
     def _step(self, opt: Adam, loss: Tensor, shard: Shard = Shard()) -> None:
-        opt.step(shard.grad(loss, list(opt.params.values())))
+        opt.step(shard.grad(loss, opt.leaves))
 
     def update(self, batch: EpisodeBatch, generator: torch.Generator,
                group: tp.Any = None) -> Metrics:

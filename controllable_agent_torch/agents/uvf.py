@@ -217,11 +217,11 @@ class UVFAgent(ZMetaMixin, nn.Module):
             target_q = reward + batch.discount[:, 0] * next_q
         q1, q2 = self._q(self.forward_net, batch.obs, z, batch.action)
         fb_loss = (q1 - target_q).square().mean() + (q2 - target_q).square().mean()
-        fw_params = list(self.fw_opt.params.values())
-        bw_params = list(self.bw_opt.params.values())
-        grads = shard.grad(fb_loss, fw_params + bw_params)
-        self.fw_opt.step(grads[:len(fw_params)])
-        self.bw_opt.step(grads[len(fw_params):])
+        fw_leaves = self.fw_opt.leaves
+        bw_leaves = self.bw_opt.leaves
+        grads = shard.grad(fb_loss, fw_leaves + bw_leaves)
+        self.fw_opt.step(grads[:len(fw_leaves)])
+        self.bw_opt.step(grads[len(fw_leaves):])
 
         # the actor step sees the freshly updated F and B
         with torch.no_grad():
@@ -229,7 +229,7 @@ class UVFAgent(ZMetaMixin, nn.Module):
         action = TruncatedNormal(self.actor(batch.obs, z), stddev).sample(
             noise.actor_normal, clip=cfg.stddev_clip)
         actor_loss = -torch.minimum(*self._q(self.forward_net, batch.obs, z, action)).mean()
-        self.actor_opt.step(shard.grad(actor_loss, list(self.actor_opt.params.values())))
+        self.actor_opt.step(shard.grad(actor_loss, self.actor_opt.leaves))
         soft_update(self.forward_net, self.target_forward_net, cfg.fb_target_tau)
         self.step_t += 1
         metrics = {"fb_loss": fb_loss, "z_norm": torch.linalg.vector_norm(zd, dim=-1).mean(),

@@ -1,11 +1,13 @@
 // The optimizer layer for Hopper (sm_90a): one multi-tensor Adam step and one
 // multi-tensor soft-update (lerp) kernel, CUDA C++ with a plain C interface
-// (loaded with ctypes by controllable_agent_torch/optim.py).
+// (loaded with ctypes by controllable_agent_torch/optim.py), and the cast that
+// refreshes the bfloat16 compute copies of parameters written by anything else.
 //
 //   adam_multi_tensor_apply_kernel<MuT>  <- optim.py:adam_plain, ~16 torch._foreach_*
 //                                           calls and the bias corrections' and
 //                                           count's small kernels (~23 launches)
 //   lerp_multi_tensor_apply_kernel       <- torch._foreach_lerp_ (utils/tree.py)
+//   bf16_copy_refresh_kernel             <- one .copy_ a tensor (optim.py:Bf16Copy)
 //
 // Replaces no TPU kernel: the JAX package leaves optax's Adam and its
 // target-network updates to XLA, which fuses each into a few loops. They are
@@ -17,6 +19,16 @@
 // float32 one, for ~15 flops: at 3.35 TB/s, 5.9M parameters take ~42 us. A
 // soft-update reads the target and the online parameters and writes the
 // target, 12 B a parameter. The _foreach sequence moved ~134 B a parameter.
+//
+// The bfloat16 compute copies (models/networks.py:Dense). A network that
+// computes in bfloat16 keeps, beside each float32 Linear weight and bias, a
+// bfloat16 copy that its layers read, so autocast casts no weight at a use;
+// its Linear gradients are the bfloat16 gradients of the copies. So a tensor
+// of Adam's list may come with a bfloat16 gradient, which the kernel widens in
+// registers (exactly .float()), and with a copy, which it writes from the new
+// parameter in the same pass (round to nearest even, as .to(torch.bfloat16)):
+// 2 B less read and 2 B more written a Linear parameter. The soft-update
+// writes the target's copy the same way, 14 B a parameter with a copy.
 //
 // What the design does about it:
 //  - One pass: each element of each tensor is loaded once, updated in
@@ -60,17 +72,20 @@ constexpr int kThreads = 256;
 constexpr int kVec = 4;                      // elements per 16-byte access
 constexpr int kChunk = 2048;                 // elements a block takes at a time
 constexpr int kSweeps = kChunk / (kThreads * kVec);
-constexpr int kAdamMaxTensors = 64;          // Table<4, 64>: 2,820 bytes
-constexpr int kLerpMaxTensors = 128;         // Table<2, 128>: 3,588 bytes
+constexpr int kAdamMaxTensors = 64;          // Table<5, 64>: 3,396 bytes
+constexpr int kLerpMaxTensors = 96;          // Table<3, 96>: 3,556 bytes
 static_assert(kChunk % (kThreads * kVec) == 0, "a chunk is whole sweeps");
 
-// A launch's tensors: kLists lists (Adam: p, g, mu, nu; lerp: target, src)
-// of `tensors` tensors each, their sizes and the prefix table of their chunks
+// A launch's tensors: kLists lists (Adam: p, g, mu, nu, copy; lerp: target,
+// src, copy; the refresh: copy, src) of `tensors` tensors each, their sizes,
+// the prefix table of their chunks and whether each gradient is bfloat16. A
+// copy's address is null where the tensor has none.
 template <int kLists, int kMax>
 struct Table {
   void* x[kLists][kMax];
   int64_t n[kMax];
   int chunk_end[kMax];  // chunks of tensors 0..i
+  unsigned char g_bf16[kMax];  // Adam: the gradient x[1][i] is bfloat16
   int tensors;
 
   // the chunk c's tensor k and its elements [start, end) of that tensor
@@ -90,8 +105,9 @@ struct Table {
   }
 };
 
-using AdamTable = Table<4, kAdamMaxTensors>;
-using LerpTable = Table<2, kLerpMaxTensors>;
+using AdamTable = Table<5, kAdamMaxTensors>;
+using LerpTable = Table<3, kLerpMaxTensors>;
+using CastTable = Table<2, kLerpMaxTensors>;
 
 struct AdamArgs {
   int* count;      // the step count (int32, device memory)
@@ -104,12 +120,10 @@ __device__ __forceinline__ bool aligned(const void* x, int bytes) {
   return (reinterpret_cast<uintptr_t>(x) & (bytes - 1)) == 0;
 }
 
-// mu's dtype: its load, store and the decayed moment b1 * mu rounded in it
-template <typename MuT> struct Mu;
-
-template <> struct Mu<float> {
+// Loads and stores of float32 and bfloat16 tensors in float32 registers: one
+// element, or 4 from a 16-byte (float32) or 8-byte (bfloat16) aligned address
+struct F32 {
   static constexpr int kVecBytes = 16;
-  __device__ static float decay(float mu, float b1) { return __fmul_rn(mu, b1); }
   __device__ static float load(const void* base, int64_t i) {
     return static_cast<const float*>(base)[i];
   }
@@ -124,11 +138,8 @@ template <> struct Mu<float> {
   }
 };
 
-template <> struct Mu<__nv_bfloat16> {
+struct Bf16 {
   static constexpr int kVecBytes = 8;
-  __device__ static float decay(float mu, float b1) {
-    return __bfloat162float(__float2bfloat16_rn(__fmul_rn(mu, b1)));
-  }
   __device__ static float load(const void* base, int64_t i) {
     return __bfloat162float(static_cast<const __nv_bfloat16*>(base)[i]);
   }
@@ -148,6 +159,29 @@ template <> struct Mu<__nv_bfloat16> {
     *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(base) + i) = raw;
   }
 };
+
+// mu's dtype: its loads and stores, and the decayed moment b1 * mu rounded in it
+template <typename MuT> struct Mu;
+
+template <> struct Mu<float> : F32 {
+  __device__ static float decay(float mu, float b1) { return __fmul_rn(mu, b1); }
+};
+
+template <> struct Mu<__nv_bfloat16> : Bf16 {
+  __device__ static float decay(float mu, float b1) {
+    return __bfloat162float(__float2bfloat16_rn(__fmul_rn(mu, b1)));
+  }
+};
+
+// A gradient of either dtype, widened to float32 (exactly: bfloat16 is
+// float32's upper half)
+__device__ __forceinline__ float4 load4_grad(const void* g, bool bf16, int64_t i) {
+  return bf16 ? Bf16::load4(g, i) : F32::load4(g, i);
+}
+
+__device__ __forceinline__ float load_grad(const void* g, bool bf16, int64_t i) {
+  return bf16 ? Bf16::load(g, i) : F32::load(g, i);
+}
 
 struct AdamStep {
   float neg_lr, b1, b2, c1, c2, eps, bc1, bc2;
@@ -185,11 +219,15 @@ adam_multi_tensor_apply_kernel(const __grid_constant__ AdamTable table, const Ad
     int64_t start, end;
     const int k = table.find(c, start, end);
     float* p = static_cast<float*>(table.x[0][k]);
-    const float* g = static_cast<const float*>(table.x[1][k]);
+    const void* g = table.x[1][k];
     void* mu = table.x[2][k];
     float* nu = static_cast<float*>(table.x[3][k]);
+    void* copy = table.x[4][k];  // the parameter's bfloat16 copy, or null
+    const bool g_bf16 = table.g_bf16[k] != 0;
     int64_t scalar_from = start;
-    if (aligned(p, 16) && aligned(g, 16) && aligned(nu, 16) && aligned(mu, Mu<MuT>::kVecBytes)) {
+    if (aligned(p, 16) && aligned(g, g_bf16 ? Bf16::kVecBytes : F32::kVecBytes)
+        && aligned(nu, 16) && aligned(mu, Mu<MuT>::kVecBytes)
+        && (copy == nullptr || aligned(copy, Bf16::kVecBytes))) {
       const int64_t vec_end = start + (end - start) / kVec * kVec;
       float4 pv[kSweeps], gv[kSweeps], mv[kSweeps], nv[kSweeps];
 #pragma unroll
@@ -197,7 +235,7 @@ adam_multi_tensor_apply_kernel(const __grid_constant__ AdamTable table, const Ad
         const int64_t i = start + (s * kThreads + threadIdx.x) * kVec;
         if (i < vec_end) {
           pv[s] = *reinterpret_cast<const float4*>(p + i);
-          gv[s] = *reinterpret_cast<const float4*>(g + i);
+          gv[s] = load4_grad(g, g_bf16, i);
           mv[s] = Mu<MuT>::load4(mu, i);
           nv[s] = *reinterpret_cast<const float4*>(nu + i);
         }
@@ -213,16 +251,18 @@ adam_multi_tensor_apply_kernel(const __grid_constant__ AdamTable table, const Ad
           *reinterpret_cast<float4*>(p + i) = pv[s];
           Mu<MuT>::store4(mu, i, mv[s]);
           *reinterpret_cast<float4*>(nu + i) = nv[s];
+          if (copy != nullptr) Bf16::store4(copy, i, pv[s]);
         }
       }
       scalar_from = vec_end;
     }
     for (int64_t i = scalar_from + threadIdx.x; i < end; i += kThreads) {
       float pi = p[i], mi = Mu<MuT>::load(mu, i), ni = nu[i];
-      op.apply<MuT>(pi, g[i], mi, ni);
+      op.apply<MuT>(pi, load_grad(g, g_bf16, i), mi, ni);
       p[i] = pi;
       Mu<MuT>::store(mu, i, mi);
       nu[i] = ni;
+      if (copy != nullptr) Bf16::store(copy, i, pi);
     }
   }
   if (args.advance && threadIdx.x == 0) {
@@ -254,8 +294,10 @@ lerp_multi_tensor_apply_kernel(const __grid_constant__ LerpTable table, const fl
     const int k = table.find(c, start, end);
     float* t = static_cast<float*>(table.x[0][k]);
     const float* x = static_cast<const float*>(table.x[1][k]);
+    void* copy = table.x[2][k];  // the target's bfloat16 copy, or null
     int64_t scalar_from = start;
-    if (aligned(t, 16) && aligned(x, 16)) {
+    if (aligned(t, 16) && aligned(x, 16)
+        && (copy == nullptr || aligned(copy, Bf16::kVecBytes))) {
       const int64_t vec_end = start + (end - start) / kVec * kVec;
       float4 tv[kSweeps], xv[kSweeps];
 #pragma unroll
@@ -276,12 +318,40 @@ lerp_multi_tensor_apply_kernel(const __grid_constant__ LerpTable table, const fl
           r.z = lerp_one(tv[s].z, xv[s].z, w, one_minus_w, small);
           r.w = lerp_one(tv[s].w, xv[s].w, w, one_minus_w, small);
           *reinterpret_cast<float4*>(t + i) = r;
+          if (copy != nullptr) Bf16::store4(copy, i, r);
         }
       }
       scalar_from = vec_end;
     }
     for (int64_t i = scalar_from + threadIdx.x; i < end; i += kThreads) {
-      t[i] = lerp_one(t[i], x[i], w, one_minus_w, small);
+      const float r = lerp_one(t[i], x[i], w, one_minus_w, small);
+      t[i] = r;
+      if (copy != nullptr) Bf16::store(copy, i, r);
+    }
+  }
+}
+
+// copy[i] <- bfloat16(src[i]) over a launch's tensors: a refresh of the
+// copies of parameters written by something other than the two kernels above
+__global__ void __launch_bounds__(kThreads)
+bf16_copy_refresh_kernel(const __grid_constant__ CastTable table) {
+  for (int c = blockIdx.x; c < table.chunks(); c += gridDim.x) {
+    int64_t start, end;
+    const int k = table.find(c, start, end);
+    void* copy = table.x[0][k];
+    const void* src = table.x[1][k];
+    int64_t scalar_from = start;
+    if (aligned(copy, Bf16::kVecBytes) && aligned(src, F32::kVecBytes)) {
+      const int64_t vec_end = start + (end - start) / kVec * kVec;
+#pragma unroll
+      for (int s = 0; s < kSweeps; ++s) {
+        const int64_t i = start + (s * kThreads + threadIdx.x) * kVec;
+        if (i < vec_end) Bf16::store4(copy, i, F32::load4(src, i));
+      }
+      scalar_from = vec_end;
+    }
+    for (int64_t i = scalar_from + threadIdx.x; i < end; i += kThreads) {
+      Bf16::store(copy, i, F32::load(src, i));
     }
   }
 }
@@ -289,7 +359,8 @@ lerp_multi_tensor_apply_kernel(const __grid_constant__ LerpTable table, const fl
 // The launch's table from the lists' addresses and the sizes: the number of
 // chunks, or -1 for a negative size or more chunks than an int counts.
 template <typename T, int kLists>
-int fill(T& table, int tensors, void* const* const (&lists)[kLists], const long long* n) {
+int fill(T& table, int tensors, void* const* const (&lists)[kLists], const long long* n,
+         const unsigned char* g_bf16 = nullptr) {
   table.tensors = tensors;
   long long chunks = 0;
   for (int i = 0; i < tensors; ++i) {
@@ -298,7 +369,8 @@ int fill(T& table, int tensors, void* const* const (&lists)[kLists], const long 
     if (chunks > INT_MAX) return -1;
     table.n[i] = n[i];
     table.chunk_end[i] = static_cast<int>(chunks);
-    for (int l = 0; l < kLists; ++l) table.x[l][i] = lists[l][i];
+    table.g_bf16[i] = g_bf16 != nullptr ? g_bf16[i] : 0;
+    for (int l = 0; l < kLists; ++l) table.x[l][i] = lists[l] != nullptr ? lists[l][i] : nullptr;
   }
   return static_cast<int>(chunks);
 }
@@ -335,23 +407,24 @@ int launch(void (*kernel)(T, Args...), int* cap, int chunks, cudaStream_t stream
 
 extern "C" {
 
-// The most tensors one launch takes: kernel 0 Adam, 1 lerp.
+// The most tensors one launch takes: kernel 0 Adam, 1 lerp, 2 the refresh.
 int optim_max_tensors(int kernel) { return kernel == 0 ? kAdamMaxTensors : kLerpMaxTensors; }
 
-// One Adam launch over `tensors` tensors (float32 p, g, nu; mu float32, or
-// bfloat16 where mu_bf16 != 0; each contiguous with n[i] elements).
-// advance != 0 on the step's last launch: its last block stores count + 1.
-// count is int32 and ticket uint32 in device memory, the ticket 0 between
-// launches.
+// One Adam launch over `tensors` tensors (float32 p, nu; g float32, or
+// bfloat16 where g_bf16[i] != 0; mu float32, or bfloat16 where mu_bf16 != 0;
+// copy bfloat16 or null, written with the new p where not null; each
+// contiguous with n[i] elements). advance != 0 on the step's last launch: its
+// last block stores count + 1. count is int32 and ticket uint32 in device
+// memory, the ticket 0 between launches.
 int optim_adam(int mu_bf16, int tensors, void* const* p, void* const* g, void* const* mu,
-               void* const* nu, const long long* n, float neg_lr, float b1, float b2,
-               float c1, float c2, float eps, void* count, void* ticket, int advance,
-               void* stream) {
+               void* const* nu, void* const* copy, const unsigned char* g_bf16,
+               const long long* n, float neg_lr, float b1, float b2, float c1, float c2,
+               float eps, void* count, void* ticket, int advance, void* stream) {
   static int cap_f32 = 0, cap_bf16 = 0;
   if (tensors < 0 || tensors > kAdamMaxTensors) return static_cast<int>(cudaErrorInvalidValue);
   AdamTable table;
-  void* const* const lists[4] = {p, g, mu, nu};
-  const int chunks = fill(table, tensors, lists, n);
+  void* const* const lists[5] = {p, g, mu, nu, copy};
+  const int chunks = fill(table, tensors, lists, n, g_bf16);
   const AdamArgs args{static_cast<int*>(count), static_cast<unsigned*>(ticket), neg_lr, b1,
                       b2, c1, c2, eps, advance};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -361,16 +434,30 @@ int optim_adam(int mu_bf16, int tensors, void* const* p, void* const* g, void* c
 }
 
 // target[i] <- lerp(target[i], src[i], weight) over `tensors` float32
-// tensors, contiguous, with n[i] elements.
-int optim_lerp(int tensors, void* const* target, void* const* src, const long long* n,
-               float weight, void* stream) {
+// tensors, contiguous, with n[i] elements; copy[i] (bfloat16, or null) <- the
+// new target[i]. copy itself may be null: no tensor has a copy.
+int optim_lerp(int tensors, void* const* target, void* const* src, void* const* copy,
+               const long long* n, float weight, void* stream) {
   static int cap = 0;
   if (tensors < 0 || tensors > kLerpMaxTensors) return static_cast<int>(cudaErrorInvalidValue);
   LerpTable table;
-  void* const* const lists[2] = {target, src};
+  void* const* const lists[3] = {target, src, copy};
   const int chunks = fill(table, tensors, lists, n);
   return launch(lerp_multi_tensor_apply_kernel, &cap, chunks,
                 static_cast<cudaStream_t>(stream), table, weight);
+}
+
+// copy[i] (bfloat16) <- src[i] (float32) over `tensors` contiguous tensors
+// with n[i] elements.
+int optim_cast(int tensors, void* const* copy, void* const* src, const long long* n,
+               void* stream) {
+  static int cap = 0;
+  if (tensors < 0 || tensors > kLerpMaxTensors) return static_cast<int>(cudaErrorInvalidValue);
+  CastTable table;
+  void* const* const lists[2] = {copy, src};
+  const int chunks = fill(table, tensors, lists, n);
+  return launch(bf16_copy_refresh_kernel, &cap, chunks, static_cast<cudaStream_t>(stream),
+                table);
 }
 
 }  // extern "C"

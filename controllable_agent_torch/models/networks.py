@@ -10,6 +10,14 @@ Conventions kept from the JAX package:
   * parameters stay float32 while ``dtype=torch.bfloat16`` runs the layers
     under ``torch.autocast``, so the matmuls run in bf16 and the networks
     return bf16;
+  * such a network's ``Dense`` layers keep bf16 compute copies of their
+    weight and bias (``optim.Bf16Copy``) and run ``F.linear`` on them, so
+    autocast finds both already bf16 and casts neither at a use; the copies
+    take the layers' gradients (bf16), which ``optim.Adam`` reads, and Adam
+    and the soft-update write them with the parameters. They are not
+    parameters or buffers: not in ``parameters()`` or ``state_dict()``.
+    Activations are cast and LayerNorm runs in float32 as autocast does;
+    a float32 network keeps no copy;
   * submodule names follow flax's creation-order names (each network keeps
     its MLPs in ``mlps[i]`` for flax's ``MLP_i``; an MLP registers its
     layers as ``Dense_k`` / ``LayerNorm_k``), so ``convert.py`` maps a flax
@@ -23,7 +31,10 @@ import math
 import typing as tp
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+from .. import optim
 
 Layer = tp.Union[int, str]
 
@@ -42,6 +53,47 @@ def _autocast(dtype: torch.dtype, device: torch.device) -> tp.ContextManager:
     if dtype == torch.float32:
         return contextlib.nullcontext()
     return torch.autocast(device_type=device.type, dtype=dtype)
+
+
+class Dense(nn.Linear):
+    """``nn.Linear`` that, in a network computing in bfloat16 with float32
+    parameters, holds bfloat16 compute copies of its weight and bias
+    (``bf16``, an ``optim.Bf16Copy`` each) and computes ``F.linear`` on them.
+    The copies follow the parameters: after a move (``.to``) each copy is
+    the same ``Bf16Copy``, its tensor allocated anew only where the device
+    changed, stale until the next use refreshes it; a parameter written in
+    place makes its copy stale too (``Bf16Copy.stale``). Every use checks,
+    and refreshes what is stale."""
+
+    def __init__(self, in_features: int, out_features: int) -> None:
+        super().__init__(in_features, out_features)
+        self.compute_dtype = torch.float32
+        self.bf16: tp.Optional[tp.List[optim.Bf16Copy]] = None
+
+    def compute_in(self, dtype: torch.dtype) -> None:
+        """Run in ``dtype``: with copies where it is bfloat16 and the
+        parameters are float32, without where not."""
+        self.compute_dtype = dtype
+        params = [p for p in (self.weight, self.bias) if p is not None]
+        keep = dtype == torch.bfloat16 and all(p.dtype == torch.float32 for p in params)
+        if not keep:
+            self.bf16 = None
+        elif self.bf16 is None:
+            self.bf16 = [optim.Bf16Copy(p) for p in params]
+        else:
+            for c, p in zip(self.bf16, params):
+                c.follow(p)
+
+    def _apply(self, fn: tp.Any, recurse: bool = True) -> "Dense":
+        super()._apply(fn, recurse)
+        self.compute_in(self.compute_dtype)
+        return self
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.bf16 is None:
+            return super().forward(x)
+        weight, *bias = optim.use_copies(self.bf16)
+        return F.linear(x, weight, bias[0] if bias else None)
 
 
 class MLP(nn.Module):
@@ -68,7 +120,7 @@ class MLP(nn.Module):
                     raise ValueError(f"Unknown non-linearity {layer}")
             else:
                 name = f"Dense_{n_dense}"
-                linear = nn.Linear(dim, int(layer))
+                linear = Dense(dim, int(layer))
                 nn.init.orthogonal_(linear.weight)
                 nn.init.zeros_(linear.bias)
                 self.add_module(name, linear)
@@ -95,12 +147,16 @@ class MLP(nn.Module):
 
 class _Net(nn.Module):
     """Base of the networks: holds the MLPs in flax creation order and the
-    compute dtype."""
+    compute dtype, which its ``Dense`` layers take (with bf16 copies of
+    their weights where it is bfloat16)."""
 
     def __init__(self, mlps: tp.Sequence[MLP], dtype: torch.dtype) -> None:
         super().__init__()
         self.mlps = nn.ModuleList(mlps)
         self.dtype = dtype
+        for m in self.modules():
+            if isinstance(m, Dense):
+                m.compute_in(dtype)
 
     def _compute(self, x: torch.Tensor) -> tp.ContextManager:
         return _autocast(self.dtype, x.device)

@@ -13,8 +13,8 @@ faster):
   full    the trainer's update: sample, z, the FB and actor losses, their
           gradients, Adam and the target soft-updates (``OfflineTrainer``)
   fwdbwd  sample, ``_build_train_z``, ``_fb_loss`` and ``_actor_loss`` with
-          ``torch.autograd.grad``; the gradients' summed |g| goes into an
-          accumulator (no optimizer, no target update)
+          ``torch.autograd.grad`` by the optimizers' ``leaves``; the gradients'
+          summed |g| goes into an accumulator (no optimizer, no target update)
   opt     the three Adam steps on gradients fixed at 1e-9 x the parameters,
           and the soft-updates of both targets
 
@@ -86,18 +86,23 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> tp.Dict[str, float]:
     # fwdbwd: the losses and their gradients, summed into an accumulator
     gen = torch.Generator(device=device).manual_seed(2)
     acc = torch.zeros((), device=device)
-    fb_params = list(agent.fw_opt.params.values()) + list(agent.bw_opt.params.values())
-    actor_params = list(agent.actor_opt.params.values())
+    fb_leaves = agent.fw_opt.leaves + agent.bw_opt.leaves
+    actor_leaves = agent.actor_opt.leaves
 
     def fwdbwd() -> None:
         batch = replay_lib.sample(buf.state, gen, cfg.batch_size, buf.cfg)
         noise = UpdateNoise.draw(cfg, cfg.batch_size, agent.action_dim, gen, device)
         z = agent._build_train_z(batch, noise)
         fb_loss, _ = agent._fb_loss(batch, z, batch.next_obs, noise.next_action_normal)
-        grads = torch.autograd.grad(fb_loss, fb_params)
+        grads = torch.autograd.grad(fb_loss, fb_leaves)
         actor_loss, _ = agent._actor_loss(batch.obs, z, noise.actor_normal)
-        grads += torch.autograd.grad(actor_loss, actor_params)
-        acc.add_(torch.stack(torch._foreach_norm(list(grads), 1)).sum())
+        grads += torch.autograd.grad(actor_loss, actor_leaves)
+        # one _foreach_norm a dtype (bf16: the Linear layers' copies, float32: the
+        # rest); over mixed dtypes it would take one kernel a tensor
+        for dtype in (torch.bfloat16, torch.float32):
+            part = [g for g in grads if g.dtype == dtype]
+            if part:
+                acc.add_(torch.stack(torch._foreach_norm(part, 1)).sum())
 
     fwdbwd_us = per_update_us(replayed(fwdbwd, device, args.steps, [acc], [gen], acc))
 

@@ -118,10 +118,13 @@ class Shard:
         rows, or a sum of both; the global loss is the mean of the parts over
         the group. Each part is differentiated at ``share`` and the gradients
         summed over the group (a parameter that the loss does not reach, with
-        ``materialize_grads``, keeps a zero gradient)."""
+        ``materialize_grads``, keeps a zero gradient). The gradient of a
+        bfloat16 compute copy (``optim.Adam.leaves``) is summed in float32,
+        widened first as autocast's cast widened it."""
         if self.group is None:
             return list(torch.autograd.grad(loss, params, **kwargs))
-        return self.sum(torch.autograd.grad(loss * self.share, params, **kwargs))
+        grads = torch.autograd.grad(loss * self.share, params, **kwargs)
+        return self.sum([g.float() if g.dtype == torch.bfloat16 else g for g in grads])
 
     def mean(self, local_means: tp.Mapping[str, Tensor]) -> tp.Dict[str, Tensor]:
         """Means over this process's rows -> means over the global batch, on

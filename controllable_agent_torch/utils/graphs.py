@@ -31,6 +31,8 @@ WARMUP_RUNS = 2
 _counted: tp.List[tp.Dict[str, int]] = [trace.counters]
 # the program being captured, if any (a capture does not nest)
 _capturing: tp.List["CapturedProgram"] = []
+# the program being built, from its first warm-up run to the end of its capture
+_building: tp.List["CapturedProgram"] = []
 # one side stream per device for every warm-up and capture: cuBLAS keeps a
 # workspace for each stream it has run on, so a new stream per program would
 # hold tens of MiB more for every program built
@@ -74,6 +76,17 @@ def count_replay(counts: tp.Dict[str, int], held: tp.Mapping[str, int], times: i
         counts[name] += count * times
 
 
+def keep_fresh(data: tp.Any) -> None:
+    """Hand ``data`` to the program being built, if any: data that the
+    program reads and that code outside it may leave stale between replays
+    (a parameter's bfloat16 compute copy, ``optim.Bf16Copy``). It
+    has ``stale()``, and ``type(data).refresh(items)`` brings the stale ones
+    of a list up to date. The program refreshes what it was handed after its
+    warm-up runs are undone, before its capture, and before each replay."""
+    if _building:
+        _building[-1]._fresh.setdefault(id(data), data)
+
+
 def eager_step(fn: tp.Callable[[], torch.Tensor]) -> torch.Tensor:
     """``fn()``, run eagerly between the graphs of the program being
     captured (outside a capture: just ``fn()``). ``fn`` reads tensors that
@@ -109,6 +122,11 @@ class CapturedProgram:
     and are always replayed in capture order. ``warmup_runs`` is at least 1.
     A failure to capture raises.
 
+    What ``fn`` hands to ``keep_fresh`` while the program is built is
+    refreshed eagerly whenever the warm-up's or a split's changes have been
+    put back, and before each ``replay`` call: a copy that code outside the
+    program left stale is never read by a replay.
+
     Each build is recorded (``trace.captures()``) under ``name``: its
     seconds from the first warm-up run to the end of the capture, the bytes
     the allocator reserved for its graphs, and the device spans' marks one
@@ -135,48 +153,61 @@ class CapturedProgram:
             for g, before in zip(self._generators, gen_states):
                 g.set_state(before)
 
+        # what fn reads that code outside the program may leave stale (keep_fresh)
+        self._fresh: tp.Dict[int, tp.Any] = {}
         side = _side_stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            for _ in range(warmup_runs):
-                fn()
-        torch.cuda.current_stream(device).wait_stream(side)
-        restore()
-        self.graphs: tp.List[torch.cuda.CUDAGraph] = []
-        # (fn, the tensor the next graph reads) of each eager step, in order
-        self.steps: tp.List[tp.Tuple[tp.Callable[[], torch.Tensor], torch.Tensor]] = []
-        self._pool: tp.Any = None
-        self._open = False  # whether a graph is being captured
-        torch.cuda.synchronize(device)
-        gc.collect()
-        torch.cuda.empty_cache()
-        reserved, marks = torch.cuda.memory_reserved(device), trace.marks_launched()
-        _capturing.append(self)
+        _building.append(self)
         try:
-            with contextlib.ExitStack() as holding, torch.cuda.stream(side):
-                # (counts, the launches one replay makes) of each counted wrapper
-                self.held = [(counts, holding.enter_context(held_by_capture(counts)))
-                             for counts in _counted]
-                self._begin()
-                try:
-                    self.out = fn()
-                except BaseException:
-                    # end the capture, but raise fn's error, not the invalid capture's
+            side.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(side):
+                for _ in range(warmup_runs):
+                    fn()
+            torch.cuda.current_stream(device).wait_stream(side)
+            restore()
+            self._refresh()
+            self.graphs: tp.List[torch.cuda.CUDAGraph] = []
+            # (fn, the tensor the next graph reads) of each eager step, in order
+            self.steps: tp.List[tp.Tuple[tp.Callable[[], torch.Tensor], torch.Tensor]] = []
+            self._pool: tp.Any = None
+            self._open = False  # whether a graph is being captured
+            torch.cuda.synchronize(device)
+            gc.collect()
+            torch.cuda.empty_cache()
+            reserved, marks = torch.cuda.memory_reserved(device), trace.marks_launched()
+            _capturing.append(self)
+            try:
+                with contextlib.ExitStack() as holding, torch.cuda.stream(side):
+                    # (counts, the launches one replay makes) of each counted wrapper
+                    self.held = [(counts, holding.enter_context(held_by_capture(counts)))
+                                 for counts in _counted]
+                    self._begin()
                     try:
-                        self._end()
-                    except RuntimeError:
-                        pass
-                    raise
-                self._end()
+                        self.out = fn()
+                    except BaseException:
+                        # end the capture, but raise fn's error, not the invalid capture's
+                        try:
+                            self._end()
+                        except RuntimeError:
+                            pass
+                        raise
+                    self._end()
+            finally:
+                _capturing.pop()
         finally:
-            _capturing.pop()
+            _building.pop()
         if self.steps:
             torch.cuda.synchronize(device)
             restore()
+            self._refresh()
         self.record = trace.Capture(
             name, time.perf_counter() - started, torch.cuda.memory_reserved(device) - reserved,
             trace.marks_launched() - marks)
         trace.record_capture(self.record)
+
+    def _refresh(self) -> None:
+        stale = [data for data in self._fresh.values() if data.stale()]
+        if stale:
+            type(stale[0]).refresh(stale)
 
     def _begin(self) -> None:
         graph = torch.cuda.CUDAGraph()
@@ -203,6 +234,7 @@ class CapturedProgram:
         return out
 
     def replay(self, times: int = 1) -> None:
+        self._refresh()
         for _ in range(times):
             for i, graph in enumerate(self.graphs):
                 with trace.span("graph_replay"):

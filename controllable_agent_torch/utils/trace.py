@@ -31,7 +31,11 @@ replay of it runs.
 
 ``counters`` holds the program's counts of work by name, advanced on the
 host where the work is issued (``count``), whether tracing is on or off:
-``physics3d.substeps``, the 3-D engine's substeps (``envs/physics3d.py:step``).
+``physics3d.substeps``, the 3-D engine's substeps (``envs/physics3d.py:step``);
+``bf16_copy.uses``, the ``Linear`` calls of a bfloat16 network served from
+its layers' bfloat16 copies of their weights (``models/networks.py:Dense``);
+``bf16_copy.refreshes``, the casts that brought stale copies up to date
+outside Adam and the soft-update (``optim.py:Bf16Copy.refresh``).
 A capture holds back what it records and each replay adds it again
 (``utils/graphs.py``), as the kernel wrappers' launch counts are.
 """
@@ -63,7 +67,8 @@ class Capture(tp.NamedTuple):
 
 _captures: tp.List[Capture] = []
 
-counters: tp.Dict[str, int] = {"physics3d.substeps": 0}
+counters: tp.Dict[str, int] = {"physics3d.substeps": 0, "bf16_copy.uses": 0,
+                               "bf16_copy.refreshes": 0}
 
 
 def count(name: str, n: int = 1) -> None:

@@ -18,8 +18,13 @@ def soft_update(module: nn.Module, target: nn.Module, tau: float) -> None:
     in one ``optim.lerp_``: ``torch._foreach_lerp_``, or on a card one launch
     of the multi-tensor lerp kernel. No second copy of the target net is
     allocated per step, and the step costs one launch instead of one per
-    parameter. It is the device span ``optimizer`` (``utils/trace.py``).
+    parameter. The target's bfloat16 compute copies, where its layers keep
+    them (``optim.Bf16Copy``), are written in the same pass. It is the
+    device span ``optimizer`` (``utils/trace.py``).
     """
     params = list(module.parameters())
+    targets = list(target.parameters())
+    copies = optim.copies_of(target, targets)
     with trace.device_span("optimizer", params[0].device):
-        optim.lerp_(list(target.parameters()), params, tau)
+        optim.lerp_(targets, params, tau, optim.step_copies(copies))
+    optim.mark_written(copies)

@@ -25,7 +25,7 @@ from controllable_agent_torch.envs import (build_gridworld_task, gridworld, jaco
 from controllable_agent_torch.envs.pixels import make_pixel_env
 from controllable_agent_torch.envs.wrappers import (ActionRepeatWrapper, FrameStackWrapper,
                                                     StatefulEnv)
-from controllable_agent_torch.models.networks import PixelEncoder
+from controllable_agent_torch.models.networks import Dense, PixelEncoder
 from controllable_agent_torch.goals import get_reward_function
 from controllable_agent_torch.ops import fused_fb as ff
 from controllable_agent_torch.ops.linalg import lstsq
@@ -1146,7 +1146,7 @@ def test_fused_soft_update_equals_foreach_lerp_to_the_bit(cuda_device, tau, capt
 def test_lists_longer_than_an_argument_block_split_and_stay_exact(cuda_device) -> None:
     """150 tensors of 0 to 5,000 elements (and one of 300,000): Adam takes
     three launches a step (64 + 64 + 22 tensors) and advances the count
-    once; the soft-update two (128 + 22); both equal the _foreach versions
+    once; the soft-update two (96 + 54); both equal the _foreach versions
     to the bit."""
     rng = np.random.RandomState(0)
     sizes = tuple(int(n) for n in rng.randint(0, 5001, 150))
@@ -1184,7 +1184,7 @@ def test_lists_longer_than_an_argument_block_split_and_stay_exact(cuda_device) -
 def test_lerp_kernel_covers_every_element_once(cuda_device, seed) -> None:
     """One soft-update at weight 0.5 from 0 towards 1 leaves every element
     at 0.5: an element no block took stays 0 and one taken twice reads
-    0.75. 300 tensors of 0 to 9,000 elements (one of 2,000,000) over three
+    0.75. 300 tensors of 0 to 9,000 elements (one of 2,000,000) over four
     launches, the blocks mapped to (tensor, chunk) by the kernel's table."""
     rng = np.random.RandomState(seed)
     sizes = [int(n) for n in rng.randint(0, 9001, 300)]
@@ -1251,6 +1251,197 @@ def test_every_optimizer_step_of_an_update_goes_through_the_kernels(cuda_device)
     runs = WARMUP_RUNS + 8
     assert optim.launches == {"adam": 3 * runs, "lerp": 2 * runs}
     assert ff.launches == {"fwd": runs, "bwd": runs}
+
+
+# -- bf16 compute copies: the kernels' copies, the launches and uses of an update --
+COPY_OF = (True, False, True, True, False)  # which of OPTIM_SIZES have a copy and a bf16 g
+
+
+def _mixed_grads(grads):
+    """``grads``' gradients, bf16 where the tensor has a copy: views into
+    one flat bf16 tensor at the same offsets (misaligned as the float32
+    ones), made by one cast (in the graph's pool inside a capture)."""
+    flat = grads.src * grads.scale
+    half = flat.bfloat16()
+    return [(half if bf16 else flat)[s:s + n]
+            for s, n, bf16 in zip(grads.starts, grads.sizes, COPY_OF)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("captured", [False, True], ids=["eager", "captured"])
+@pytest.mark.parametrize("mu_dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_fused_adam_takes_bf16_gradients_and_writes_copies(cuda_device, mu_dtype,
+                                                           captured) -> None:
+    """100 steps of the Adam kernel with bf16 gradients and copies on three
+    of five tensors (misaligned, as the others) against ``adam_plain`` on
+    the gradients widened by ``.float()``: p, mu, nu and the count equal to
+    the bit, and each copy equal to ``.to(torch.bfloat16)`` of its new
+    parameter, eagerly and as replays of one captured step; one launch a
+    step."""
+    kernel = _adam_state(OPTIM_SIZES, OPTIM_OFFSETS, mu_dtype, cuda_device)
+    plain = [[x.clone() for x in xs] for xs in kernel[:3]] + [kernel[3].clone()]
+    copies = [c if has else None for c, has in zip(
+        _misaligned(OPTIM_SIZES, OPTIM_OFFSETS[::-1], cuda_device, dtype=torch.bfloat16),
+        COPY_OF)]
+    grads = _Grads(OPTIM_SIZES, OPTIM_OFFSETS, cuda_device, seed=6)
+    params, mus, nus, count, ticket = kernel
+    step = lambda: optim.adam(params, _mixed_grads(grads), mus, nus, count, ticket,  # noqa: E731
+                              LR, B1, B2, EPS, copies)
+    program = None
+    if captured:
+        grads.draw()
+        program = CapturedProgram(step, cuda_device, [*params, *mus, *nus, count])
+    before = dict(optim.launches)
+    for i in range(1, 101):
+        grads.draw()
+        step() if program is None else program.replay()
+        optim.adam_plain(plain[0], [g.float() for g in _mixed_grads(grads)], plain[1],
+                         plain[2], plain[3], LR, B1, B2, EPS)
+        if i % 25 == 0:
+            torch.cuda.synchronize()
+            for name, got, want in zip(("p", "mu", "nu"), kernel[:3], plain[:3]):
+                _assert_bitwise(got, want, f"{name} at step {i}")
+            _assert_bitwise([c for c in copies if c is not None],
+                            [p.bfloat16() for p, c in zip(params, copies) if c is not None],
+                            f"copy at step {i}")
+            assert int(count) == int(plain[3]) == i and int(ticket) == 0
+    assert optim.launches == {"adam": before["adam"] + 100, "lerp": before["lerp"]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("captured", [False, True], ids=["eager", "captured"])
+def test_fused_soft_update_writes_the_targets_copies(cuda_device, captured) -> None:
+    """100 soft-updates by the lerp kernel with copies on three of five
+    targets: the targets equal ``torch._foreach_lerp_``'s to the bit and
+    each copy ``.to(torch.bfloat16)`` of its new target; one launch each."""
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    targets = _misaligned(OPTIM_SIZES, OPTIM_OFFSETS, cuda_device, fill="randn", gen=gen)
+    sources = _misaligned(OPTIM_SIZES, OPTIM_OFFSETS[::-1], cuda_device, fill="randn", gen=gen)
+    copies = [c if has else None for c, has in zip(
+        _misaligned(OPTIM_SIZES, (1, 0, 2, 3, 0), cuda_device, dtype=torch.bfloat16), COPY_OF)]
+    twin = [t.clone() for t in targets]
+    step = lambda: optim.lerp_(targets, sources, 0.01, copies)  # noqa: E731
+    program = CapturedProgram(step, cuda_device, targets) if captured else None
+    before = dict(optim.launches)
+    for i in range(1, 101):
+        for s in sources:
+            s.normal_(generator=gen)
+        step() if program is None else program.replay()
+        torch._foreach_lerp_(twin, sources, 0.01)
+    torch.cuda.synchronize()
+    _assert_bitwise(targets, twin, "target")
+    _assert_bitwise([c for c in copies if c is not None],
+                    [t.bfloat16() for t, c in zip(twin, copies) if c is not None], "copy")
+    assert optim.launches == {"adam": before["adam"], "lerp": before["lerp"] + 100}
+
+
+@pytest.mark.cuda
+def test_the_refresh_kernel_casts_as_to_bfloat16(cuda_device) -> None:
+    """``optim.cast_``, one launch of ``bf16_copy_refresh_kernel`` a list:
+    equal to ``.to(torch.bfloat16)`` to the bit over misaligned tensors and
+    150 small ones (two launches, each counted in ``bf16_copy.refreshes``),
+    ties to even, signed zeros, infinities, subnormals and the largest
+    finite values included."""
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    sources = _misaligned(OPTIM_SIZES, OPTIM_OFFSETS, cuda_device, fill="randn", gen=gen)
+    special = torch.tensor([1.0 + 2.0 ** -8, 1.0 + 3 * 2.0 ** -8, -0.0, float("inf"),
+                            -float("inf"), 1e-40, -3e-39, 3.389e38, -3.4e38, 65504.0],
+                           device=cuda_device)
+    sources[2][:special.numel()] = special
+    rng = np.random.RandomState(9)
+    sources += [torch.randn(int(n), device=cuda_device, generator=gen) * 10.0 ** (i % 7 - 3)
+                for i, n in enumerate(rng.randint(0, 3000, 150))]
+    copies = [torch.empty_like(s, dtype=torch.bfloat16) for s in sources]
+    before = trace.counters["bf16_copy.refreshes"]
+    optim.cast_(copies, sources)
+    torch.cuda.synchronize()
+    assert trace.counters["bf16_copy.refreshes"] - before == 2
+    _assert_bitwise(copies, [s.bfloat16() for s in sources], "copy")
+
+
+@pytest.mark.cuda
+def test_a_bf16_gradient_without_a_copy_is_refused_on_the_card(cuda_device) -> None:
+    """A bf16 gradient for a parameter with no copy, or a copy of another
+    dtype: a ``ValueError`` naming it, nothing launched, nothing changed."""
+    net = torch.nn.Sequential(torch.nn.Linear(5, 7), torch.nn.Linear(7, 3)).to(cuda_device)
+    opt = optim.Adam(net, 1e-3, torch.bfloat16)
+    grads = [torch.randn_like(p) for p in opt.params.values()]
+    grads[1] = grads[1].bfloat16()
+    before, params = dict(optim.launches), [p.clone() for p in opt.params.values()]
+    with pytest.raises(ValueError, match=r"adam: grads\[1\] is torch.bfloat16 and params\[1\] "
+                                         r"has no bfloat16 copy"):
+        opt.step(grads)
+    targets = [torch.zeros(4, device=cuda_device)]
+    with pytest.raises(ValueError, match=r"lerp: copies\[0\] is torch.float32"):
+        optim.lerp_(targets, [torch.ones(4, device=cuda_device)], 0.01,
+                    [torch.zeros(4, device=cuda_device)])
+    torch.cuda.synchronize()
+    assert optim.launches == before and opt.count == 0
+    _assert_bitwise(list(opt.params.values()), params, "p")
+
+
+def _kernels_per_update(agent, buf, device, steps=4):
+    """Device operations per update in one call of the captured trainer, by
+    the profiler."""
+    gen = torch.Generator(device=device).manual_seed(3)
+    trainer = make_offline_trainer(agent, buf.cfg, 128, steps_per_call=steps)
+    trainer(buf.state, gen)  # the capture
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        trainer(buf.state, gen)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.profiler.kineto_results.events()
+               if str(e.device_type()).endswith("CUDA")]
+    return len(kernels) / steps
+
+
+@pytest.mark.cuda
+def test_a_captured_fb_update_launches_124_fewer_kernels(cuda_device, monkeypatch) -> None:
+    """fb_walker's structure (preprocess, no trunk, mix_ratio 0.5): a
+    captured update on the copies runs exactly 124 device operations fewer
+    than the same update with each Dense layer as ``nn.Linear`` computes it
+    under autocast and its gradients taken by the float32 parameters: 90
+    casts of a weight or a bias at its use (45 Linear calls) and 34 widenings
+    of a gradient (17 Linear layers take one)."""
+    agent, buf = _agent_and_buffer(cuda_device)
+    ours = _kernels_per_update(agent, buf, cuda_device)
+    with monkeypatch.context() as m:
+        m.setattr(Dense, "forward", torch.nn.Linear.forward)
+        m.setattr(optim.Adam, "leaves", property(lambda opt: list(opt.params.values())))
+        m.setattr(optim.Bf16Copy, "refresh", staticmethod(lambda copies: None))
+        autocast_path = _kernels_per_update(*_agent_and_buffer(cuda_device), cuda_device)
+    assert autocast_path - ours == 124, (autocast_path, ours)
+
+
+@pytest.mark.cuda
+def test_copies_are_used_45_times_an_update_6_a_control_step_and_never_refreshed(
+        cuda_device) -> None:
+    """``bf16_copy.uses`` and ``bf16_copy.refreshes`` through the captured
+    FB trainer and the captured collector: 45 uses a replayed update, 6 a
+    replayed control step (the actor's six Linear layers), no refresh over
+    the replays; a checkpoint loaded between calls is refreshed once, before
+    the next replay."""
+    agent, buf = _agent_and_buffer(cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    trainer = make_offline_trainer(agent, buf.cfg, 128, steps_per_call=5)
+    trainer(buf.state, gen)  # the capture
+    counts = dict(trace.counters)
+    trainer(buf.state, gen)
+    assert trace.counters["bf16_copy.uses"] - counts["bf16_copy.uses"] == 5 * 45
+    assert trace.counters["bf16_copy.refreshes"] == counts["bf16_copy.refreshes"]
+    env = pointmass.PointMassMaze("reach_top_left", 8)
+    walker = FBDDPGAgent(agent.cfg, env.spec.obs_dim, env.spec.action_dim,
+                         device=cuda_device, seed=1)
+    collector = EpisodeCollector(env, walker, 4, gen)
+    collector(init_meta_batched(walker, gen, 4), *env.reset(gen, 4), 0)  # the capture
+    counts = dict(trace.counters)
+    collector(init_meta_batched(walker, gen, 4), *env.reset(gen, 4), 0)
+    assert trace.counters["bf16_copy.uses"] - counts["bf16_copy.uses"] == 6 * 8
+    assert trace.counters["bf16_copy.refreshes"] == counts["bf16_copy.refreshes"]
+    agent.load_train_state({k: v.clone() for k, v in agent.train_state().items()})
+    counts = dict(trace.counters)
+    trainer(buf.state, gen)
+    assert trace.counters["bf16_copy.refreshes"] - counts["bf16_copy.refreshes"] == 1
+    assert trace.counters["bf16_copy.uses"] - counts["bf16_copy.uses"] == 5 * 45
 
 
 @pytest.mark.cuda

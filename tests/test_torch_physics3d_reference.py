@@ -145,19 +145,21 @@ def _collector(horizon: int = 4):
 
 def test_substep_counter_through_a_captured_control_step(fake_graphs) -> None:
     """``physics3d.substeps`` counts 8 a ``step`` call: the capture's warm-up
-    steps count, the capture holds its step back, each replay adds 8."""
+    steps count, the capture holds its step back, each replay adds 8. The
+    float32 agent's layers read no bf16 copy."""
     collector, call = _collector(horizon=4)
     trace.reset_counters()
     call()
     program = collector._program
     held = dict(next(h for counts, h in program.held if counts is trace.counters))
-    assert held == {"physics3d.substeps": 8}
+    assert held == {"physics3d.substeps": 8, "bf16_copy.uses": 0, "bf16_copy.refreshes": 0}
     assert trace.counters["physics3d.substeps"] == 8 * (WARMUP_RUNS + 4)
     call()  # replays of the same capture
     assert collector._program is program
     assert trace.counters["physics3d.substeps"] == 8 * (WARMUP_RUNS + 8)
     trace.reset_counters()
-    assert trace.counters == {"physics3d.substeps": 0}
+    assert trace.counters == {"physics3d.substeps": 0, "bf16_copy.uses": 0,
+                              "bf16_copy.refreshes": 0}
 
 
 def _profiled(fn):
