@@ -5,9 +5,11 @@
     python3 chip_smoke.py --phases 4,11,21
 
 Drives ``controllable_agent_torch`` (and nothing of the JAX package) in
-thirty-six phases, each printed on its own lines with its seconds; any
-failure exits non-zero. A selection always builds the kernels (phase 1),
-and builds the least of what its phases read from earlier ones: phase 4's
+thirty-five phases, numbered 1-33, 35 and 36, each printed on its own lines
+with its seconds; any failure exits non-zero. Phase 34, the port's first
+benchmark harness, was removed with its tools (``perfbench/`` times the
+port): a selection that names it is refused. A selection always builds the
+kernels (phase 1), and builds the least of what its phases read from earlier ones: phase 4's
 workspace for phases 5-11 and its folder for phase 31 (by running phase 4), its episodes on disk for
 phases 15, 30 and 32, phase 2's errors for phase 5, FB's captured updates/s (phase 4's,
 else a short run at its geometry) for phases 14, 18 and 24-26, a fresh
@@ -269,15 +271,6 @@ running phase 15), one collected quadruped cycle for phase 22. The phases:
      each act deterministic; (d) where ``importlib.util.find_spec`` finds
      dm_control, the host loops too (3 collected episodes, 2 evaluation
      episodes per task); else a line naming the missing package;
- 34. the port's benchmark harness at full width with fewer calls: ``tools/bench.py``
-     (one round of 5 calls of 200 updates; its JSON line), ``tools/bench_roofline.py``
-     (batch 1024, one round of 5 calls of 50; ``flops_per_update`` must equal the
-     count from the networks' shapes, 61,985,792,000), ``tools/bench_breakdown.py``
-     (one round of 3 calls of each program), ``tools/bench_scaling.py`` at world size 1
-     on one NCCL process, and ``tools/gen_scaling_record.py`` (4 updates of
-     ``train_multihost`` in 2 gloo processes, a dry run of 2): each line's keys are the
-     JAX tool's and every value is finite and positive. The harness times the plain
-     loss: the fused launches must be 0 by both counts;
  35. this slice's main path, the recipe mode of ``tools/online_curve.py``:
      ``recipe=results/quad_one entry=train_online`` with two cuts,
      ``num_train_frames`` at three cycles (10 episodes x 1,000 steps and
@@ -363,10 +356,8 @@ from controllable_agent_torch.orchestration import EntryPoint
 from controllable_agent_torch.parallel import make_dp_offline_trainer, make_group, multihost
 from controllable_agent_torch.pretrain import build_workspace
 from controllable_agent_torch.train.workspace import OfflineWorkspace, make_env
-from controllable_agent_torch.tools import (bench, bench_breakdown, bench_roofline, bench_scaling,
-                                            collect_mujoco_buffer, dynamics_check, env_step,
-                                            eval_mujoco, gen_scaling_record, mujoco_bridge,
-                                            online_curve)
+from controllable_agent_torch.tools import (collect_mujoco_buffer, dynamics_check, env_step,
+                                            eval_mujoco, mujoco_bridge, online_curve)
 from controllable_agent_torch.train import checkpoint as ckpt_lib
 from controllable_agent_torch.train import hiplogs
 from controllable_agent_torch.train.loops import (WARMUP_RUNS, CapturedProgram,
@@ -489,23 +480,13 @@ MJ_ACTS = 1000  # acts of the collector's policy, and of the evaluator's for eac
 MJ_OFFLINE_STEPS = 300  # train_offline physics_format=mujoco_walker, the fused loss
 MJ_TASKS = ("walker_stand", "walker_walk", "walker_run")
 MJ_HOST_EPISODES, MJ_HOST_EVAL_EPISODES = 3, 2  # (d), where dm_control is installed
-# phase 34: the benchmark harness at full width, with fewer calls than its defaults
-HARNESS_BENCH = ["--rounds", "1", "--calls", "5"]  # bench and bench_roofline (3 x 20)
-HARNESS_BREAKDOWN = ["--rounds", "1", "--calls", "3"]  # bench_breakdown (3 x 10)
-HARNESS_SCALING = ["--world", "1", "--repeats", "1"]  # bench_scaling: one NCCL process (3)
-# gen_scaling_record: 4 updates of train_multihost (100), a dry run of 2 processes (8)
-HARNESS_RECORD = ["--grad-steps", "4", "--dryrun-processes", "2"]
-HARNESS_KEYS = {
-    "bench": ["metric", "value", "unit", "vs_baseline"],
-    "bench_roofline": ["batch_size", "steps_per_call", "updates_per_s", "flops_per_update",
-                       "bytes_per_update", "achieved_tflops", "achieved_gbps",
-                       "op_intensity_flop_per_byte"],
-    "bench_breakdown": ["full_us", "fwdbwd_us", "opt_us", "implied_opt_share"],
-    "bench_scaling": ["metric", "devices", "value", "unit", "efficiency"]}
 # phase 35: results/quad_one's recipe through online_curve, cut to three cycles
 RECIPE = Path(__file__).resolve().parent / "results" / "quad_one"
 RECIPE_CYCLES, RECIPE_FINAL_TESTS = 3, 2
 LAST_PHASE = 36
+# phase numbers are names: a removed phase keeps its number, and naming it is refused
+REMOVED_PHASES = {34: "phase 34 (the first benchmark harness) was removed with its tools; "
+                      "perfbench/ and BENCHMARK.json time the port"}
 F32_EPS = float(torch.finfo(torch.float32).eps)
 HBM_BYTES_PER_S = 3.35e12
 FWD_RTOL = 2e-4  # as tests/test_pallas_fb.py: order of f32 sums over n^2
@@ -3327,56 +3308,6 @@ def check_mujoco_tools(tmp: str) -> tp.Dict[str, int]:
     return counts
 
 
-def _check_harness_line(tool: str, line: tp.Dict[str, tp.Any]) -> None:
-    """A tool's JSON line: the JAX tool's keys, every number finite and > 0."""
-    if list(line) != HARNESS_KEYS[tool]:
-        raise AssertionError(f"{tool} printed the keys {list(line)}, not {HARNESS_KEYS[tool]}")
-    numbers = [v for v in line.values() if not isinstance(v, str)]
-    if not all(math.isfinite(v) and v > 0 for v in numbers):
-        raise AssertionError(f"{tool}: a value is not finite and positive: {line}")
-
-
-def run_bench_harness(tmp: str) -> None:
-    """Phase 34: the port's benchmark harness (``tools/bench*.py``,
-    ``tools/gen_scaling_record.py``) at full width with fewer calls; the
-    plain loss, so no fused kernel launches. Each tool's seconds are printed."""
-    def timed_tool(name: str, fn: tp.Callable[[], tp.Any]) -> tp.Any:
-        out, seconds = _timed(fn)
-        print(f"phase 34: {name} in {seconds:.1f} s")
-        gc.collect()
-        torch.cuda.empty_cache()
-        return out
-
-    line = timed_tool("bench", lambda: bench.main(HARNESS_BENCH))
-    _check_harness_line("bench", line)
-    if line["metric"] != "fb_gradient_updates_per_s" or line["unit"] != "updates/s":
-        raise AssertionError(f"bench printed {line}")
-
-    roofline = timed_tool("bench_roofline", lambda: bench_roofline.main(HARNESS_BENCH))
-    _check_harness_line("bench_roofline", roofline)
-    # the count of one update from the networks' shapes (61.99 GFLOP at batch 1024)
-    agent = bench.bench_agent(bench.bench_config(), torch.device("cpu"))
-    want = bench_roofline.plain_update_flops(agent, roofline["batch_size"])
-    print(f"phase 34: flops_per_update {roofline['flops_per_update']} counted on the card, "
-          f"{want} from the networks' shapes")
-    if roofline["flops_per_update"] != want:
-        raise AssertionError(f"bench_roofline counted {roofline['flops_per_update']} FLOPs per "
-                             f"update, the networks' shapes give {want}")
-
-    _check_harness_line("bench_breakdown", timed_tool(
-        "bench_breakdown", lambda: bench_breakdown.main(HARNESS_BREAKDOWN)))
-
-    scaling = timed_tool("bench_scaling", lambda: bench_scaling.main(HARNESS_SCALING))
-    if [s["devices"] for s in scaling] != [1]:
-        raise AssertionError(f"bench_scaling at one process printed {scaling}")
-    _check_harness_line("bench_scaling", scaling[0])
-
-    oks = timed_tool("gen_scaling_record", lambda: gen_scaling_record.main(
-        HARNESS_RECORD + ["--out", f"{tmp}/SCALING_torch.json"]))
-    if oks != {"gloo_2process": True, "virtual_mesh_dryrun": True}:
-        raise AssertionError(f"gen_scaling_record: {oks}")
-
-
 def run_recipe(tmp: str) -> tp.Dict[str, int]:
     """Phase 35: ``tools/online_curve.py``'s recipe mode on ``results/quad_one``,
     cut to ``RECIPE_CYCLES`` cycles and a battery of ``RECIPE_FINAL_TESTS``
@@ -3698,18 +3629,22 @@ def quad_replay(tmp: str) -> None:
 
 def parse_phases(argv: tp.Sequence[str]) -> tp.List[int]:
     """``--phases 26-28`` or ``--phases 4,11,21`` (ranges and lists mixed);
-    every phase without the option."""
+    every phase without the option. A range steps over a removed phase; a
+    selection that names one (alone or as a range's end) is refused."""
     if not argv:
-        return list(range(1, LAST_PHASE + 1))
+        return [p for p in range(1, LAST_PHASE + 1) if p not in REMOVED_PHASES]
     if len(argv) != 2 or argv[0] != "--phases":
         raise SystemExit(f"usage: python3 chip_smoke.py [--phases 1-{LAST_PHASE} | 4,11,21]")
     phases = set()
     for part in argv[1].split(","):
         lo, _, hi = part.partition("-")
+        named = {int(lo), int(hi or lo)} & REMOVED_PHASES.keys()
+        if named:
+            raise SystemExit(REMOVED_PHASES[min(named)])
         phases.update(range(int(lo), int(hi or lo) + 1))
     if not phases or min(phases) < 1 or max(phases) > LAST_PHASE:
         raise SystemExit(f"phases are numbered 1 to {LAST_PHASE}, got {argv[1]}")
-    return sorted(phases | {1})  # the kernels are built for every selection
+    return sorted((phases - REMOVED_PHASES.keys()) | {1})  # the kernels build for every selection
 
 
 class SmokeRun:
@@ -3916,10 +3851,6 @@ class SmokeRun:
                 row["launches"] = mujoco_counts[row["wrapper"]]
             self.by_path("train_offline physics_format=mujoco_walker (phase 33)",
                          mujoco_counts)
-        gc.collect()
-        torch.cuda.empty_cache()
-        self.zero_launches((34,), "benchmark harness (phase 34)", (
-            (34, lambda: run_bench_harness(tmp)),))
         gc.collect()
         torch.cuda.empty_cache()
         if 35 in selected:

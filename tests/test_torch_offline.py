@@ -332,3 +332,15 @@ def test_chip_smoke_fails_without_a_card_or_the_package(tmp_path) -> None:
     alone = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path, env=env,
                            capture_output=True, text=True, timeout=300)
     assert alone.returncode != 0 and '"ok"' not in alone.stdout
+
+
+def test_chip_smoke_refuses_its_removed_phase() -> None:
+    """Phase 34 was removed but keeps its number: naming it is refused with
+    the reason, a range steps over it, and a full run leaves it out."""
+    import chip_smoke
+    for selection in ("34", "33-34", "34-36", "4,34"):
+        with pytest.raises(SystemExit, match="phase 34 .* was removed"):
+            chip_smoke.parse_phases(["--phases", selection])
+    assert chip_smoke.parse_phases(["--phases", "30-36"]) == [1, 30, 31, 32, 33, 35, 36]
+    every = chip_smoke.parse_phases([])
+    assert 34 not in every and every[-1] == chip_smoke.LAST_PHASE == 36 and len(every) == 35

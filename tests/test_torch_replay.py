@@ -15,7 +15,8 @@ from controllable_agent_tpu.envs import locomotion as jax_locomotion
 from controllable_agent_tpu.goals import get_reward_function as jax_get_reward_function
 from controllable_agent_tpu.goals import goal_spaces as jax_goal_spaces
 from controllable_agent_torch.data import ReplayBuffer
-from controllable_agent_torch.data.exorl import load_exorl_episodes, save_exorl_episodes
+from controllable_agent_torch.data.exorl import (load_exorl_episodes, save_exorl_episodes,
+                                                 synthetic_episodes)
 from controllable_agent_torch.data.replay import SampleConfig, sample
 from controllable_agent_torch.envs import locomotion
 from controllable_agent_torch.goals import get_reward_function, goal_spaces
@@ -144,6 +145,30 @@ def test_exorl_files_round_trip_and_read_by_the_jax_loader(tmp_path) -> None:
     # an adapter leaves episodes without physics alone
     adapted = list(load_exorl_episodes(tmp_path, physics_format="mujoco_walker"))
     np.testing.assert_array_equal(adapted[0]["observation"], ours[0]["observation"])
+
+
+def test_bench_buffer_equals_the_jax_bench_buffer() -> None:
+    """``synthetic_episodes`` committed into a ``ReplayBuffer(discount=0.98,
+    future=0.99)`` equals the replay of the JAX ``bench.py:42-52``, filled
+    its way at 4 x 50 steps, to the bit."""
+    episodes, length, obs_dim, action_dim = 4, 50, 24, 6
+    jbuf = JaxReplayBuffer(max_episodes=episodes, discount=0.98, future=0.99)
+    rng = np.random.RandomState(0)
+    for _ in range(episodes):
+        jbuf.add_episode({
+            "observation": rng.randn(length + 1, obs_dim).astype(np.float32),
+            "action": rng.uniform(-1, 1, (length + 1, action_dim)).astype(np.float32),
+            "reward": rng.rand(length + 1, 1).astype(np.float32),
+            "discount": np.ones((length + 1, 1), np.float32),
+        })
+    buf = ReplayBuffer(episodes, discount=0.98, future=0.99, device="cpu")
+    buf.load_episodes(synthetic_episodes(episodes, length, obs_dim, action_dim, 0))
+    assert (buf.cfg.discount, buf.cfg.future) == (jbuf.cfg.discount, jbuf.cfg.future)
+    assert sorted(buf.state.storage) == sorted(jbuf.state.storage)
+    for k, v in buf.state.storage.items():
+        np.testing.assert_array_equal(v.numpy(), np.asarray(jbuf.state.storage[k]), err_msg=k)
+    np.testing.assert_array_equal(buf.state.ep_lengths.numpy(),
+                                  np.asarray(jbuf.state.ep_lengths))
 
 
 def _physics_buffers(lengths=(9, 6, 12)):

@@ -6,10 +6,14 @@
     package (the port keeps its own copies);
   * in ``ops/fused_fb.py`` every kernel's plain version has its wrapper
     beside it, and the wrapper takes that plain version for CPU tensors and
-    counts its launches.
+    counts its launches;
+  * every ``python -m controllable_agent_torch.…`` module that the README
+    and the verify recipe name exists (found, not imported).
 """
 
 import ast
+import importlib.util
+import re
 from pathlib import Path
 
 import pytest
@@ -19,6 +23,11 @@ PORT = ROOT / "controllable_agent_torch"
 PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack", "controllable_agent_tpu", "tools"}
 FUSED = PORT / "ops" / "fused_fb.py"
+DOCUMENTS = [ROOT / "README.md", ROOT / ".claude" / "skills" / "verify" / "SKILL.md"]
+# ``python -m NAME``, the module perhaps on the next line after a backslash
+RUN_MODULE = re.compile(r"python3? -m\s*(?:\\\s*)?(controllable_agent_torch(?:\.\w+)+)")
+DOCUMENTED_MODULES = sorted({name for doc in DOCUMENTS
+                             for name in RUN_MODULE.findall(doc.read_text())})
 
 
 def _imported_modules(tree: ast.AST) -> set:
@@ -76,14 +85,14 @@ def test_port_has_modules_to_check() -> None:
             "controllable_agent_torch/tools/mujoco_bridge.py",
             "controllable_agent_torch/tools/eval_mujoco.py",
             "controllable_agent_torch/tools/collect_mujoco_buffer.py",
-            "controllable_agent_torch/tools/gen_parity_report.py",
-            "controllable_agent_torch/tools/bench.py",
-            "controllable_agent_torch/tools/bench_roofline.py",
-            "controllable_agent_torch/tools/bench_breakdown.py",
-            "controllable_agent_torch/tools/bench_scaling.py",
-            "controllable_agent_torch/tools/gen_scaling_record.py"} <= names
-    # the harness's shell recipe has no imports to check, only a place
-    assert (PORT / "tools" / "run_pod_scaling.sh").is_file()
+            "controllable_agent_torch/tools/gen_parity_report.py"} <= names
+
+
+@pytest.mark.parametrize("module", DOCUMENTED_MODULES)
+def test_documented_module_exists(module) -> None:
+    """A module that a document tells the reader to run is in the port:
+    ``find_spec`` finds it without importing it."""
+    assert importlib.util.find_spec(module) is not None, f"{module} is named but not found"
 
 
 def test_engine_differentiates_by_hand() -> None:
